@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100 (sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, one progress line each (``# phase ...``, with wall seconds):
+
+1. device: fails without ``torch.cuda.is_available()``; prints nvidia-smi's
+   name and power limit and ``torch.cuda.get_device_name(0)``;
+2. build: the one ``nvcc`` call of ``ops/_build.py``, with its seconds and
+   the ``-Xptxas -v`` register and shared-memory lines;
+3. kernels: a lattice reset at N = 32,768 and 3 policy steps (so the
+   history and the delayed graphs are non-trivial), then each kernel at
+   this slice's shapes against its plain PyTorch version on the card
+   (tolerance 1e-5 of each channel's largest magnitude: same arithmetic,
+   other summation order; degrees and min r^2 exact), and against the
+   O(N²) blocked oracle at N = 4,096 (tolerance 1e-4: the oracle sums
+   through float32 matrix products); then each timed with CUDA events
+   over 50 launches, beside its plain version;
+4. episode: one greedy 200-step N = 32,768 K = 3 episode through the
+   port's evaluate entry point with the in-repo n32k checkpoint, with the
+   launch counters zeroed just before and read just after. It must launch
+   K1 201 times and K2 and K3 200 times each, overflow 0, and land within
+   -458.8 +- 15 (the JAX package's 10-episode eval of this checkpoint at
+   this N is -458.8 +- 2.0, RESULTS.md section 8);
+5. budget: the run, build included, must finish in BUDGET_S; a watchdog
+   ends it with a non-zero exit after WATCHDOG_S.
+
+Then, before the last line: the card's nvidia-smi line and one JSON object
+``{"kernels": [...]}`` (per kernel: launches on the main path, max abs error
+against the plain version, ms, plain ms, the bound worked out from this
+run's bytes and operations, and the PyTorch library time, null: no PyTorch
+call computes these sweeps). The last line is the JSON contract
+``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
+a non-zero exit, as is a run outside a checkout of the repository.
+"""
+
+import faulthandler
+import json
+import math
+import os
+import re
+import subprocess
+import sys
+import time
+
+sys.dont_write_bytecode = True   # write nothing outside the build directory
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+BUDGET_S = 300.0
+WATCHDOG_S = 480
+SEED = 20261017
+DEVICE = "cuda"
+N = 32768
+N_ORACLE = 4096
+REPS = 50
+REL_PLAIN = 1e-5
+REL_ORACLE = 1e-4
+REWARD_REF, REWARD_BAND = -458.8, 15.0
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
+FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+CHECKPOINT = os.path.join(ROOT, "models",
+                          "actor_FlockingRelative-v0_dagger_n32k.npz")
+CONFIG = os.path.join(ROOT, "cfg", "dagger_n32k.cfg")
+KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
+TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
+
+T0 = time.perf_counter()
+
+
+def phase(name, t_start, **info):
+    extra = " ".join(f"{k}={v}" for k, v in info.items())
+    print(f"# phase {name}: {time.perf_counter() - t_start:.2f} s {extra}",
+          flush=True)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return out.strip()
+
+
+def check_close(what, got, want, rel, exact_channels=()):
+    """Per-channel max abs and max rel error; raises past ``rel`` of the
+    channel's largest magnitude (and on any difference in the exact
+    channels). Returns the max abs error over all channels."""
+    import torch
+
+    got2 = got.reshape(got.shape[0], -1).double()
+    want2 = want.reshape(want.shape[0], -1).double()
+    if not torch.isfinite(got2).all():
+        raise AssertionError(f"{what}: non-finite output")
+    err = (got2 - want2).abs().amax(0)
+    scale = want2.abs().amax(0).clamp_min(1e-30)
+    rel_err = err / scale
+    print(f"#   {what}: max abs err per channel "
+          f"{[float(f'{e:.3g}') for e in err.tolist()]}, max rel "
+          f"{float(rel_err.max()):.3g} (tolerance {rel})", flush=True)
+    if (rel_err > rel).any():
+        raise AssertionError(f"{what}: rel error {rel_err.tolist()} > {rel}")
+    for q in exact_channels:
+        if float(err[q]) != 0.0:
+            raise AssertionError(f"{what}: channel {q} differs by {err[q]}")
+    return float(err.max())
+
+
+def device_ms(fn, reps=REPS):
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
+    events, after a warm-up. The card first waits in a sleep kernel while
+    the host queues all calls, so host overhead stays out of the window."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(n_bytes, n_ops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def pair_counts(cc, x_pos, grid, spec):
+    """(candidate pairs, radius-neighbour pairs) that this input's sweep
+    visits: what the data needs, not the cap's worst case."""
+    valid, _, _, _, r2 = cc._pair_geometry(x_pos, cc._candidates(grid, spec))
+    return int(valid.sum()), int((valid & (r2 < 1.0)).sum())
+
+
+def neighbour_bytes(grid, spec):
+    """Bytes of the least neighbour structure a sweep over ``grid`` needs:
+    the cell-sorted agent order (int32 per agent) and an int32 start and
+    count for each cell the sweep touches (the 3x3 cells around every
+    occupied cell, inside the grid), not the cap-wide padded table."""
+    import torch
+
+    s = grid.slot[grid.slot >= 0].long()
+    occ = torch.zeros((1, 1, spec.cx, spec.cy), device=s.device)
+    occ[0, 0, s // (spec.cap * spec.cy), s % spec.cy] = 1.0
+    touched = torch.nn.functional.max_pool2d(occ, 3, stride=1, padding=1)
+    return 4 * grid.slot.shape[0] + 8 * int(touched.sum())
+
+
+def ptxas_summary(lines):
+    """One line per kernel instantiation from nvcc's ``-Xptxas -v`` output:
+    its name and what ptxas used (registers, barriers, shared memory,
+    stack and spills)."""
+    name, frame = None, ""
+    for line in lines:
+        m = re.search(r"entry function .*?((?:frame|apply_deg|apply)_kernel)"
+                      r"(?:ILi(\d+)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+        elif "bytes stack frame" in line:
+            frame = "; " + line.strip()
+        elif "Used" in line and name:
+            yield f"{name}: {line.split(':', 1)[1].strip()}{frame}"
+            name, frame = None, ""
+
+
+def main():
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    import torch
+
+    # 1. device
+    t = time.perf_counter()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    from multiagent_gnn_policies_tpu_torch import evaluate as ev
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+        FlockingParams, _init_candidate, strict_fp32)
+    from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+    from multiagent_gnn_policies_tpu_torch.ops import _build
+    from multiagent_gnn_policies_tpu_torch.ops import blocked as bl
+    from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
+    from multiagent_gnn_policies_tpu_torch.utils.config import (
+        ExperimentConfig, load_ini)
+
+    strict_fp32()
+    dev = torch.device(DEVICE)
+    smi = nvidia_smi_line()
+    print(smi, flush=True)
+    phase("device", t, torch_name=repr(torch.cuda.get_device_name(0)),
+          count=torch.cuda.device_count(), torch=torch.__version__,
+          cuda=torch.version.cuda)
+
+    # 2. build
+    t = time.perf_counter()
+    built = _build.build()
+    _build.library()
+    for line in ptxas_summary(built.ptxas):
+        print(f"#   {line}", flush=True)
+    phase("build", t, nvcc_seconds=f"{built.seconds:.2f}",
+          library=os.path.relpath(built.path, ROOT))
+
+    # 3. kernels at this slice's shapes, after 3 policy steps
+    t = time.perf_counter()
+    p = FlockingParams(n_agents=N)
+    acfg = ActorConfig(n_s=6, n_a=2, hidden=(32, 32), k=3)
+    actor = ev.load_actor(CHECKPOINT, acfg, dev)
+    spec = cc.make_pcell_spec(p)
+    cfg = ln.LargeNConfig(params=p, cell_spec=spec, centralized=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        state = ln._episode_init(cfg, acfg, gen, dev)
+        state, _ = ln._scan_steps(cfg, actor, state, 3, gen)
+        if int(state.overflow):
+            raise AssertionError(f"overflow {int(state.overflow)} at N={N}")
+        x, grid, carry = state.x, state.grid, state.carry
+        cols = ln._s0_cols(carry).contiguous()                  # (N, 12)
+        pos_h = carry.pos_hist[0].contiguous()                  # (N, 2)
+        grid_h = state.grid_hist[0]
+        wcols = (state.s0.reshape(N, 2, 6)[:, 1, :]
+                 / carry.deg_hist[0].clamp_min(1.0)[:, None]).contiguous()
+        k1 = lambda: cc.frame_sweep(x, grid, spec, 1.0, True)
+        k1_plain = lambda: cc.frame_sweep_plain(x, grid, spec, 1.0, True)
+        out1 = k1()
+        deg = out1[:, 6].contiguous()
+        k2 = lambda: cc.apply_deg_sweep(x, cols, deg, grid, spec, 1.0)
+        k2_plain = lambda: cc.apply_deg_sweep_plain(x, cols, deg, grid, spec,
+                                                    1.0)
+        k3 = lambda: cc.apply_sweep(pos_h, wcols, grid_h, spec, 1.0)
+        k3_plain = lambda: cc.apply_sweep_plain(pos_h, wcols, grid_h, spec,
+                                                1.0)
+        outs = {"K1": (out1, k1_plain()), "K2": (k2(), k2_plain()),
+                "K3": (k3(), k3_plain())}
+        torch.cuda.synchronize()
+        err = {
+            "K1": check_close("K1 vs plain, N=32768", *outs["K1"], REL_PLAIN,
+                              exact_channels=(6, 9)),
+            "K2": check_close("K2 vs plain, N=32768", *outs["K2"], REL_PLAIN),
+            "K3": check_close("K3 vs plain, N=32768", *outs["K3"], REL_PLAIN),
+        }
+
+        # the O(N^2) blocked oracle at N = 4,096 (row blocks, never (N, N))
+        p4 = FlockingParams(n_agents=N_ORACLE)
+        spec4 = cc.make_pcell_spec(p4)
+        x4 = _init_candidate(gen, p4, dev)
+        x4[:, :2] += 0.05 * torch.randn(N_ORACLE, 2, generator=gen,
+                                        device=dev)
+        g4 = cc.build_pcell_grid(x4[:, :2], spec4)
+        if int(g4.overflow):
+            raise AssertionError(f"overflow at N={N_ORACLE}")
+        cols4 = torch.randn(N_ORACLE, 12, generator=gen, device=dev)
+        fq4, applied4 = cc.frame_apply(x4, cols4, g4, spec4, p4, True)
+        ref4 = bl.blocked_frame(x4, p4, True, block=512)
+        check_close("K1 vs blocked oracle, N=4096", fq4.values, ref4.values,
+                    REL_ORACLE)
+        check_close("K1 degree vs blocked oracle", fq4.degree[:, None],
+                    ref4.degree[:, None], 0.0, exact_channels=(0,))
+        if float(fq4.min_r2) != float(ref4.min_r2):
+            raise AssertionError(f"min r^2 {float(fq4.min_r2)} != "
+                                 f"{float(ref4.min_r2)}")
+        check_close("K2 vs blocked oracle, N=4096", applied4,
+                    bl.blocked_apply_adjT(x4[:, :2], cols4, p4, 512,
+                                          deg=fq4.degree), REL_ORACLE)
+        deg4 = ref4.degree.roll(1)          # any per-agent normaliser
+        check_close("K3 vs blocked oracle, N=4096",
+                    cc.apply_adjT(x4[:, :2], deg4, cols4[:, :6], spec4, p4,
+                                  grid=g4),
+                    bl.blocked_apply_adjT(x4[:, :2], cols4[:, :6], p4, 512,
+                                          deg=deg4), REL_ORACLE)
+
+        # time each kernel and its plain version at this slice's shapes
+        cand1, nbr1 = pair_counts(cc, x[:, :2], grid, spec)
+        cand3, nbr3 = pair_counts(cc, pos_h, grid_h, spec)
+        nb1, nb3 = neighbour_bytes(grid, spec), neighbour_bytes(grid_h, spec)
+        work = {   # (bytes moved, operations) that this input needs: each
+            # per-agent input read once (positions alone where only they
+            # are used), each output written once
+            "K1": (N * 16 + nb1 + N * 40, 11 * cand1 + 25 * nbr1),
+            "K2": (N * 8 + N * 48 + N * 4 + nb1 + N * 48,
+                   6 * cand1 + (2 + 2 * 12) * nbr1),
+            "K3": (N * 8 + N * 24 + nb3 + N * 24,
+                   6 * cand3 + 6 * nbr3),
+        }
+        timing = {}
+        for name, fn, plain in (("K1", k1, k1_plain), ("K2", k2, k2_plain),
+                                ("K3", k3, k3_plain)):
+            ms, plain_ms = device_ms(fn), device_ms(plain)
+            b_ms, b_by = bound_ms(*work[name])
+            timing[name] = (ms, plain_ms, b_ms, b_by)
+            print(f"#   {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}), {work[name][0]} B, "
+                  f"{work[name][1]} ops", flush=True)
+    phase("kernels", t, candidate_pairs=cand1, neighbour_pairs=nbr1)
+
+    # 4. the main path: one greedy episode through the evaluate entry point
+    t = time.perf_counter()
+    section = load_ini(CONFIG)["n32k"]
+    cc.reset_launch_counts()
+    stats = ev.evaluate_blocked(section, CHECKPOINT, n_agents=N,
+                                n_episodes=1, device=DEVICE)
+    torch.cuda.synchronize()
+    episode_s = time.perf_counter() - t
+    launches = cc.launch_counts()
+    reward = stats["mean"]
+    steps = ExperimentConfig.from_section(section).episode_steps
+    want = {"frame_sweep": steps + 1, "apply_deg_sweep": steps,
+            "apply_sweep": steps}
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    if stats["overflow"] != 0 or not math.isfinite(reward):
+        raise AssertionError(f"overflow {stats['overflow']}, reward {reward}")
+    if abs(reward - REWARD_REF) > REWARD_BAND:
+        raise AssertionError(f"reward {reward} outside {REWARD_REF} +- "
+                             f"{REWARD_BAND}")
+    phase("episode", t, reward=reward, overflow=stats["overflow"],
+          ms_per_step=f"{1e3 * episode_s / steps:.3f}",
+          launches=json.dumps(launches, separators=(",", ":")))
+
+    # 5. budget
+    total = time.perf_counter() - T0
+    phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
+    if total > BUDGET_S:
+        raise AssertionError(f"run took {total:.1f} s > {BUDGET_S} s")
+
+    kernels = []
+    for name, fn_name, line in (("K1", "frame_sweep", 496),
+                                ("K2", "apply_deg_sweep", 613),
+                                ("K3", "apply_sweep", 572)):
+        ms, plain_ms, b_ms, b_by = timing[name]
+        kernels.append({
+            "name": f"{name} {fn_name}", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": f"{TPU_SOURCE}:{line}",
+            "launches": launches[fn_name], "max_abs_err": err[name],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+        })
+    faulthandler.cancel_dump_traceback_later()
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

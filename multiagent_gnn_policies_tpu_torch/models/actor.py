@@ -1,0 +1,80 @@
+"""The delayed-aggregation GNN policy as an ``nn.Module``.
+
+The counterpart of the JAX package's ``models/actor.py`` for ``ind_agg = 0``
+on the pre-aggregated input (``delay_gso=None``), the form every large-N
+rollout feeds it: the first layer contracts the K delay taps and the F
+features of ``y = delay_gso^T x`` per agent, the later layers are per-agent
+linear maps, with ``tanh`` between layers and, for ``bound="tanh"``, on the
+output. These are plain matrix products (the JAX package leaves them to
+XLA, outside any kernel), so they go to ``nn.Linear``.
+
+Weights: JAX layer ``i`` holds ``w`` (F_out, F_in, taps) and ``b``
+(F_out,); ``models/torch_import.py`` maps them onto this module.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class ActorConfig:
+    """Static architecture (the JAX package's ``ActorConfig``).
+
+    Attributes:
+      n_s / n_a: per-agent feature and action widths.
+      hidden: hidden layer widths.
+      k: number of delay taps.
+      ind_agg: layer before which aggregation happens (0 here).
+      bound: "none" (raw linear output) or "tanh".
+    """
+
+    n_s: int
+    n_a: int
+    hidden: Tuple[int, ...]
+    k: int
+    ind_agg: int = 0
+    bound: str = "none"
+
+    def __post_init__(self):
+        if self.bound not in ("none", "tanh"):
+            raise ValueError(f"unknown actor bound {self.bound!r}")
+
+    @property
+    def widths(self) -> Tuple[int, ...]:
+        return (self.n_s, *self.hidden, self.n_a)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.widths) - 1
+
+    def taps(self, i: int) -> int:
+        return self.k if i == self.ind_agg else 1
+
+
+class Actor(nn.Module):
+    """``actor_forward(params, cfg, y, None)`` for ``ind_agg = 0``."""
+
+    def __init__(self, cfg: ActorConfig):
+        super().__init__()
+        if cfg.ind_agg != 0:
+            raise ValueError("the pre-aggregated actor needs ind_agg == 0")
+        self.cfg = cfg
+        w = cfg.widths
+        self.layers = nn.ModuleList(
+            [nn.Linear(w[i] * cfg.taps(i), w[i + 1])
+             for i in range(cfg.n_layers)])
+
+    def forward(self, y: torch.Tensor) -> torch.Tensor:
+        """``y``: (..., K, N, F) pre-aggregated history -> (..., N, n_a)."""
+        h = y.movedim(-3, -2).flatten(-2)          # (..., N, K·F), k-major
+        last = len(self.layers) - 1
+        for i, layer in enumerate(self.layers):
+            h = layer(h)
+            if i < last or self.cfg.bound == "tanh":
+                h = torch.tanh(h)
+        return h

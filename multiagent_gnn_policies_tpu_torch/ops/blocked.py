@@ -1,0 +1,164 @@
+"""The O(N²) row-blocked oracle and the delayed-stack carry.
+
+The counterpart of the JAX package's ``ops/blocked.py``:
+
+* :func:`blocked_frame` and :func:`blocked_apply_adjT` compute the frame
+  quantities and the degree-normalised adjacency transpose-apply over the
+  radius graph with peak memory O(block · N): never an (N, N) array. They
+  are the oracle of the cell sweeps (``ops/cells_cuda.py``) in the tests
+  and in ``chip_smoke.py``.
+* :class:`DelayCarry`, :func:`delay_carry_init` and
+  :func:`delay_carry_update` hold the feature history and the historical
+  graphs' positions and degrees that the delayed y-stack reads.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+    COLLISION_R2_EPS,
+    FlockingParams,
+)
+
+
+class FrameQuantities(NamedTuple):
+    """Per-agent quantities of the current frame.
+
+    Attributes:
+      values: (N, 6) observation feature row-sums.
+      degree: (N,) radius-graph degree (excluding self).
+      expert: (N, 2) analytic flocking-controller accelerations, or None
+        from the cell sweeps (the greedy policy path never reads it).
+      min_r2: () minimum squared pairwise distance.
+    """
+
+    values: torch.Tensor
+    degree: torch.Tensor
+    expert: Optional[torch.Tensor]
+    min_r2: torch.Tensor
+
+
+def _pair_blocks(xi, x, p: FlockingParams, rows):
+    """Geometry of a (B, 4) row block against the full (N, 4) state."""
+    n = x.shape[0]
+    dx = xi[:, None, 0] - x[None, :, 0]
+    dy = xi[:, None, 1] - x[None, :, 1]
+    r2 = dx * dx + dy * dy
+    self_mask = rows[:, None] == torch.arange(n, device=x.device)[None, :]
+    r2 = torch.where(self_mask, torch.inf, r2)
+    adj = (r2 < p.comm_radius * p.comm_radius).to(x.dtype)
+    return dx, dy, r2, adj, self_mask
+
+
+def blocked_frame(x: torch.Tensor, p: FlockingParams, centralized: bool = True,
+                  block: int = 128) -> FrameQuantities:
+    """Observation features, degrees, expert and min r² of ``x`` (N, 4)."""
+    n = x.shape[0]
+    if n % block:
+        raise ValueError(f"row count {n} not divisible by block {block}")
+    values, degree, expert = [], [], []
+    min_r2 = torch.full((), torch.inf, dtype=x.dtype, device=x.device)
+    for off in range(0, n, block):
+        xi = x[off:off + block]
+        rows = torch.arange(off, off + block, device=x.device)
+        dx, dy, r2, adj, self_mask = _pair_blocks(xi, x, p, rows)
+        dvx = xi[:, None, 2] - x[None, :, 2]
+        dvy = xi[:, None, 3] - x[None, :, 3]
+        r2s = torch.clamp_min(torch.where(torch.isinf(r2), 1.0, r2),
+                              COLLISION_R2_EPS)
+        inv_r2 = 1.0 / r2s
+        inv_r4 = inv_r2 * inv_r2
+        values.append(torch.stack([
+            (dvx * adj).sum(1),
+            (dx * inv_r4 * adj).sum(1),
+            (dx * inv_r2 * adj).sum(1),
+            (dvy * adj).sum(1),
+            (dy * inv_r4 * adj).sum(1),
+            (dy * inv_r2 * adj).sum(1),
+        ], -1))
+        degree.append(adj.sum(1))
+        # truncated potential gradient + velocity consensus
+        in_range = (r2 <= 1.0).to(x.dtype)
+        gx = (-2.0 * dx * inv_r4 + 2.0 * dx * inv_r2) * in_range
+        gy = (-2.0 * dy * inv_r4 + 2.0 * dy * inv_r2) * in_range
+        if centralized:
+            nonself = 1.0 - self_mask.to(x.dtype)
+            ux = -((dvx * nonself).sum(1) + gx.sum(1))
+            uy = -((dvy * nonself).sum(1) + gy.sum(1))
+        else:
+            ux = -((dvx * adj).sum(1) + (gx * adj).sum(1))
+            uy = -((dvy * adj).sum(1) + (gy * adj).sum(1))
+        expert.append(torch.clamp(torch.stack([ux, uy], -1), -10.0, 10.0))
+        min_r2 = torch.minimum(min_r2, r2.min())
+    return FrameQuantities(values=torch.cat(values), degree=torch.cat(degree),
+                           expert=torch.cat(expert), min_r2=min_r2)
+
+
+def blocked_apply_adjT(pos: torch.Tensor, cols: torch.Tensor,
+                       p: FlockingParams, block: int = 128,
+                       deg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``out[j] = sum_i adj[i, j] / deg_i · cols[i]`` without storing adj.
+
+    ``deg``: the (N,) radius degrees of ``pos``'s graph, recomputed per
+    block when ``None``."""
+    n = pos.shape[0]
+    if n % block:
+        raise ValueError(f"row count {n} not divisible by block {block}")
+    x = torch.cat([pos, torch.zeros_like(pos)], -1)
+    acc = torch.zeros((n, cols.shape[1]), dtype=cols.dtype, device=cols.device)
+    for off in range(0, n, block):
+        rows = torch.arange(off, off + block, device=pos.device)
+        _, _, _, adj, _ = _pair_blocks(x[off:off + block], x, p, rows)
+        d = adj.sum(1) if deg is None else deg[off:off + block]
+        aod = adj / torch.clamp_min(d, 1.0)[:, None]
+        acc = acc + aod.T @ cols[off:off + block]
+    return acc
+
+
+class DelayCarry(NamedTuple):
+    """Rollout carry for the feature-space delayed stack.
+
+    Attributes:
+      history: (K, N, F) raw feature history ``[x_t, ..., x_{t-K+1}]``
+        (zeros before episode step k).
+      pos_hist: (max(K-2, 0), N, 2) positions at ``[t-1, ..., t-K+2]``.
+      deg_hist: (max(K-2, 0), N) radius degrees of those graphs.
+    """
+
+    history: torch.Tensor
+    pos_hist: torch.Tensor
+    deg_hist: torch.Tensor
+
+
+def delay_carry_init(values: torch.Tensor, n: int, k: int) -> DelayCarry:
+    """Episode-start carry: history ``[x_0, 0, ..., 0]``; positions zeroed
+    and degrees one (never read before they are filled)."""
+    f = values.shape[-1]
+    kw = dict(dtype=values.dtype, device=values.device)
+    history = torch.cat([values[None], torch.zeros((k - 1, n, f), **kw)])
+    return DelayCarry(history=history,
+                      pos_hist=torch.zeros((max(k - 2, 0), n, 2), **kw),
+                      deg_hist=torch.ones((max(k - 2, 0), n), **kw))
+
+
+def delay_carry_update(carry: DelayCarry, new_values: torch.Tensor,
+                       pos_prev: torch.Tensor,
+                       deg_prev: Optional[torch.Tensor] = None) -> DelayCarry:
+    """Shift and insert after an env step: ``x_{t+1}`` enters the feature
+    history; the pre-step positions and degrees enter the graph history."""
+    k = carry.history.shape[0]
+    history = torch.cat([new_values[None], carry.history[:k - 1]])
+    if not carry.pos_hist.shape[0]:
+        return DelayCarry(history, carry.pos_hist, carry.deg_hist)
+    if deg_prev is None:
+        raise ValueError(
+            "delay_carry_update needs deg_prev (the pre-step frame's degrees) "
+            "when K > 2: ones would silently mis-normalise")
+    return DelayCarry(
+        history=history,
+        pos_hist=torch.cat([pos_prev[None], carry.pos_hist[:-1]]),
+        deg_hist=torch.cat([deg_prev[None], carry.deg_hist[:-1]]),
+    )

@@ -1,0 +1,365 @@
+"""The O(N) cell-grid neighbour sweeps on Hopper: grid build, the three
+kernels' wrappers and plain versions, and the functions built on them.
+
+The counterpart of the JAX package's ``ops/pallas_cells.py``. It copies
+each kernel's contract, not its TPU layout: with ``overflow == 0`` (no cell
+over ``cap``, no agent outside the grid) every radius neighbour is counted
+exactly once. The cell edge is ``max(comm_radius, 1) · edge_mult``, so the
+3x3 cells around an agent hold its radius neighbours and the expert's
+unit-range potential. Agents are sorted by cell; ``csrc/cells.cu`` runs one
+thread per agent over the 9 neighbour cells.
+
+Three kernels, each with a wrapper that launches it for CUDA tensors (and
+counts the launch in ``.launches``) and takes the plain PyTorch version
+below it for CPU tensors; for a CUDA tensor a wrapper launches its kernel or
+raises, never falls back:
+
+* :func:`frame_sweep` (K1): (N, 4) state -> (N, 10) frame channels;
+* :func:`apply_deg_sweep` (K2): state, (N, C) raw columns and the new
+  graph's (N,) degrees -> (N, C) degree-normalised neighbour sums;
+* :func:`apply_sweep` (K3): (N, 2) positions and (N, C) pre-divided columns
+  -> (N, C) neighbour sums.
+
+The plain versions gather each agent's 9·cap candidates: O(N · 9 · cap)
+memory, fine on the card at N = 32,768, never an (N, N) array.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+    COLLISION_R2_EPS,
+    FlockingParams,
+)
+from multiagent_gnn_policies_tpu_torch.ops.blocked import (
+    DelayCarry,
+    FrameQuantities,
+)
+
+# column counts the apply kernels are built for (cells.cu): K2's (K-1)·F
+# and K3's F at K = 3, F = 6
+APPLY_COLS = (6, 12)
+FRAME_CHANNELS = 10   # v0..v5 | degree | gx | gy | min_r2
+MIN_R2_FILL = 1e12
+
+
+class PCellSpec(NamedTuple):
+    """Static cell-grid geometry."""
+
+    cx: int        # grid rows (cells along x)
+    cy: int        # grid cols (cells along y)
+    cap: int       # agent slots per cell
+    cell: float    # cell edge length (>= comm_radius and >= 1.0)
+
+
+def make_pcell_spec(p: FlockingParams, cap: int = 16, margin: float = 1.3,
+                    edge_mult: float = 1.0) -> PCellSpec:
+    """A square grid for ``p``'s initial swarm extent times ``margin``, with
+    cells of ``edge_mult`` times the minimum legal edge (the sweep is exact
+    for any ``edge_mult >= 1``; the per-step overflow certifies capacity)."""
+    cell = max(p.comm_radius, 1.0) * edge_mult
+    extent = 2.0 * math.sqrt(p.arena_r2_per_agent * p.n_agents) * margin
+    need = max(3, math.ceil(extent / cell) + 2)
+    return PCellSpec(cx=need, cy=need, cap=cap, cell=cell)
+
+
+class PCellGrid(NamedTuple):
+    """One frame's agent -> (cell, rank) assignment, all int32.
+
+    Attributes:
+      slot: (N,) ``(i·cap + rank)·cy + j`` for an agent in cell (i, j), the
+        JAX package's slot id; -1 = dropped (cell over ``cap`` or outside
+        the grid).
+      table: (cx·cy·cap,) agent index at ``(i·cy + j)·cap + rank``, -1 empty.
+      order: (N,) agent indices sorted by cell id (stable); kernel thread
+        ``t`` handles agent ``order[t]``.
+      overflow: () dropped-agent count; 0 means the sweeps are exact.
+    """
+
+    slot: torch.Tensor
+    table: torch.Tensor
+    order: torch.Tensor
+    overflow: torch.Tensor
+
+
+def build_pcell_grid(pos: torch.Tensor, spec: PCellSpec) -> PCellGrid:
+    """Sort agents by cell id and assign ranks: cell ids from the swarm's
+    min corner, a stable argsort, the rank within each run of equal ids,
+    and the drops of ranks >= ``cap`` and of agents outside the grid (the
+    JAX package's ``build_pcell_grid``, slot for slot)."""
+    n = pos.shape[0]
+    dev = pos.device
+    origin = pos.min(0).values
+    ij = torch.floor((pos - origin) / spec.cell).to(torch.int64)   # >= 0
+    in_grid = (ij[:, 0] < spec.cx) & (ij[:, 1] < spec.cy)
+    cid = (torch.clamp_max(ij[:, 0], spec.cx - 1) * spec.cy
+           + torch.clamp_max(ij[:, 1], spec.cy - 1))
+    order = torch.argsort(cid, stable=True)
+    sc = cid[order]
+    rank = torch.arange(n, device=dev) - torch.searchsorted(sc, sc)
+    ok = (rank < spec.cap) & in_grid[order]
+    slot_sorted = torch.where(
+        ok, (sc // spec.cy * spec.cap + rank) * spec.cy + sc % spec.cy, -1)
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    nslot = spec.cx * spec.cy * spec.cap
+    table = torch.full((nslot + 1,), -1, dtype=torch.int64, device=dev)
+    table.scatter_(0, torch.where(ok, sc * spec.cap + rank, nslot), order)
+    return PCellGrid(
+        slot=slot.to(torch.int32), table=table[:-1].to(torch.int32),
+        order=order.to(torch.int32),
+        overflow=(n - ok.sum()).to(torch.int32),
+    )
+
+
+# --- plain versions -------------------------------------------------------
+
+_OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
+
+
+def _candidates(grid: PCellGrid, spec: PCellSpec) -> torch.Tensor:
+    """(N, 9·cap) candidate agents of every agent in the kernels' order;
+    -1 for an empty rank, a cell outside the grid, the agent itself, and
+    every candidate of a dropped agent."""
+    n = grid.slot.shape[0]
+    dev = grid.slot.device
+    slot = grid.slot.to(torch.int64)
+    s = slot.clamp_min(0)
+    offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)
+    ni = (s // (spec.cap * spec.cy))[:, None] + offs[:, 0]       # (N, 9)
+    nj = (s % spec.cy)[:, None] + offs[:, 1]
+    cell_ok = ((ni >= 0) & (ni < spec.cx) & (nj >= 0) & (nj < spec.cy)
+               & (slot >= 0)[:, None])
+    cell = ni.clamp(0, spec.cx - 1) * spec.cy + nj.clamp(0, spec.cy - 1)
+    cand = grid.table.to(torch.int64).view(-1, spec.cap)[cell]   # (N,9,cap)
+    cand = torch.where(cell_ok[..., None], cand, -1).reshape(n, -1)
+    me = torch.arange(n, device=dev)[:, None]
+    return torch.where(cand == me, -1, cand)
+
+
+def _pair_geometry(pos: torch.Tensor, cand: torch.Tensor):
+    """Differences and squared distances to every candidate, rounded per
+    operation exactly as the kernels round them."""
+    valid = cand >= 0
+    pj = pos[cand.clamp_min(0)]                                   # (N, M, ·)
+    dx = pos[:, None, 0] - pj[..., 0]
+    dy = pos[:, None, 1] - pj[..., 1]
+    return valid, pj, dx, dy, dx * dx + dy * dy
+
+
+def frame_sweep_plain(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
+                      r2cut: float, centralized: bool) -> torch.Tensor:
+    """K1's function in plain PyTorch: (N, 4) -> (N, 10)."""
+    valid, xj, dx, dy, r2 = _pair_geometry(x, _candidates(grid, spec))
+    dvx = x[:, None, 2] - xj[..., 2]
+    dvy = x[:, None, 3] - xj[..., 3]
+    r2s = torch.clamp_min(torch.where(valid, r2, 1.0), COLLISION_R2_EPS)
+    inv2 = 1.0 / r2s
+    inv4 = inv2 * inv2
+    m = (valid & (r2 < r2cut)).to(x.dtype)
+    gmask = (valid & (r2 <= 1.0)).to(x.dtype) if centralized else m
+    parts = (dvx * m, dx * inv4 * m, dx * inv2 * m,
+             dvy * m, dy * inv4 * m, dy * inv2 * m, m,
+             (-2.0 * dx * inv4 + 2.0 * dx * inv2) * gmask,
+             (-2.0 * dy * inv4 + 2.0 * dy * inv2) * gmask)
+    out = [t.sum(1) for t in parts]
+    out.append(torch.where(valid, r2, MIN_R2_FILL).amin(1))
+    return torch.stack(out, -1)
+
+
+def apply_deg_sweep_plain(x: torch.Tensor, cols: torch.Tensor,
+                          deg: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
+                          r2cut: float) -> torch.Tensor:
+    """K2's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1)."""
+    cand = _candidates(grid, spec)
+    valid, _, _, _, r2 = _pair_geometry(x[:, :2], cand)
+    jj = cand.clamp_min(0)
+    w = (valid & (r2 < r2cut)).to(cols.dtype) / deg[jj].clamp_min(1.0)
+    return (w[..., None] * cols[jj]).sum(1)
+
+
+def apply_sweep_plain(pos: torch.Tensor, wcols: torch.Tensor,
+                      grid: PCellGrid, spec: PCellSpec,
+                      r2cut: float) -> torch.Tensor:
+    """K3's function in plain PyTorch: out_i = sum_j m·wcols_j."""
+    cand = _candidates(grid, spec)
+    valid, _, _, _, r2 = _pair_geometry(pos, cand)
+    m = (valid & (r2 < r2cut)).to(wcols.dtype)
+    return (m[..., None] * wcols[cand.clamp_min(0)]).sum(1)
+
+
+# --- kernel wrappers ------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
+           device: torch.device, align: int = 4) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def _check_grid(grid: PCellGrid, spec: PCellSpec, n: int,
+                device: torch.device) -> None:
+    _check("grid.slot", grid.slot, (n,), torch.int32, device)
+    _check("grid.order", grid.order, (n,), torch.int32, device)
+    _check("grid.table", grid.table, (spec.cx * spec.cy * spec.cap,),
+           torch.int32, device)
+
+
+def _launch(fn_name: str, *args) -> None:
+    from multiagent_gnn_policies_tpu_torch.ops import _build
+
+    rc = getattr(_build.library(), fn_name)(
+        *args, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
+
+
+def frame_sweep(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
+                r2cut: float, centralized: bool) -> torch.Tensor:
+    """K1: the (N, 10) frame channels of ``x`` (N, 4) over ``grid``."""
+    if not x.is_cuda:
+        return frame_sweep_plain(x, grid, spec, r2cut, centralized)
+    n = x.shape[0]
+    _check("x", x, (n, 4), torch.float32, x.device, align=16)
+    _check_grid(grid, spec, n, x.device)
+    out = torch.empty((n, FRAME_CHANNELS), dtype=x.dtype, device=x.device)
+    _launch("cells_frame", x.data_ptr(), grid.order.data_ptr(),
+            grid.slot.data_ptr(), grid.table.data_ptr(), out.data_ptr(),
+            n, spec.cx, spec.cy, spec.cap, r2cut, int(centralized))
+    frame_sweep.launches += 1
+    return out
+
+
+def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
+                    grid: PCellGrid, spec: PCellSpec,
+                    r2cut: float) -> torch.Tensor:
+    """K2: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``."""
+    if not x.is_cuda:
+        return apply_deg_sweep_plain(x, cols, deg, grid, spec, r2cut)
+    n, c = cols.shape
+    if c not in APPLY_COLS:
+        raise ValueError(f"apply_deg_sweep takes {APPLY_COLS} columns, "
+                         f"got {c}")
+    _check("x", x, (n, 4), torch.float32, x.device, align=16)
+    _check("cols", cols, (n, c), torch.float32, x.device)
+    _check("deg", deg, (n,), torch.float32, x.device)
+    _check_grid(grid, spec, n, x.device)
+    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
+    _launch("cells_apply_deg", x.data_ptr(), cols.data_ptr(), deg.data_ptr(),
+            grid.order.data_ptr(), grid.slot.data_ptr(),
+            grid.table.data_ptr(), out.data_ptr(),
+            n, c, spec.cx, spec.cy, spec.cap, r2cut)
+    apply_deg_sweep.launches += 1
+    return out
+
+
+def apply_sweep(pos: torch.Tensor, wcols: torch.Tensor, grid: PCellGrid,
+                spec: PCellSpec, r2cut: float) -> torch.Tensor:
+    """K3: ``out_i = sum_j m·wcols_j`` over ``grid``."""
+    if not pos.is_cuda:
+        return apply_sweep_plain(pos, wcols, grid, spec, r2cut)
+    n, c = wcols.shape
+    if c not in APPLY_COLS:
+        raise ValueError(f"apply_sweep takes {APPLY_COLS} columns, got {c}")
+    _check("pos", pos, (n, 2), torch.float32, pos.device, align=8)
+    _check("wcols", wcols, (n, c), torch.float32, pos.device)
+    _check_grid(grid, spec, n, pos.device)
+    out = torch.empty((n, c), dtype=pos.dtype, device=pos.device)
+    _launch("cells_apply", pos.data_ptr(), wcols.data_ptr(),
+            grid.order.data_ptr(), grid.slot.data_ptr(),
+            grid.table.data_ptr(), out.data_ptr(),
+            n, c, spec.cx, spec.cy, spec.cap, r2cut)
+    apply_sweep.launches += 1
+    return out
+
+
+KERNEL_WRAPPERS = (frame_sweep, apply_deg_sweep, apply_sweep)
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNEL_WRAPPERS:
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+reset_launch_counts()
+
+
+# --- the JAX package's wrappers, on one device ----------------------------
+
+def _frame_quantities(per: torch.Tensor) -> FrameQuantities:
+    return FrameQuantities(values=per[:, :6], degree=per[:, 6], expert=None,
+                           min_r2=per[:, 9].min())
+
+
+def frame(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
+          p: FlockingParams, centralized: bool = True) -> FrameQuantities:
+    """Frame quantities of ``x`` (N, 4) through K1 (``blocked_frame``
+    semantics; ``min_r2`` over each agent's 3x3-cell candidates). No expert
+    (``expert`` is None): the greedy policy path never reads it."""
+    per = frame_sweep(x, grid, spec, float(p.comm_radius) ** 2, centralized)
+    return _frame_quantities(per)
+
+
+def frame_apply(x: torch.Tensor, cols: torch.Tensor, grid: PCellGrid,
+                spec: PCellSpec, p: FlockingParams, centralized: bool = True):
+    """:func:`frame`'s quantities and ``out_i = sum_{j in nbr(i)} cols_j /
+    deg_j`` over the same new graph: K1, then K2 reading K1's degrees.
+    Returns ``(FrameQuantities, (N, C) applied columns)``."""
+    r2cut = float(p.comm_radius) ** 2
+    per = frame_sweep(x, grid, spec, r2cut, centralized)
+    applied = apply_deg_sweep(x, cols.contiguous(), per[:, 6].contiguous(),
+                              grid, spec, r2cut)
+    return _frame_quantities(per), applied
+
+
+def apply_adjT(pos_src: torch.Tensor, deg_src: torch.Tensor,
+               cols: torch.Tensor, spec: PCellSpec, p: FlockingParams,
+               grid: Optional[PCellGrid] = None) -> torch.Tensor:
+    """``out_i = sum_{j in nbr(i)} cols_j / deg_j`` over the radius graph of
+    ``pos_src`` through K3 (the graph is symmetric, so the transpose-apply
+    is a neighbour sum of pre-divided columns)."""
+    pos_src = pos_src.contiguous()
+    if grid is None:
+        grid = build_pcell_grid(pos_src, spec)
+    wcols = cols / torch.clamp_min(deg_src, 1.0)[:, None]
+    return apply_sweep(pos_src, wcols, grid, spec, float(p.comm_radius) ** 2)
+
+
+def ystack_pre(carry: DelayCarry, s0_out: torch.Tensor, spec: PCellSpec,
+               p: FlockingParams,
+               grid_hist: Optional[Sequence[PCellGrid]] = None
+               ) -> torch.Tensor:
+    """The aggregated delayed stack ``y_k = G_k(t)^T x_{t-k}`` (K, N, F)
+    with the s = 0 (current-graph) apply already done: ``s0_out`` is
+    :func:`frame_apply`'s output of the previous step. Only the historical
+    graphs' applies (s >= 1) remain, newest graph first."""
+    k = carry.history.shape[0]
+    n, f = carry.history.shape[1:]
+    y = [carry.history[0]]
+    if k == 1:
+        return torch.stack(y)
+    v = s0_out.reshape(n, k - 1, f).transpose(0, 1)          # (K-1, N, F)
+    y.append(v[0])
+    for s in range(1, k - 1):
+        pos_s, deg_s = carry.pos_hist[s - 1], carry.deg_hist[s - 1]
+        grid_s = grid_hist[s - 1] if grid_hist else None
+        cols = v[s:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
+        out = apply_adjT(pos_s, deg_s, cols, spec, p, grid=grid_s)
+        v = torch.cat([v[:s], out.reshape(n, k - 1 - s, f).transpose(0, 1)])
+        y.append(v[s])
+    return torch.stack(y)

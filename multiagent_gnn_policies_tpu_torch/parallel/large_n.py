@@ -1,0 +1,210 @@
+"""Large-N greedy policy rollouts on one device, through the cell sweeps.
+
+The counterpart of the JAX package's ``parallel/large_n.py`` for the
+"pcells" policy path on one device: reset, then a Python loop of env steps
+(the JAX package's ``lax.scan`` body, ``_scan_steps``). Each step of a K >= 2
+policy runs
+
+1. ``ystack_pre``: the historical graphs' applies of the delayed stack,
+   s = 1 .. K-2, through K3 (the s = 0 apply was done the step before);
+2. the actor on the stack and the double-integrator step;
+3. the new frame: a grid build, K1, and K2 pre-applying the NEXT step's
+   s = 0 columns over the new graph (``frame_apply``, the fused path);
+4. the delay-carry update; the grids of the K-2 historical graphs are
+   carried, not rebuilt.
+
+A K = 3 episode of T steps launches K1 T+1 times (reset + T) and K2 and
+K3 T times each. The per-episode max grid overflow is returned: 0 means
+every step's sweep was exact.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+    FlockingParams,
+    _init_candidate,
+    _lattice_regime,
+    strict_fp32,
+)
+from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+from multiagent_gnn_policies_tpu_torch.ops.blocked import (
+    DelayCarry,
+    delay_carry_init,
+    delay_carry_update,
+)
+from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
+
+
+class LargeNConfig(NamedTuple):
+    """Static setup of a single-device pcells rollout."""
+
+    params: FlockingParams
+    cell_spec: cc.PCellSpec
+    centralized: bool = True
+
+
+class EpisodeState(NamedTuple):
+    """What one step carries to the next (the JAX scan carry)."""
+
+    x: torch.Tensor                  # (N, 4) state
+    carry: DelayCarry
+    fq: cc.FrameQuantities           # frame of x
+    grid: cc.PCellGrid               # grid of x
+    grid_hist: Tuple[cc.PCellGrid, ...]  # grids of pos_hist, newest first
+    s0: torch.Tensor                 # (N, (K-1)·F) pre-applied s=0 columns
+    overflow: torch.Tensor           # () max overflow so far
+
+
+def _dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
+              gen: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Double-integrator step: clip, gain, leaders, drag, velocity noise."""
+    u = torch.clamp(action, -p.max_accel, p.max_accel) * p.gain
+    if p.n_leaders > 0:
+        is_leader = (torch.arange(x.shape[0], device=x.device)
+                     < p.n_leaders)[:, None]
+        u = torch.where(is_leader, 0.0, u)
+    pos = x[:, 0:2] + x[:, 2:4] * p.dt + 0.5 * u * p.dt * p.dt
+    vel = x[:, 2:4] + u * p.dt
+    if p.drag > 0.0:
+        vel = vel * (1.0 - p.drag * p.dt)
+    if p.dynamics_noise > 0.0:
+        noise = torch.randn(vel.shape, generator=gen, device=x.device,
+                            dtype=vel.dtype)
+        vel = vel + p.dynamics_noise * noise
+    return torch.cat([pos, vel], -1)
+
+
+def _reward(x: torch.Tensor) -> torch.Tensor:
+    """Negative total velocity variance."""
+    return -torch.var(x[:, 2:4], dim=0, correction=0).sum()
+
+
+def _frame(cfg: LargeNConfig, x: torch.Tensor, apply_cols=None):
+    """Grid and frame of ``x``; with ``apply_cols`` also the fused K2 apply
+    of those columns over the same graph. Returns ``(fq, grid[, applied])``.
+    No expert: greedy policy rollouts never read it."""
+    grid = cc.build_pcell_grid(x[:, :2], cfg.cell_spec)
+    if apply_cols is not None:
+        fq, applied = cc.frame_apply(x, apply_cols, grid, cfg.cell_spec,
+                                     cfg.params, cfg.centralized)
+        return fq, grid, applied
+    fq = cc.frame(x, grid, cfg.cell_spec, cfg.params, cfg.centralized)
+    return fq, grid
+
+
+def _reset(cfg: LargeNConfig, gen: torch.Generator, device):
+    """Initial state with its frame and grid. In the lattice regime the
+    candidate is valid by construction; below it, candidates are redrawn
+    (at most ``max_resets`` times) until min separation and min degree
+    hold."""
+    p = cfg.params
+    x = _init_candidate(gen, p, device)
+    fq, grid = _frame(cfg, x)
+    if _lattice_regime(p):
+        return x, fq, grid
+    for _ in range(p.max_resets):
+        ok = ((fq.min_r2 >= p.min_separation ** 2)
+              & (fq.degree.min() >= p.min_degree))
+        if bool(ok):
+            break
+        x = _init_candidate(gen, p, device)
+        fq, grid = _frame(cfg, x)
+    return x, fq, grid
+
+
+def _s0_cols(carry: DelayCarry) -> torch.Tensor:
+    """The next step's s = 0 apply columns: delayed feature slots
+    ``[x_t, ..., x_{t-K+2}]`` flattened per agent, slot-major."""
+    k_1 = carry.history.shape[0] - 1
+    n, f = carry.history.shape[1:]
+    return carry.history[:k_1].transpose(0, 1).reshape(n, k_1 * f)
+
+
+def _episode_init(cfg: LargeNConfig, acfg: ActorConfig,
+                  gen: Optional[torch.Generator], device,
+                  x0: Optional[torch.Tensor] = None) -> EpisodeState:
+    """Reset (or the injected ``x0``) and the initial episode state."""
+    p = cfg.params
+    if x0 is None:
+        x, fq, grid = _reset(cfg, gen, device)
+    else:
+        x = x0.to(device=device, dtype=torch.float32).contiguous()
+        fq, grid = _frame(cfg, x)
+    k = acfg.k
+    carry = delay_carry_init(fq.values, p.n_agents, k)
+    # the K-2 historical graphs start as the reset frame's grid: their
+    # history slots are zero until step >= k, so this is exact
+    grid_hist = tuple(grid for _ in range(max(k - 2, 0)))
+    s0 = torch.zeros((p.n_agents, (k - 1) * carry.history.shape[-1]),
+                     dtype=x.dtype, device=x.device)
+    return EpisodeState(x, carry, fq, grid, grid_hist, s0, grid.overflow)
+
+
+def _step(cfg: LargeNConfig, actor: torch.nn.Module, state: EpisodeState,
+          gen: Optional[torch.Generator] = None):
+    """One env step of the fused policy path; returns ``(state', reward)``."""
+    p = cfg.params
+    x, carry, fq, grid, grid_hist, s0, ovf = state
+    y = cc.ystack_pre(carry, s0, cfg.cell_spec, p, grid_hist=grid_hist)
+    x2 = _dynamics(x, actor(y), p, gen)
+    fq2, grid2, s02 = _frame(cfg, x2, apply_cols=_s0_cols(carry))
+    carry2 = delay_carry_update(
+        carry, fq2.values, x[:, :2],
+        deg_prev=fq.degree if carry.deg_hist.shape[0] else None)
+    grid_hist2 = ((grid,) + grid_hist[:-1]) if grid_hist else grid_hist
+    state2 = EpisodeState(x2, carry2, fq2, grid2, grid_hist2, s02,
+                          torch.maximum(ovf, grid2.overflow))
+    return state2, _reward(x2)
+
+
+def _scan_steps(cfg: LargeNConfig, actor: torch.nn.Module,
+                state: EpisodeState, n_steps: int,
+                gen: Optional[torch.Generator] = None):
+    """``n_steps`` env steps from ``state``: ``(state', rewards (T,))``."""
+    rewards = []
+    for _ in range(n_steps):
+        state, r = _step(cfg, actor, state, gen)
+        rewards.append(r)
+    return state, torch.stack(rewards)
+
+
+def rollout_large(actor: torch.nn.Module, acfg: ActorConfig,
+                  gen: Optional[torch.Generator], p: FlockingParams,
+                  centralized_expert: bool = True, cap: Optional[int] = None,
+                  cell_margin: float = 1.3, cell_edge_mult: float = 1.0,
+                  return_overflow: bool = False,
+                  x0: Optional[torch.Tensor] = None, device="cuda"):
+    """One greedy episode of ``p.episode_steps`` steps through the cell
+    sweeps (the JAX package's "pcells" path). Returns ``(rewards (T,), final_x)``, plus the max per-step grid
+    overflow with ``return_overflow`` (0 means every step was exact).
+
+    Args:
+      actor / acfg: the policy (``ind_agg`` must be 0, ``acfg.k >= 2``; on
+        the card ``acfg.k`` is 2 or 3 with F = 6, the column counts the
+        apply kernels are built for).
+      gen: the generator of the reset (and of the stochastic variant's
+        noise); may be None when ``x0`` is given and the env is noiseless.
+      cap / cell_margin / cell_edge_mult: the cell grid (``make_pcell_spec``).
+      x0: an (N, 4) initial state to use instead of the reset's draw.
+      device: "cuda" (default) or "cpu"; nothing falls back to the CPU.
+    """
+    if acfg.ind_agg != 0 or acfg.k < 2:
+        raise ValueError("the fused pcells path needs ind_agg == 0, k >= 2")
+    strict_fp32()
+    device = torch.device(device)
+    cfg = LargeNConfig(
+        params=p,
+        cell_spec=cc.make_pcell_spec(p, cap=cap or 16, margin=cell_margin,
+                                     edge_mult=cell_edge_mult),
+        centralized=centralized_expert,
+    )
+    with torch.no_grad():
+        state = _episode_init(cfg, acfg, gen, device, x0)
+        state, rewards = _scan_steps(cfg, actor, state, p.episode_steps, gen)
+    if return_overflow:
+        return rewards, state.x, state.overflow
+    return rewards, state.x

@@ -1,0 +1,160 @@
+"""A whole greedy K = 3 pcells episode of the port
+(multiagent_gnn_policies_tpu_torch/parallel/large_n.py) against the JAX
+package's ``rollout_large(..., path="pcells")`` (Pallas kernels in interpret
+mode), and the port's evaluate CLI on the CPU.
+
+jax.random and torch generators give different numbers, so the port is
+handed the JAX reset's initial state (``x0``). Tolerance: 1e-4 of the
+largest magnitude of the per-step rewards and of the final state. Both
+sides run float32 with sums in different orders, and 12 steps of the
+closed loop (features -> actor -> dynamics) carry those last-digit
+differences forward.
+"""
+
+import configparser
+import pathlib
+
+import numpy as np
+import jax
+import pytest
+import torch
+
+from multiagent_gnn_policies_tpu.envs import flocking as jfl
+from multiagent_gnn_policies_tpu.models import actor as jac
+from multiagent_gnn_policies_tpu.ops import pallas_cells as jpc
+from multiagent_gnn_policies_tpu.parallel import large_n as jln
+from multiagent_gnn_policies_tpu.utils import checkpoint as jck
+from multiagent_gnn_policies_tpu_torch import evaluate as tev
+from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
+from multiagent_gnn_policies_tpu_torch.models import actor as tac
+from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as tcc
+from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+N32K = str(ROOT / "models" / "actor_FlockingRelative-v0_dagger_n32k.npz")
+ACFG = dict(n_s=6, n_a=2, hidden=(32, 32), k=3)
+
+
+def _close(got, want, rel=1e-4):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = np.abs(got - want).max()
+    assert err <= rel * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def _jax_reset(p, key):
+    """The initial state ``jln.rollout_large`` draws for ``key``."""
+    cfg = jln.LargeNConfig(params=p, block=p.n_agents, rows=p.n_agents,
+                           axis=None, path="pcells",
+                           cell_spec=jpc.make_pcell_spec(p),
+                           need_expert=False)
+    reset_key, _ = jax.random.split(key)
+    x, _, _ = jln._reset(cfg, reset_key, centralized=True)
+    return np.array(x)
+
+
+def test_pcells_episode_matches_jax():
+    n, steps = 48, 12
+    jp = jfl.FlockingParams(n_agents=n, episode_steps=steps)
+    tp = tfl.FlockingParams(n_agents=n, episode_steps=steps)
+    jcfg, tcfg = jac.ActorConfig(**ACFG), tac.ActorConfig(**ACFG)
+    params = jck.load(N32K, jac.init_actor(jax.random.key(0), jcfg))
+    key = jax.random.key(3)
+    jr, jx, jovf = jln.rollout_large(params, jcfg, key, jp, path="pcells",
+                                     return_overflow=True)
+    x0 = _jax_reset(jp, key)
+    actor = tev.load_actor(N32K, tcfg, "cpu")
+    tr, tx, tovf = tln.rollout_large(actor, tcfg, None, tp,
+                                     return_overflow=True,
+                                     x0=torch.from_numpy(x0), device="cpu")
+    assert int(tovf) == int(jovf) == 0
+    assert tr.shape == (steps,)
+    _close(tr, jr)
+    _close(tx, jx)
+
+
+def test_episode_runs_each_sweep_as_the_main_path_counts_it(monkeypatch):
+    """A K = 3 episode of T steps calls K1 T+1 times (reset + T) and K2
+    and K3 T times each; on the CPU the wrappers route to the plain
+    versions, counted here (the kernel counters count CUDA launches only)."""
+    calls = {"frame": 0, "apply_deg": 0, "apply": 0}
+    for name in calls:
+        plain = getattr(tcc, f"{name}_sweep_plain")
+
+        def counted(*a, _name=name, _plain=plain, **kw):
+            calls[_name] += 1
+            return _plain(*a, **kw)
+
+        monkeypatch.setattr(tcc, f"{name}_sweep_plain", counted)
+    tcc.reset_launch_counts()
+    steps = 5
+    tp = tfl.FlockingParams(n_agents=600, episode_steps=steps)
+    tcfg = tac.ActorConfig(**ACFG)
+    r, x, ovf = tln.rollout_large(
+        tev.load_actor(N32K, tcfg, "cpu"), tcfg,
+        torch.Generator().manual_seed(0), tp, return_overflow=True,
+        device="cpu")
+    assert int(ovf) == 0 and torch.isfinite(r).all() and x.shape == (600, 4)
+    assert calls == {"frame": steps + 1, "apply_deg": steps, "apply": steps}
+    assert set(tcc.launch_counts().values()) == {0}
+
+
+EVAL_CFG = """
+[DEFAULT]
+alg = dagger
+env = FlockingRelative-v0
+seed = 5
+header = reward
+n_agents = 600
+k = 3
+hidden_size = 32
+n_test_episodes = 2
+episode_steps = 4
+v_max = 3.0
+comm_radius = 1.0
+n_actions = 2
+n_states = 6
+dt = 0.01
+
+[small]
+fname = small
+"""
+
+
+def _cfg(tmp_path):
+    path = tmp_path / "eval.cfg"
+    path.write_text(EVAL_CFG)
+    return str(path)
+
+
+def test_evaluate_cli_on_cpu(tmp_path, capsys):
+    tev.main([_cfg(tmp_path), "--actor-path", N32K, "--device", "cpu",
+              "--per-episode"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "reward"
+    name, mean, std = lines[-1].split(", ")
+    per_ep = [float(v) for v in lines[1:-1]]
+    assert name == "small" and len(per_ep) == 2
+    assert float(mean) == pytest.approx(np.mean(per_ep))
+    assert float(std) == pytest.approx(np.std(per_ep))
+    assert np.isfinite(per_ep).all() and max(per_ep) < 0
+
+
+def test_evaluate_cli_exits_3_on_overflow(tmp_path, capsys):
+    """A grid too small for the swarm drops agents: no result, status 3."""
+    with pytest.raises(SystemExit) as e:
+        tev.main([_cfg(tmp_path), "--actor-path", N32K, "--device", "cpu",
+                  "--cell-margin", "0.3", "--episodes", "1"])
+    assert e.value.code == 3
+    out = capsys.readouterr()
+    assert "overflow=" in out.err
+    assert "small," not in out.out
+
+
+def test_evaluate_defaults_to_the_card_without_fallback(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works here")
+    cp = configparser.ConfigParser()
+    cp.read(_cfg(tmp_path))
+    with pytest.raises((RuntimeError, AssertionError)):
+        tev.evaluate_blocked(cp["small"], N32K, n_episodes=1)
