@@ -14,16 +14,26 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
    this slice's shapes against its plain PyTorch version on the card
    (tolerance 1e-5 of each channel's largest magnitude: same arithmetic,
    other summation order; degrees and min r^2 exact), and against the
-   O(N²) blocked oracle at N = 4,096 (tolerance 1e-4: the oracle sums
-   through float32 matrix products); then each timed with CUDA events
-   over 50 launches, beside its plain version;
+   O(N²) blocked oracle at N = 4,096 and on a dense swarm whose tiles need
+   several shared-memory chunks and block passes (tolerance 1e-4: the
+   oracle sums through float32 matrix products); the grid build under
+   CUDA's sync debug mode, which raises on any host synchronisation; then
+   each kernel timed with CUDA events over 50 launches beside its plain
+   version and a launch floor (an empty sleep kernel timed the same way),
+   and K1 and K2 at several tile widths;
 4. episode: one greedy 200-step N = 32,768 K = 3 episode through the
    port's evaluate entry point with the in-repo n32k checkpoint, with the
    launch counters zeroed just before and read just after. It must launch
    K1 201 times and K2 and K3 200 times each, overflow 0, and land within
    -458.8 +- 15 (the JAX package's 10-episode eval of this checkpoint at
    this N is -458.8 +- 2.0, RESULTS.md section 8);
-5. budget: the run, build included, must finish in BUDGET_S; a watchdog
+5. trace: TRACE_STEPS steady steps of the same rollout, timed by the host
+   clock, then again under torch.profiler with each layer of the step
+   annotated: the top 10 device operations, device operations per step,
+   device-busy against wall ms per step (the idle share), and each
+   layer's host and device ms per step ("not measured" when the profiler
+   records no device activity);
+6. budget: the run, build included, must finish in BUDGET_S; a watchdog
    ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
@@ -54,6 +64,8 @@ DEVICE = "cuda"
 N = 32768
 N_ORACLE = 4096
 REPS = 50
+TILES = (8, 12, 16, 24, 32)    # K1/K2 tile widths timed beside the default
+TRACE_STEPS = 20
 REL_PLAIN = 1e-5
 REL_ORACLE = 1e-4
 REWARD_REF, REWARD_BAND = -458.8, 15.0
@@ -170,6 +182,174 @@ def ptxas_summary(lines):
             name, frame = None, ""
 
 
+def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
+    """A swarm of ~32 agents per 2 x 2 cell (cap 64, no overflow) swept in
+    tiles a whole grid row wide (8 columns): each tile holds several
+    blocks' worth of agents (several passes) and a halo of several staging
+    chunks. K1, K2 and K3 against their plain versions and the blocked
+    oracle."""
+    n, tile = 2048, 8
+    p = FlockingParams(n_agents=n)
+    spec = cc.PCellSpec(cx=8, cy=8, cap=64, cell=2.0)
+    x = torch.rand((n, 4), generator=gen, device=dev) * 16.0
+    grid = cc.build_pcell_grid(x[:, :2], spec)
+    row_n = torch.diff(grid.cell_start.cpu()[::spec.cy])
+    halo = int((row_n[:-2] + row_n[1:-1] + row_n[2:]).max())
+    if int(grid.overflow) or (
+            halo <= max(cc.FRAME_CHUNK, cc.APPLY_DEG_CHUNK)) or (
+            int(row_n.max()) <= cc.BLOCK_THREADS):
+        raise AssertionError(f"dense case: overflow {int(grid.overflow)}, "
+                             f"halo {halo}, row {int(row_n.max())}")
+    cols = torch.randn((n, 12), generator=gen, device=dev)
+    per = cc.frame_sweep(x, grid, spec, 1.0, True, tile=tile)
+    deg = per[:, 6].contiguous()
+    applied = cc.apply_deg_sweep(x, cols, deg, grid, spec, 1.0, tile=tile)
+    pos = x[:, :2].contiguous()
+    applied3 = cc.apply_sweep(pos, cols[:, :6].contiguous(), grid, spec, 1.0)
+    check_close("K1 vs plain, dense tiles", per,
+                cc.frame_sweep_plain(x, grid, spec, 1.0, True), REL_PLAIN,
+                exact_channels=(6, 9))
+    check_close("K2 vs plain, dense tiles", applied,
+                cc.apply_deg_sweep_plain(x, cols, deg, grid, spec, 1.0),
+                REL_PLAIN)
+    check_close("K3 vs plain, dense tiles", applied3,
+                cc.apply_sweep_plain(pos, cols[:, :6], grid, spec, 1.0),
+                REL_PLAIN)
+    ref = bl.blocked_frame(x, p, True, block=512)
+    check_close("K1 vs blocked oracle, dense tiles", per[:, :6], ref.values,
+                REL_ORACLE)
+    check_close("K1 degree vs blocked oracle, dense tiles", deg[:, None],
+                ref.degree[:, None], 0.0, exact_channels=(0,))
+    if float(per[:, 9].min()) != float(ref.min_r2):
+        raise AssertionError("dense tiles: min r^2 differs from the oracle")
+    check_close("K2 vs blocked oracle, dense tiles", applied,
+                bl.blocked_apply_adjT(pos, cols, p, 512, deg=deg), REL_ORACLE)
+    return halo
+
+
+class _Annotated:
+    """Wraps module functions in torch.profiler.record_function ranges for
+    the duration of a ``with`` block, so a trace attributes host and device
+    time to the step's layers; restores them on exit."""
+
+    def __init__(self, record_function, targets):
+        self.rf, self.targets, self.saved = record_function, targets, []
+
+    def __enter__(self):
+        for module, attr, label in self.targets:
+            fn = getattr(module, attr)
+            self.saved.append((module, attr, fn))
+            setattr(module, attr, self._wrap(f"layer: {label}", fn))
+        return self
+
+    def _wrap(self, label, fn):
+        def call(*args, **kwargs):
+            with self.rf(label):
+                return fn(*args, **kwargs)
+        return call
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+
+
+def summarize_trace(events, steps, wall_ms, prof_wall_ms):
+    """Prints device busy and idle share per step, device ops per step, the
+    top 10 device ops and each annotated layer's host and device time,
+    from a torch.profiler event list (kernels, memcpys and memsets are its
+    device events; the layer ranges appear on both sides)."""
+    from torch.autograd import DeviceType
+
+    host = {}                       # layer -> host us (CPU-side ranges)
+    spans, kernels = [], []         # device-side layer ranges; device ops
+    for e in events:
+        if e.device_type == DeviceType.CUDA:
+            (spans if e.name.startswith("layer: ") else kernels).append(e)
+        elif e.name.startswith("layer: "):
+            host[e.name[7:]] = host.get(e.name[7:], 0.0) + (
+                e.time_range.elapsed_us())
+    print(f"#   trace: {steps} steps, wall {wall_ms:.4f} ms/step "
+          f"({prof_wall_ms:.4f} under the profiler)", flush=True)
+    if not kernels:
+        print("#   trace: device time not measured (the profiler recorded no "
+              "device activity)", flush=True)
+        return
+    busy_us, end = 0.0, float("-inf")
+    for e in sorted(kernels, key=lambda e: e.time_range.start):
+        s0, s1 = e.time_range.start, e.time_range.end   # union of intervals
+        if s1 > end:
+            busy_us += s1 - max(s0, end)
+            end = s1
+    busy_ms = busy_us / 1e3 / steps
+    print(f"#   trace: device busy {busy_ms:.4f} ms/step, idle share "
+          f"{1 - busy_ms / wall_ms:.4f} of the unprofiled wall "
+          f"({1 - busy_ms / prof_wall_ms:.4f} under the profiler), "
+          f"{len(kernels) / steps:.2f} device ops per step", flush=True)
+    by_name = {}
+    for e in kernels:
+        tot, cnt = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
+    for name, (tot, cnt) in sorted(by_name.items(),
+                                   key=lambda kv: -kv[1][0])[:10]:
+        print(f"#   trace top: {tot / 1e3 / steps:.4f} ms/step, "
+              f"{cnt / steps:.2f}/step  {name[:100]}", flush=True)
+    # a device op belongs to the layer whose device-side range holds it
+    layer_dev = {}
+    for sp in spans:
+        inside = [e for e in kernels
+                  if sp.time_range.start <= e.time_range.start
+                  < sp.time_range.end]
+        us, n = layer_dev.get(sp.name[7:], (0.0, 0))
+        layer_dev[sp.name[7:]] = (
+            us + sum(e.time_range.elapsed_us() for e in inside),
+            n + len(inside))
+    in_layers = sum(n for _, n in layer_dev.values())
+    for name in sorted(host, key=lambda k: -layer_dev.get(k, (0, 0))[0]):
+        us, n = layer_dev.get(name, (0.0, 0))
+        print(f"#   trace layer: {name:<22} host {host[name] / 1e3 / steps:.4f}"
+              f" ms/step (profiled), device {us / 1e3 / steps:.4f} ms/step, "
+              f"{n / steps:.2f} device ops/step", flush=True)
+    print(f"#   trace layer: {'(outside the layers)':<22} "
+          f"{(len(kernels) - in_layers) / steps:.2f} device ops/step",
+          flush=True)
+
+
+def trace_steps(torch, ln, cc, cfg, actor, state, gen, steps):
+    """Host-clock ms per step of ``steps`` steady steps, then the same
+    steps under torch.profiler with the step's layers annotated. Prints
+    the top 10 device operations, device operations per step, device-busy
+    against wall ms per step, and per-layer host and device ms per step."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, _ = ln._scan_steps(cfg, actor, state, steps, gen)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t) / steps
+
+    def annotated_actor(y):
+        with record_function("layer: actor"):
+            return actor(y)
+
+    layers = _Annotated(record_function, (
+        (cc, "build_pcell_grid", "grid build"),
+        (cc, "frame_apply", "frame_apply (K1, K2)"),
+        (cc, "ystack_pre", "ystack_pre (K3)"),
+        (ln, "_dynamics", "dynamics"),
+        (ln, "_s0_cols", "s0 columns"),
+        (ln, "delay_carry_update", "delay carry"),
+        (ln, "_reward", "reward"),
+    ))
+    with layers, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        ln._scan_steps(cfg, annotated_actor, state, steps, gen)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
+    return wall_ms
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -277,6 +457,16 @@ def main():
                     bl.blocked_apply_adjT(x4[:, :2], cols4[:, :6], p4, 512,
                                           deg=deg4), REL_ORACLE)
 
+        halo = dense_tile_case(torch, cc, bl, FlockingParams, gen, dev)
+
+        # the grid build never waits for the device
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cc.build_pcell_grid(x[:, :2], spec)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
         # time each kernel and its plain version at this slice's shapes
         cand1, nbr1 = pair_counts(cc, x[:, :2], grid, spec)
         cand3, nbr3 = pair_counts(cc, pos_h, grid_h, spec)
@@ -299,7 +489,20 @@ def main():
             print(f"#   {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
                   f"{b_ms:.5f} ms ({b_by}), {work[name][0]} B, "
                   f"{work[name][1]} ops", flush=True)
-    phase("kernels", t, candidate_pairs=cand1, neighbour_pairs=nbr1)
+        floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+        print(f"#   launch floor: {floor_ms:.4f} ms (torch.cuda._sleep(0), "
+              f"timed as the kernels)", flush=True)
+        tile = cc.tile_cells(spec, N)
+        for T in sorted(set(TILES) | {tile}):
+            t1 = device_ms(lambda: cc.frame_sweep(x, grid, spec, 1.0, True,
+                                                  tile=T))
+            t2 = device_ms(lambda: cc.apply_deg_sweep(x, cols, deg, grid,
+                                                      spec, 1.0, tile=T))
+            print(f"#   tile {cc.TILE_ROWS} x {T:>3} cells"
+                  f"{' (chosen)' if T == tile else ''}: K1 {t1:.4f} ms, "
+                  f"K2 {t2:.4f} ms", flush=True)
+    phase("kernels", t, candidate_pairs=cand1, neighbour_pairs=nbr1,
+          tile=tile, dense_halo=halo)
 
     # 4. the main path: one greedy episode through the evaluate entry point
     t = time.perf_counter()
@@ -325,7 +528,15 @@ def main():
           ms_per_step=f"{1e3 * episode_s / steps:.3f}",
           launches=json.dumps(launches, separators=(",", ":")))
 
-    # 5. budget
+    # 5. a trace of steady steps of the same rollout
+    t = time.perf_counter()
+    with torch.no_grad():
+        state, _ = ln._scan_steps(cfg, actor, state, 5, gen)
+        step_ms = trace_steps(torch, ln, cc, cfg, actor, state, gen,
+                              TRACE_STEPS)
+    phase("trace", t, steps=TRACE_STEPS, ms_per_step=f"{step_ms:.4f}")
+
+    # 6. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:

@@ -27,12 +27,13 @@ NVCC_TIMEOUT_S = 240
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the launchers in csrc/cells.cu
 SIGNATURES = {
-    # x, order, slot, table, out, n, cx, cy, cap, r2cut, centralized, stream
-    "cells_frame": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, cols, deg, order, slot, table, out, n, c, cx, cy, cap, r2cut, stream
-    "cells_apply_deg": [_P, _P, _P, _P, _P, _P, _P,
+    # x, kept, cell_start, out, n, cx, cy, tile, r2cut, centralized, stream
+    "cells_frame": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
+    # x, cols, deg, kept, cell_start, out, n, c, cx, cy, tile, r2cut, stream
+    "cells_apply_deg": [_P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _F, _P],
-    # pos, wcols, order, slot, table, out, n, c, cx, cy, cap, r2cut, stream
+    # pos, wcols, kept, cell_start, slot, out, n, c, cx, cy, cap, r2cut,
+    # stream
     "cells_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
 }
 

@@ -6,8 +6,10 @@ each kernel's contract, not its TPU layout: with ``overflow == 0`` (no cell
 over ``cap``, no agent outside the grid) every radius neighbour is counted
 exactly once. The cell edge is ``max(comm_radius, 1) · edge_mult``, so the
 3x3 cells around an agent hold its radius neighbours and the expert's
-unit-range potential. Agents are sorted by cell; ``csrc/cells.cu`` runs one
-thread per agent over the 9 neighbour cells.
+unit-range potential. The grid lists the kept agents in cell order with a
+start per cell, so an agent's candidates are three contiguous ranges (one
+per neighbour row); ``csrc/cells.cu`` sweeps K1 and K2 in cell-row tiles
+staged in shared memory, and K3 with one thread per agent.
 
 Three kernels, each with a wrapper that launches it for CUDA tensors (and
 counts the launch in ``.launches``) and takes the plain PyTorch version
@@ -45,6 +47,19 @@ from multiagent_gnn_policies_tpu_torch.ops.blocked import (
 APPLY_COLS = (6, 12)
 FRAME_CHANNELS = 10   # v0..v5 | degree | gx | gy | min_r2
 MIN_R2_FILL = 1e12
+# csrc/cells.cu's kThreads, kMaxTile, kRows and the ops' kChunk: threads
+# per block, most columns and the grid rows of a K1/K2 tile, halo agents K1
+# and K2 stage per pass
+BLOCK_THREADS = 128
+MAX_TILE = 128
+TILE_ROWS = 2
+FRAME_CHUNK = 512
+APPLY_DEG_CHUNK = 256
+# agents a K1/K2 tile holds at the grid's mean density (tile_cells). The
+# lattice disc covers about half of its square grid, so an occupied tile
+# holds about twice as many: ~50 at N = 32,768, which timed fastest on the
+# H100 among widths of 8-32 columns (PERF.md)
+TILE_AGENTS = 23
 
 
 class PCellSpec(NamedTuple):
@@ -74,15 +89,19 @@ class PCellGrid(NamedTuple):
       slot: (N,) ``(i·cap + rank)·cy + j`` for an agent in cell (i, j), the
         JAX package's slot id; -1 = dropped (cell over ``cap`` or outside
         the grid).
-      table: (cx·cy·cap,) agent index at ``(i·cy + j)·cap + rank``, -1 empty.
-      order: (N,) agent indices sorted by cell id (stable); kernel thread
-        ``t`` handles agent ``order[t]``.
+      order: (N,) agent indices sorted by cell id (stable).
+      kept: (N,) a permutation of the agents: the kept ones in cell order
+        (rank order within a cell), then the dropped ones.
+      cell_start: (cx·cy + 1,) exclusive prefix of kept agents per cell
+        id ``i·cy + j``: cell (i, j) holds ``kept[cell_start[i·cy + j] :
+        cell_start[i·cy + j + 1]]``, and ``cell_start[cx·cy]`` = N − overflow.
       overflow: () dropped-agent count; 0 means the sweeps are exact.
     """
 
     slot: torch.Tensor
-    table: torch.Tensor
     order: torch.Tensor
+    kept: torch.Tensor
+    cell_start: torch.Tensor
     overflow: torch.Tensor
 
 
@@ -90,29 +109,44 @@ def build_pcell_grid(pos: torch.Tensor, spec: PCellSpec) -> PCellGrid:
     """Sort agents by cell id and assign ranks: cell ids from the swarm's
     min corner, a stable argsort, the rank within each run of equal ids,
     and the drops of ranks >= ``cap`` and of agents outside the grid (the
-    JAX package's ``build_pcell_grid``, slot for slot)."""
+    JAX package's ``build_pcell_grid``, slot for slot). ``kept`` and
+    ``cell_start`` come from a second stable sort, on the one-bit key
+    ``ok``, that moves the dropped agents (clamped into edge cells, so not
+    always a run's tail) behind the kept ones. No operation waits for the
+    device."""
     n = pos.shape[0]
     dev = pos.device
     origin = pos.min(0).values
-    ij = torch.floor((pos - origin) / spec.cell).to(torch.int64)   # >= 0
+    ij = torch.floor((pos - origin) / spec.cell).to(torch.int32)   # >= 0
     in_grid = (ij[:, 0] < spec.cx) & (ij[:, 1] < spec.cy)
     cid = (torch.clamp_max(ij[:, 0], spec.cx - 1) * spec.cy
            + torch.clamp_max(ij[:, 1], spec.cy - 1))
     order = torch.argsort(cid, stable=True)
     sc = cid[order]
-    rank = torch.arange(n, device=dev) - torch.searchsorted(sc, sc)
+    rank = (torch.arange(n, dtype=torch.int32, device=dev)
+            - torch.searchsorted(sc, sc, out_int32=True))
     ok = (rank < spec.cap) & in_grid[order]
     slot_sorted = torch.where(
         ok, (sc // spec.cy * spec.cap + rank) * spec.cy + sc % spec.cy, -1)
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
-    nslot = spec.cx * spec.cy * spec.cap
-    table = torch.full((nslot + 1,), -1, dtype=torch.int64, device=dev)
-    table.scatter_(0, torch.where(ok, sc * spec.cap + rank, nslot), order)
-    return PCellGrid(
-        slot=slot.to(torch.int32), table=table[:-1].to(torch.int32),
-        order=order.to(torch.int32),
-        overflow=(n - ok.sum()).to(torch.int32),
-    )
+    order = order.to(torch.int32)
+    ncell = spec.cx * spec.cy
+    perm = torch.argsort(ok, descending=True, stable=True)   # 1-bit key
+    cell_start = torch.searchsorted(
+        torch.where(ok, sc, ncell)[perm],
+        torch.arange(ncell + 1, dtype=torch.int32, device=dev),
+        out_int32=True)
+    return PCellGrid(slot=slot, order=order, kept=order[perm],
+                     cell_start=cell_start, overflow=n - cell_start[ncell])
+
+
+def tile_cells(spec: PCellSpec, n: int) -> int:
+    """Columns per K1/K2 tile (of ``TILE_ROWS`` grid rows): those that hold
+    ``TILE_AGENTS`` agents at the grid's mean density. Static: from the
+    spec and N only."""
+    per_cell = max(n, 1) / (spec.cx * spec.cy)
+    t = round(TILE_AGENTS / (per_cell * TILE_ROWS))
+    return int(min(max(t, 1), MAX_TILE, spec.cy))
 
 
 # --- plain versions -------------------------------------------------------
@@ -123,18 +157,26 @@ _OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
 def _candidates(grid: PCellGrid, spec: PCellSpec) -> torch.Tensor:
     """(N, 9·cap) candidate agents of every agent in the kernels' order;
     -1 for an empty rank, a cell outside the grid, the agent itself, and
-    every candidate of a dropped agent."""
+    every candidate of a dropped agent. Built from the slots alone (a
+    cap-wide cell table scattered here), independent of the ranges the
+    kernels walk."""
     n = grid.slot.shape[0]
     dev = grid.slot.device
     slot = grid.slot.to(torch.int64)
     s = slot.clamp_min(0)
+    ci, cj = s // (spec.cap * spec.cy), s % spec.cy
+    nslot = spec.cx * spec.cy * spec.cap
+    table = torch.full((nslot + 1,), -1, dtype=torch.int64, device=dev)
+    table.scatter_(0, torch.where(
+        slot >= 0, (ci * spec.cy + cj) * spec.cap + s // spec.cy % spec.cap,
+        nslot), torch.arange(n, device=dev))
     offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)
-    ni = (s // (spec.cap * spec.cy))[:, None] + offs[:, 0]       # (N, 9)
-    nj = (s % spec.cy)[:, None] + offs[:, 1]
+    ni = ci[:, None] + offs[:, 0]                                 # (N, 9)
+    nj = cj[:, None] + offs[:, 1]
     cell_ok = ((ni >= 0) & (ni < spec.cx) & (nj >= 0) & (nj < spec.cy)
                & (slot >= 0)[:, None])
     cell = ni.clamp(0, spec.cx - 1) * spec.cy + nj.clamp(0, spec.cy - 1)
-    cand = grid.table.to(torch.int64).view(-1, spec.cap)[cell]   # (N,9,cap)
+    cand = table[:-1].view(-1, spec.cap)[cell]                   # (N,9,cap)
     cand = torch.where(cell_ok[..., None], cand, -1).reshape(n, -1)
     me = torch.arange(n, device=dev)[:, None]
     return torch.where(cand == me, -1, cand)
@@ -211,9 +253,16 @@ def _check(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
 def _check_grid(grid: PCellGrid, spec: PCellSpec, n: int,
                 device: torch.device) -> None:
     _check("grid.slot", grid.slot, (n,), torch.int32, device)
-    _check("grid.order", grid.order, (n,), torch.int32, device)
-    _check("grid.table", grid.table, (spec.cx * spec.cy * spec.cap,),
+    _check("grid.kept", grid.kept, (n,), torch.int32, device)
+    _check("grid.cell_start", grid.cell_start, (spec.cx * spec.cy + 1,),
            torch.int32, device)
+
+
+def _tile(spec: PCellSpec, n: int, tile: Optional[int]) -> int:
+    tile = tile_cells(spec, n) if tile is None else int(tile)
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}], got {tile}")
+    return tile
 
 
 def _launch(fn_name: str, *args) -> None:
@@ -226,25 +275,28 @@ def _launch(fn_name: str, *args) -> None:
 
 
 def frame_sweep(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-                r2cut: float, centralized: bool) -> torch.Tensor:
-    """K1: the (N, 10) frame channels of ``x`` (N, 4) over ``grid``."""
+                r2cut: float, centralized: bool,
+                tile: Optional[int] = None) -> torch.Tensor:
+    """K1: the (N, 10) frame channels of ``x`` (N, 4) over ``grid``.
+    ``tile``: cells per block (default :func:`tile_cells`)."""
     if not x.is_cuda:
         return frame_sweep_plain(x, grid, spec, r2cut, centralized)
     n = x.shape[0]
     _check("x", x, (n, 4), torch.float32, x.device, align=16)
     _check_grid(grid, spec, n, x.device)
     out = torch.empty((n, FRAME_CHANNELS), dtype=x.dtype, device=x.device)
-    _launch("cells_frame", x.data_ptr(), grid.order.data_ptr(),
-            grid.slot.data_ptr(), grid.table.data_ptr(), out.data_ptr(),
-            n, spec.cx, spec.cy, spec.cap, r2cut, int(centralized))
+    _launch("cells_frame", x.data_ptr(), grid.kept.data_ptr(),
+            grid.cell_start.data_ptr(), out.data_ptr(), n, spec.cx, spec.cy,
+            _tile(spec, n, tile), r2cut, int(centralized))
     frame_sweep.launches += 1
     return out
 
 
 def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
-                    grid: PCellGrid, spec: PCellSpec,
-                    r2cut: float) -> torch.Tensor:
-    """K2: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``."""
+                    grid: PCellGrid, spec: PCellSpec, r2cut: float,
+                    tile: Optional[int] = None) -> torch.Tensor:
+    """K2: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``.
+    ``tile``: cells per block (default :func:`tile_cells`)."""
     if not x.is_cuda:
         return apply_deg_sweep_plain(x, cols, deg, grid, spec, r2cut)
     n, c = cols.shape
@@ -252,14 +304,15 @@ def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
         raise ValueError(f"apply_deg_sweep takes {APPLY_COLS} columns, "
                          f"got {c}")
     _check("x", x, (n, 4), torch.float32, x.device, align=16)
-    _check("cols", cols, (n, c), torch.float32, x.device)
+    # the kernel loads a row in 16-byte pieces where C allows, else 8
+    _check("cols", cols, (n, c), torch.float32, x.device,
+           align=16 if c % 4 == 0 else 8)
     _check("deg", deg, (n,), torch.float32, x.device)
     _check_grid(grid, spec, n, x.device)
     out = torch.empty((n, c), dtype=x.dtype, device=x.device)
     _launch("cells_apply_deg", x.data_ptr(), cols.data_ptr(), deg.data_ptr(),
-            grid.order.data_ptr(), grid.slot.data_ptr(),
-            grid.table.data_ptr(), out.data_ptr(),
-            n, c, spec.cx, spec.cy, spec.cap, r2cut)
+            grid.kept.data_ptr(), grid.cell_start.data_ptr(), out.data_ptr(),
+            n, c, spec.cx, spec.cy, _tile(spec, n, tile), r2cut)
     apply_deg_sweep.launches += 1
     return out
 
@@ -277,8 +330,8 @@ def apply_sweep(pos: torch.Tensor, wcols: torch.Tensor, grid: PCellGrid,
     _check_grid(grid, spec, n, pos.device)
     out = torch.empty((n, c), dtype=pos.dtype, device=pos.device)
     _launch("cells_apply", pos.data_ptr(), wcols.data_ptr(),
-            grid.order.data_ptr(), grid.slot.data_ptr(),
-            grid.table.data_ptr(), out.data_ptr(),
+            grid.kept.data_ptr(), grid.cell_start.data_ptr(),
+            grid.slot.data_ptr(), out.data_ptr(),
             n, c, spec.cx, spec.cy, spec.cap, r2cut)
     apply_sweep.launches += 1
     return out

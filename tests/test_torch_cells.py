@@ -13,6 +13,8 @@ repository's stated bound is 1e-4); integer quantities (slots, overflow,
 degrees) must be equal.
 """
 
+import re
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -23,6 +25,7 @@ from multiagent_gnn_policies_tpu.ops import blocked as jbl
 from multiagent_gnn_policies_tpu.ops import pallas_cells as jpc
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     FlockingParams as TParams,
+    _init_candidate,
 )
 from multiagent_gnn_policies_tpu_torch.ops import blocked as tbl
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as tcc
@@ -100,15 +103,19 @@ def test_grid_matches_jax(case):
     assert int(tg.overflow) == int(jg.overflow)
     if case in ("dense", "coincident", "out_of_grid"):
         assert int(tg.overflow) > 0
-    # the port's cell-major table is the inverse of the slots
+    # the port's cell ranges of kept agents are the inverse of the slots:
+    # each kept agent lies in its slot's cell range, in slot-rank order
     slot = tg.slot.numpy()
     cap, cy = ts.cap, ts.cy
-    table = tg.table.numpy()
+    kept, start = tg.kept.numpy(), tg.cell_start.numpy()
     for a in np.flatnonzero(slot >= 0):
         s = slot[a]
         cell = (s // (cap * cy)) * cy + s % cy
-        assert table[cell * cap + (s // cy) % cap] == a
-    assert (table >= 0).sum() == (slot >= 0).sum()
+        assert a in kept[start[cell]:start[cell + 1]]
+    ranks = (slot[kept[:start[-1]]] // cy) % cap
+    cells = slot[kept[:start[-1]]] // (cap * cy) * cy + slot[kept[:start[-1]]] % cy
+    assert (np.diff(cells * cap + ranks) > 0).all()
+    assert start[-1] == (slot >= 0).sum()
     assert sorted(tg.order.numpy()) == list(range(pos.shape[0]))
 
 
@@ -215,6 +222,180 @@ def test_plain_sweeps_match_blocked_oracle(centralized):
                                            deg=fq.degree), what="applied")
 
 
+# --- the range layout the kernels walk (pure torch, no JAX) ---------------
+
+def _tile_walk(grid, spec, tile, chunk, threads, rows):
+    """Each agent's candidates as csrc/cells.cu's K1/K2 tile sweep visits
+    them: blocks of ``rows`` grid rows by ``tile`` columns, the ``rows + 2``
+    halo ranges of ``kept`` concatenated and staged ``chunk`` agents at a
+    time, ``threads`` tile agents at a time, each walking its three
+    sub-ranges in order. Returns {agent: [candidate agents]} for the kept
+    agents."""
+    kept, cs = grid.kept.numpy(), grid.cell_start.numpy()
+    cx, cy, w, nh = spec.cx, spec.cy, tile + 3, rows + 2
+    out = {}
+    for i0 in range(0, cx, rows):
+        for j0 in range(0, cy, tile):
+            start = np.array([
+                cs[(i0 - 1 + q // w) * cy + min(max(j0 - 1 + q % w, 0), cy)]
+                if 0 <= i0 - 1 + q // w < cx else 0 for q in range(nh * w)])
+            off = [0]
+            for r in range(nh):
+                off.append(off[-1] + start[r * w + w - 1] - start[r * w])
+            pre = [0]
+            for t in range(rows):
+                pre.append(pre[-1] + start[(t + 1) * w + tile + 1]
+                           - start[(t + 1) * w + 1])
+            halo = np.concatenate([kept[start[r * w]:start[r * w + w - 1]]
+                                   for r in range(nh)])
+            for g0 in range(0, pre[-1], threads):
+                for q in range(g0, min(g0 + threads, pre[-1])):
+                    h = 1 + sum(q >= pre[t] for t in range(1, rows))
+                    p = start[h * w + 1] + q - pre[h - 1]
+                    v = max(u for u in range(tile)
+                            if start[h * w + 1 + u] <= p)
+                    ranges = [(off[r] - start[r * w] + start[r * w + v],
+                               off[r] - start[r * w] + start[r * w + v + 3])
+                              for r in (h - 1, h, h + 1)]
+                    own = off[h] - start[h * w] + p
+                    seen = []
+                    for c0 in range(0, off[-1], chunk):
+                        c1 = min(c0 + chunk, off[-1])
+                        for lo, hi in ranges:
+                            seen += [halo[k] for k in range(max(lo, c0),
+                                                            min(hi, c1))
+                                     if k != own]
+                    out[int(kept[p])] = [int(a) for a in seen]
+    return out
+
+
+def _range_swarm(case, cap, edge):
+    """(positions, spec) of one test swarm at (cap, edge_mult)."""
+    if case in ("sparse", "dense"):
+        seed, n, spread = (0, 48, 3.0) if case == "sparse" else (5, 512, 1.2)
+        pos = _swarm(seed, n, spread)[:, :2]
+        return pos, tcc.make_pcell_spec(TParams(n_agents=n), cap=cap,
+                                        edge_mult=edge)
+    spec = tcc.PCellSpec(cx=4, cy=4, cap=cap, cell=edge)
+    if case == "coincident":
+        # 40 agents in one cell: over cap 16 and cap 32
+        pos = (np.arange(40, dtype=np.float32)[:, None] * 1e-3).repeat(2, 1)
+        return pos, spec
+    if case == "out_of_grid":
+        # agent 1 lies outside the grid and is clamped into the corner cell
+        # ahead of the in-grid agents 3 and 4: kept agents are not a prefix
+        # of the corner cell's sorted run
+        pos = edge * np.array([[0.0, 0.0], [0.5, 0.5], [100.0, 100.0],
+                               [3.5, 3.5], [3.2, 3.7]], np.float32)
+        return pos, spec
+    n = 4096
+    p = TParams(n_agents=n)
+    gen = torch.Generator().manual_seed(3)
+    pos = _init_candidate(gen, p, "cpu")[:, :2].numpy()
+    return pos, tcc.make_pcell_spec(p, cap=cap, edge_mult=edge)
+
+
+@pytest.mark.parametrize("cap,edge", [(16, 1.0), (32, 2.0)])
+@pytest.mark.parametrize("case", ["sparse", "dense", "coincident",
+                                  "out_of_grid", "lattice"])
+def test_ranges_enumerate_the_candidates_in_order(case, cap, edge):
+    """The candidates the kernels walk from kept/cell_start are the plain
+    versions' candidates (from the slots alone), in the same order, for the
+    default tile and for tiny tiles, chunks and blocks (one and three grid
+    rows per tile) that force many chunks and several agent passes."""
+    pos, spec = _range_swarm(case, cap, edge)
+    n = pos.shape[0]
+    grid = tcc.build_pcell_grid(torch.from_numpy(pos), spec)
+    kept, cs = grid.kept.numpy(), grid.cell_start.numpy()
+    assert sorted(kept.tolist()) == list(range(n))
+    assert cs.shape == (spec.cx * spec.cy + 1,) and cs[0] == 0
+    assert (np.diff(cs) >= 0).all()
+    assert cs[-1] == n - int(grid.overflow)
+    assert (int(grid.overflow) > 0) == (case in ("dense", "coincident",
+                                                 "out_of_grid"))
+    assert set(kept[cs[-1]:].tolist()) == set(
+        np.flatnonzero(grid.slot.numpy() < 0).tolist())
+    cand = tcc._candidates(grid, spec).numpy()
+    want = {a: [int(j) for j in cand[a] if j >= 0] for a in kept[:cs[-1]]}
+    tile, rows = tcc.tile_cells(spec, n), tcc.TILE_ROWS
+    for tile, chunk, threads, rows in (
+            (tile, tcc.FRAME_CHUNK, tcc.BLOCK_THREADS, rows),
+            (tile, tcc.APPLY_DEG_CHUNK, tcc.BLOCK_THREADS, rows),
+            (3, 7, 5, 1), (2, 11, 6, 3)):
+        assert _tile_walk(grid, spec, tile, chunk, threads, rows) == want
+    assert (cand[kept[cs[-1]:]] < 0).all()
+
+
+def _table_build(pos, spec):
+    """The grid build of the previous layout (a cap-wide cell table beside
+    the slots), kept as the yardstick of the op count below."""
+    n = pos.shape[0]
+    origin = pos.min(0).values
+    ij = torch.floor((pos - origin) / spec.cell).to(torch.int64)
+    in_grid = (ij[:, 0] < spec.cx) & (ij[:, 1] < spec.cy)
+    cid = (torch.clamp_max(ij[:, 0], spec.cx - 1) * spec.cy
+           + torch.clamp_max(ij[:, 1], spec.cy - 1))
+    order = torch.argsort(cid, stable=True)
+    sc = cid[order]
+    rank = torch.arange(n) - torch.searchsorted(sc, sc)
+    ok = (rank < spec.cap) & in_grid[order]
+    slot_sorted = torch.where(
+        ok, (sc // spec.cy * spec.cap + rank) * spec.cy + sc % spec.cy, -1)
+    slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
+    nslot = spec.cx * spec.cy * spec.cap
+    table = torch.full((nslot + 1,), -1, dtype=torch.int64)
+    table.scatter_(0, torch.where(ok, sc * spec.cap + rank, nslot), order)
+    return (slot.to(torch.int32), table[:-1].to(torch.int32),
+            order.to(torch.int32), (n - ok.sum()).to(torch.int32))
+
+
+def _dispatched_ops(fn):
+    """The ATen operations ``fn`` dispatches, views included."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.ops
+
+
+def test_grid_build_issues_no_more_ops_than_the_table_build(capsys):
+    """The ranges replace the cap-wide table and add no tensor operation
+    (the step is host-bound); slots, order and overflow are unchanged."""
+    pos = torch.from_numpy(_swarm(5, 512, 1.2)[:, :2])
+    spec = tcc.make_pcell_spec(TParams(n_agents=512), cap=8)
+    new = _dispatched_ops(lambda: tcc.build_pcell_grid(pos, spec))
+    old = _dispatched_ops(lambda: _table_build(pos, spec))
+    with capsys.disabled():
+        print(f"\ngrid build: {len(new)} ATen ops (table build: {len(old)})")
+    assert len(new) <= len(old) == 47
+    grid, (slot, _, order, overflow) = (tcc.build_pcell_grid(pos, spec),
+                                        _table_build(pos, spec))
+    assert torch.equal(grid.slot, slot) and torch.equal(grid.order, order)
+    assert int(grid.overflow) == int(overflow) > 0
+
+
+def test_tile_cells_at_the_main_paths_density():
+    p = TParams(n_agents=32768)
+    spec = tcc.make_pcell_spec(p)
+    assert (spec.cx, spec.cy) == (185, 185)
+    assert tcc.tile_cells(spec, 32768) == 12
+    # a dense grid takes narrow tiles, a sparse one wide tiles, any grid a
+    # legal width
+    assert tcc.tile_cells(tcc.PCellSpec(8, 8, 32, 2.0), 2048) == 1
+    assert tcc.tile_cells(tcc.PCellSpec(3, 3, 16, 1.0), 1) == 3
+    for n in (1, 100, 10 ** 6):
+        assert 1 <= tcc.tile_cells(spec, n) <= tcc.MAX_TILE
+
+
 def test_cpu_wrappers_take_plain_versions_uncounted():
     """A CPU tensor goes to the plain version, which takes any column count
     (the CUDA launchers take APPLY_COLS), and launches nothing."""
@@ -243,3 +424,11 @@ def test_nvcc_build_is_one_plain_c_abi_call():
     assert "torch" not in src.replace("multiagent_gnn_policies_tpu_torch", "")
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in src
+    # the Python mirrors of the kernels' block geometry
+    for const, value in (("kThreads", tcc.BLOCK_THREADS),
+                         ("kMaxTile", tcc.MAX_TILE),
+                         ("kRows", tcc.TILE_ROWS)):
+        assert f"constexpr int {const} = {value};" in src
+    chunks = [int(c) for c in re.findall(
+        r"static constexpr int kChunk = (\d+);", src)]
+    assert chunks == [tcc.FRAME_CHUNK, tcc.APPLY_DEG_CHUNK]

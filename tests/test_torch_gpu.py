@@ -7,7 +7,8 @@ runs on a machine without JAX:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
 Tolerance: 1e-5 of each channel's largest magnitude (same float32
-arithmetic, other summation order); degrees and min r^2 must be equal.
+arithmetic, other summation order); degrees and min r^2 must be equal, and
+two launches on the same input bit-identical.
 """
 
 import pytest
@@ -84,7 +85,132 @@ def test_wrappers_raise_on_bad_cuda_input_and_count_launches():
         tcc.apply_sweep(x[:, :2].contiguous(),
                         torch.ones((n, 7), device=dev),
                         grid, ts, 1.0)
+    cols = torch.ones((n * 12 + 2,), device=dev)[2:].view(n, 12)
+    with pytest.raises(ValueError, match="aligned"):
+        tcc.apply_deg_sweep(x, cols, torch.ones(n, device=dev), grid, ts,
+                            1.0)
     assert set(tcc.launch_counts().values()) == {0}
     tcc.frame_sweep(x, grid, ts, 1.0, True)
     torch.cuda.synchronize()
     assert tcc.launch_counts()["frame_sweep"] == 1
+
+
+def _swarm_on(dev, case):
+    """(x (N, 4), spec, tile or None) of one hard case for the tile sweep."""
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if case == "dense_chunks":
+        # ~32 agents per cell of capacity 32 (many cells overflow); tiles
+        # of 8 cells: a halo of ~960 agents takes two staging chunks and a
+        # tile of ~256 agents two passes of the block's threads
+        n, side = 2048, 16.0
+        x = torch.rand((n, 4), generator=gen, device=dev) * side
+        return x, tcc.PCellSpec(cx=8, cy=8, cap=32, cell=2.0), 8
+    if case == "overflow":
+        n = 1000
+        x = torch.rand((n, 4), generator=gen, device=dev) * 6.0
+        return x, tcc.make_pcell_spec(FlockingParams(n_agents=n), cap=8), None
+    n = {"cap32_edge2": 4096, "ragged_n": 3001, "one_agent": 1}[case]
+    tp = FlockingParams(n_agents=n)
+    x = _init_candidate(gen, tp, dev)
+    if case == "cap32_edge2":
+        return x, tcc.make_pcell_spec(tp, cap=32, edge_mult=2.0), None
+    return x, tcc.make_pcell_spec(tp), None
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["overflow", "cap32_edge2", "dense_chunks",
+                                  "ragged_n", "one_agent"])
+def test_kernels_match_plain_versions_on_hard_grids(case):
+    """K1/K2/K3 against their plain versions where the tile sweep must
+    loop or fill: dropped agents (overflow), cap 32 with edge_mult 2, a
+    tile whose halo needs several staging chunks and whose agents several
+    passes of the block, N not a multiple of the block, and N = 1. Two
+    launches on one input are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU "
+                    "mode; the CPU tests cover their plain versions)")
+    dev = torch.device("cuda")
+    x, ts, tile = _swarm_on(dev, case)
+    n = x.shape[0]
+    grid = tcc.build_pcell_grid(x[:, :2], ts)
+    assert (int(grid.overflow) > 0) == (case in ("overflow", "dense_chunks"))
+    if case == "dense_chunks":
+        # one tile per grid row: its agents, and its halo of three rows
+        row_n = torch.diff(grid.cell_start.cpu()[::ts.cy])
+        assert int(row_n.max()) > tcc.BLOCK_THREADS
+        assert int((row_n[:-2] + row_n[1:-1] + row_n[2:]).max()) > (
+            max(tcc.FRAME_CHUNK, tcc.APPLY_DEG_CHUNK))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cols = torch.randn((n, 12), generator=gen, device=dev)
+    runs = []
+    for _ in range(2):
+        per = tcc.frame_sweep(x, grid, ts, 1.0, True, tile=tile)
+        deg = per[:, 6].contiguous()
+        runs.append((per, tcc.apply_deg_sweep(x, cols, deg, grid, ts, 1.0,
+                                              tile=tile),
+                     tcc.apply_sweep(x[:, :2].contiguous(),
+                                     cols[:, :6].contiguous(), grid, ts,
+                                     1.0)))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    per, applied, applied3 = runs[0]
+    _close(per, tcc.frame_sweep_plain(x, grid, ts, 1.0, True), "K1",
+           exact=(6, 9))
+    _close(applied, tcc.apply_deg_sweep_plain(x, cols, per[:, 6], grid, ts,
+                                              1.0), "K2")
+    _close(applied3, tcc.apply_sweep_plain(x[:, :2], cols[:, :6], grid, ts,
+                                           1.0), "K3")
+    dropped = grid.slot < 0
+    assert (per[dropped, :9] == 0).all() and (per[dropped, 9] == 1e12).all()
+    assert (applied[dropped] == 0).all() and (applied3[dropped] == 0).all()
+
+
+@pytest.mark.gpu
+def test_grid_build_never_waits_for_the_device():
+    """build_pcell_grid issues no operation that synchronises the host."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the host-sync check is CUDA's)")
+    dev = torch.device("cuda")
+    tp = FlockingParams(n_agents=4096)
+    x = _init_candidate(torch.Generator(device=dev).manual_seed(4), tp, dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        grid = tcc.build_pcell_grid(x[:, :2], tcc.make_pcell_spec(tp))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert int(grid.cell_start[-1]) == 4096 - int(grid.overflow)
+    assert torch.equal(grid.kept.sort().values,
+                       torch.arange(4096, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.gpu
+def test_grid_on_the_card_equals_the_grid_on_the_cpu():
+    """The CUDA sorts give the CPU's grid, drops included: an overflowing
+    swarm with agents outside the grid."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    gen = torch.Generator().manual_seed(6)
+    pos = torch.rand((3000, 2), generator=gen) * 5.0
+    pos[::97] += 100.0                      # outside the grid, clamped
+    ts = tcc.make_pcell_spec(FlockingParams(n_agents=3000), cap=8)
+    want = tcc.build_pcell_grid(pos, ts)
+    got = tcc.build_pcell_grid(pos.cuda(), ts)
+    assert int(want.overflow) > 0
+    for name, a, b in zip(want._fields, got, want):
+        assert torch.equal(a.cpu(), b), name
+
+
+@pytest.mark.gpu
+def test_tile_timeline_reads_every_phase(capsys):
+    """ops/tile_timeline.py builds the stamped library and reports each
+    phase of K1's and K2's tile sweep."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from multiagent_gnn_policies_tpu_torch.ops import tile_timeline
+
+    tile_timeline.main(["--n", "4096"])
+    out = capsys.readouterr().out
+    for label, _, _ in tile_timeline.PHASES:
+        assert out.count(label) == 2, label
