@@ -20,7 +20,10 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
    CUDA's sync debug mode, which raises on any host synchronisation; then
    each kernel timed with CUDA events over 50 launches beside its plain
    version and a launch floor (an empty sleep kernel timed the same way),
-   and K1 and K2 at several tile widths;
+   and all three at several tile widths. K3 runs on the main path's own
+   inputs: the historical positions, grid and degrees, and the columns as
+   the row-strided view of the pre-applied output that the delayed stack
+   passes;
 4. episode: one greedy 200-step N = 32,768 K = 3 episode through the
    port's evaluate entry point with the in-repo n32k checkpoint, with the
    launch counters zeroed just before and read just after. It must launch
@@ -64,7 +67,7 @@ DEVICE = "cuda"
 N = 32768
 N_ORACLE = 4096
 REPS = 50
-TILES = (8, 12, 16, 24, 32)    # K1/K2 tile widths timed beside the default
+TILES = (8, 12, 16, 24, 32)    # tile widths timed beside the default
 TRACE_STEPS = 20
 REL_PLAIN = 1e-5
 REL_ORACLE = 1e-4
@@ -187,7 +190,7 @@ def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
     tiles a whole grid row wide (8 columns): each tile holds several
     blocks' worth of agents (several passes) and a halo of several staging
     chunks. K1, K2 and K3 against their plain versions and the blocked
-    oracle."""
+    oracle; K3 on a row-strided view of the columns."""
     n, tile = 2048, 8
     p = FlockingParams(n_agents=n)
     spec = cc.PCellSpec(cx=8, cy=8, cap=64, cell=2.0)
@@ -205,7 +208,8 @@ def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
     deg = per[:, 6].contiguous()
     applied = cc.apply_deg_sweep(x, cols, deg, grid, spec, 1.0, tile=tile)
     pos = x[:, :2].contiguous()
-    applied3 = cc.apply_sweep(pos, cols[:, :6].contiguous(), grid, spec, 1.0)
+    applied3 = cc.apply_sweep(pos, cols[:, 6:], deg, grid, spec, 1.0,
+                              tile=tile)
     check_close("K1 vs plain, dense tiles", per,
                 cc.frame_sweep_plain(x, grid, spec, 1.0, True), REL_PLAIN,
                 exact_channels=(6, 9))
@@ -213,7 +217,7 @@ def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
                 cc.apply_deg_sweep_plain(x, cols, deg, grid, spec, 1.0),
                 REL_PLAIN)
     check_close("K3 vs plain, dense tiles", applied3,
-                cc.apply_sweep_plain(pos, cols[:, :6], grid, spec, 1.0),
+                cc.apply_sweep_plain(pos, cols[:, 6:], deg, grid, spec, 1.0),
                 REL_PLAIN)
     ref = bl.blocked_frame(x, p, True, block=512)
     check_close("K1 vs blocked oracle, dense tiles", per[:, :6], ref.values,
@@ -224,6 +228,9 @@ def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
         raise AssertionError("dense tiles: min r^2 differs from the oracle")
     check_close("K2 vs blocked oracle, dense tiles", applied,
                 bl.blocked_apply_adjT(pos, cols, p, 512, deg=deg), REL_ORACLE)
+    check_close("K3 vs blocked oracle, dense tiles", applied3,
+                bl.blocked_apply_adjT(pos, cols[:, 6:], p, 512, deg=deg),
+                REL_ORACLE)
     return halo
 
 
@@ -404,10 +411,12 @@ def main():
             raise AssertionError(f"overflow {int(state.overflow)} at N={N}")
         x, grid, carry = state.x, state.grid, state.carry
         cols = ln._s0_cols(carry).contiguous()                  # (N, 12)
-        pos_h = carry.pos_hist[0].contiguous()                  # (N, 2)
+        # K3's inputs as ystack_pre hands them over: the historical frame's
+        # positions, grid and degrees, and slot 1 of the pre-applied s = 0
+        # output, a row-strided view (row stride 12, 24 bytes in)
+        pos_h, deg_h = carry.pos_hist[0], carry.deg_hist[0]
         grid_h = state.grid_hist[0]
-        wcols = (state.s0.reshape(N, 2, 6)[:, 1, :]
-                 / carry.deg_hist[0].clamp_min(1.0)[:, None]).contiguous()
+        cols_h = state.s0[:, 6:]
         k1 = lambda: cc.frame_sweep(x, grid, spec, 1.0, True)
         k1_plain = lambda: cc.frame_sweep_plain(x, grid, spec, 1.0, True)
         out1 = k1()
@@ -415,9 +424,9 @@ def main():
         k2 = lambda: cc.apply_deg_sweep(x, cols, deg, grid, spec, 1.0)
         k2_plain = lambda: cc.apply_deg_sweep_plain(x, cols, deg, grid, spec,
                                                     1.0)
-        k3 = lambda: cc.apply_sweep(pos_h, wcols, grid_h, spec, 1.0)
-        k3_plain = lambda: cc.apply_sweep_plain(pos_h, wcols, grid_h, spec,
-                                                1.0)
+        k3 = lambda: cc.apply_sweep(pos_h, cols_h, deg_h, grid_h, spec, 1.0)
+        k3_plain = lambda: cc.apply_sweep_plain(pos_h, cols_h, deg_h, grid_h,
+                                                spec, 1.0)
         outs = {"K1": (out1, k1_plain()), "K2": (k2(), k2_plain()),
                 "K3": (k3(), k3_plain())}
         torch.cuda.synchronize()
@@ -477,8 +486,10 @@ def main():
             "K1": (N * 16 + nb1 + N * 40, 11 * cand1 + 25 * nbr1),
             "K2": (N * 8 + N * 48 + N * 4 + nb1 + N * 48,
                    6 * cand1 + (2 + 2 * 12) * nbr1),
-            "K3": (N * 8 + N * 24 + nb3 + N * 24,
-                   6 * cand3 + 6 * nbr3),
+            # K3: positions, degrees and raw columns in; a clamp and 6
+            # divisions per agent
+            "K3": (N * 8 + N * 4 + N * 24 + nb3 + N * 24,
+                   7 * N + 6 * cand3 + 6 * nbr3),
         }
         timing = {}
         for name, fn, plain in (("K1", k1, k1_plain), ("K2", k2, k2_plain),
@@ -498,9 +509,11 @@ def main():
                                                   tile=T))
             t2 = device_ms(lambda: cc.apply_deg_sweep(x, cols, deg, grid,
                                                       spec, 1.0, tile=T))
+            t3 = device_ms(lambda: cc.apply_sweep(pos_h, cols_h, deg_h,
+                                                  grid_h, spec, 1.0, tile=T))
             print(f"#   tile {cc.TILE_ROWS} x {T:>3} cells"
                   f"{' (chosen)' if T == tile else ''}: K1 {t1:.4f} ms, "
-                  f"K2 {t2:.4f} ms", flush=True)
+                  f"K2 {t2:.4f} ms, K3 {t3:.4f} ms", flush=True)
     phase("kernels", t, candidate_pairs=cand1, neighbour_pairs=nbr1,
           tile=tile, dense_halo=halo)
 

@@ -32,9 +32,10 @@ SIGNATURES = {
     # x, cols, deg, kept, cell_start, out, n, c, cx, cy, tile, r2cut, stream
     "cells_apply_deg": [_P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _F, _P],
-    # pos, wcols, kept, cell_start, slot, out, n, c, cx, cy, cap, r2cut,
+    # pos, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, tile, r2cut,
     # stream
-    "cells_apply": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "cells_apply": [_P, _P, _P, _P, _P, _P,
+                    _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -8,8 +8,8 @@ exactly once. The cell edge is ``max(comm_radius, 1) · edge_mult``, so the
 3x3 cells around an agent hold its radius neighbours and the expert's
 unit-range potential. The grid lists the kept agents in cell order with a
 start per cell, so an agent's candidates are three contiguous ranges (one
-per neighbour row); ``csrc/cells.cu`` sweeps K1 and K2 in cell-row tiles
-staged in shared memory, and K3 with one thread per agent.
+per neighbour row); ``csrc/cells.cu`` sweeps all three kernels in
+cell-row tiles staged in shared memory.
 
 Three kernels, each with a wrapper that launches it for CUDA tensors (and
 counts the launch in ``.launches``) and takes the plain PyTorch version
@@ -19,8 +19,9 @@ raises, never falls back:
 * :func:`frame_sweep` (K1): (N, 4) state -> (N, 10) frame channels;
 * :func:`apply_deg_sweep` (K2): state, (N, C) raw columns and the new
   graph's (N,) degrees -> (N, C) degree-normalised neighbour sums;
-* :func:`apply_sweep` (K3): (N, 2) positions and (N, C) pre-divided columns
-  -> (N, C) neighbour sums.
+* :func:`apply_sweep` (K3): (N, 2) positions, (N, C) raw columns (a
+  row-strided view is read in place) and an earlier graph's (N,) degrees
+  -> (N, C) degree-normalised neighbour sums over that graph.
 
 The plain versions gather each agent's 9·cap candidates: O(N · 9 · cap)
 memory, fine on the card at N = 32,768, never an (N, N) array.
@@ -48,14 +49,15 @@ APPLY_COLS = (6, 12)
 FRAME_CHANNELS = 10   # v0..v5 | degree | gx | gy | min_r2
 MIN_R2_FILL = 1e12
 # csrc/cells.cu's kThreads, kMaxTile, kRows and the ops' kChunk: threads
-# per block, most columns and the grid rows of a K1/K2 tile, halo agents K1
-# and K2 stage per pass
+# per block, most columns and the grid rows of a tile, halo agents K1, K2
+# and K3 stage per pass
 BLOCK_THREADS = 128
 MAX_TILE = 128
 TILE_ROWS = 2
 FRAME_CHUNK = 512
 APPLY_DEG_CHUNK = 256
-# agents a K1/K2 tile holds at the grid's mean density (tile_cells). The
+APPLY_CHUNK = 128
+# agents a tile holds at the grid's mean density (tile_cells). The
 # lattice disc covers about half of its square grid, so an occupied tile
 # holds about twice as many: ~50 at N = 32,768, which timed fastest on the
 # H100 among widths of 8-32 columns (PERF.md)
@@ -141,7 +143,7 @@ def build_pcell_grid(pos: torch.Tensor, spec: PCellSpec) -> PCellGrid:
 
 
 def tile_cells(spec: PCellSpec, n: int) -> int:
-    """Columns per K1/K2 tile (of ``TILE_ROWS`` grid rows): those that hold
+    """Columns per tile (of ``TILE_ROWS`` grid rows): those that hold
     ``TILE_AGENTS`` agents at the grid's mean density. Static: from the
     spec and N only."""
     per_cell = max(n, 1) / (spec.cx * spec.cy)
@@ -223,20 +225,22 @@ def apply_deg_sweep_plain(x: torch.Tensor, cols: torch.Tensor,
     return (w[..., None] * cols[jj]).sum(1)
 
 
-def apply_sweep_plain(pos: torch.Tensor, wcols: torch.Tensor,
-                      grid: PCellGrid, spec: PCellSpec,
+def apply_sweep_plain(pos: torch.Tensor, cols: torch.Tensor,
+                      deg: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
                       r2cut: float) -> torch.Tensor:
-    """K3's function in plain PyTorch: out_i = sum_j m·wcols_j."""
+    """K3's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1),
+    the columns divided first."""
     cand = _candidates(grid, spec)
     valid, _, _, _, r2 = _pair_geometry(pos, cand)
-    m = (valid & (r2 < r2cut)).to(wcols.dtype)
+    m = (valid & (r2 < r2cut)).to(cols.dtype)
+    wcols = cols / torch.clamp_min(deg, 1.0)[:, None]
     return (m[..., None] * wcols[cand.clamp_min(0)]).sum(1)
 
 
 # --- kernel wrappers ------------------------------------------------------
 
-def _check(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
-           device: torch.device, align: int = 4) -> None:
+def _check_meta(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
+                device: torch.device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -244,6 +248,11 @@ def _check(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
+
+
+def _check(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
+           device: torch.device, align: int = 4) -> None:
+    _check_meta(name, t, shape, dtype, device)
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % align:
@@ -317,22 +326,43 @@ def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
     return out
 
 
-def apply_sweep(pos: torch.Tensor, wcols: torch.Tensor, grid: PCellGrid,
-                spec: PCellSpec, r2cut: float) -> torch.Tensor:
-    """K3: ``out_i = sum_j m·wcols_j`` over ``grid``."""
+def _row_stride(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
+                device: torch.device) -> int:
+    """The row stride of a 2-D ``t`` whose rows are contiguous and 8-byte
+    aligned (a row-strided view passes); raises otherwise."""
+    _check_meta(name, t, shape, dtype, device)
+    n, c = shape
+    if t.stride(1) != 1:
+        raise ValueError(f"{name} must have last stride 1, got {t.stride()}")
+    ld = t.stride(0) if n > 1 else c
+    if ld < c:
+        raise ValueError(f"{name} rows overlap (row stride {ld} < {c})")
+    if t.data_ptr() % 8 or (ld * t.element_size()) % 8:
+        raise ValueError(f"{name} rows must be 8-byte aligned (row stride "
+                         f"{ld}, address {t.data_ptr()})")
+    return ld
+
+
+def apply_sweep(pos: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
+                grid: PCellGrid, spec: PCellSpec, r2cut: float,
+                tile: Optional[int] = None) -> torch.Tensor:
+    """K3: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``, the
+    graph of ``pos`` whose degrees ``deg`` are. ``cols`` may be a
+    row-strided view (last stride 1, 8-byte aligned rows); it is read in
+    place. ``tile``: cells per block (default :func:`tile_cells`)."""
     if not pos.is_cuda:
-        return apply_sweep_plain(pos, wcols, grid, spec, r2cut)
-    n, c = wcols.shape
+        return apply_sweep_plain(pos, cols, deg, grid, spec, r2cut)
+    n, c = cols.shape
     if c not in APPLY_COLS:
         raise ValueError(f"apply_sweep takes {APPLY_COLS} columns, got {c}")
     _check("pos", pos, (n, 2), torch.float32, pos.device, align=8)
-    _check("wcols", wcols, (n, c), torch.float32, pos.device)
+    ld = _row_stride("cols", cols, (n, c), torch.float32, pos.device)
+    _check("deg", deg, (n,), torch.float32, pos.device)
     _check_grid(grid, spec, n, pos.device)
     out = torch.empty((n, c), dtype=pos.dtype, device=pos.device)
-    _launch("cells_apply", pos.data_ptr(), wcols.data_ptr(),
-            grid.kept.data_ptr(), grid.cell_start.data_ptr(),
-            grid.slot.data_ptr(), out.data_ptr(),
-            n, c, spec.cx, spec.cy, spec.cap, r2cut)
+    _launch("cells_apply", pos.data_ptr(), cols.data_ptr(), deg.data_ptr(),
+            grid.kept.data_ptr(), grid.cell_start.data_ptr(), out.data_ptr(),
+            n, c, ld, spec.cx, spec.cy, _tile(spec, n, tile), r2cut)
     apply_sweep.launches += 1
     return out
 
@@ -385,12 +415,12 @@ def apply_adjT(pos_src: torch.Tensor, deg_src: torch.Tensor,
                grid: Optional[PCellGrid] = None) -> torch.Tensor:
     """``out_i = sum_{j in nbr(i)} cols_j / deg_j`` over the radius graph of
     ``pos_src`` through K3 (the graph is symmetric, so the transpose-apply
-    is a neighbour sum of pre-divided columns)."""
+    is a neighbour sum of divided columns; K3 divides as it stages)."""
     pos_src = pos_src.contiguous()
     if grid is None:
         grid = build_pcell_grid(pos_src, spec)
-    wcols = cols / torch.clamp_min(deg_src, 1.0)[:, None]
-    return apply_sweep(pos_src, wcols, grid, spec, float(p.comm_radius) ** 2)
+    return apply_sweep(pos_src, cols, deg_src, grid, spec,
+                       float(p.comm_radius) ** 2)
 
 
 def ystack_pre(carry: DelayCarry, s0_out: torch.Tensor, spec: PCellSpec,
@@ -400,7 +430,9 @@ def ystack_pre(carry: DelayCarry, s0_out: torch.Tensor, spec: PCellSpec,
     """The aggregated delayed stack ``y_k = G_k(t)^T x_{t-k}`` (K, N, F)
     with the s = 0 (current-graph) apply already done: ``s0_out`` is
     :func:`frame_apply`'s output of the previous step. Only the historical
-    graphs' applies (s >= 1) remain, newest graph first."""
+    graphs' applies (s >= 1) remain, newest graph first. Each apply takes
+    the slots not yet final as a row-strided view of the last output, and
+    its first slot is final: at K = 3 the step issues K3 and one stack."""
     k = carry.history.shape[0]
     n, f = carry.history.shape[1:]
     y = [carry.history[0]]
@@ -411,8 +443,8 @@ def ystack_pre(carry: DelayCarry, s0_out: torch.Tensor, spec: PCellSpec,
     for s in range(1, k - 1):
         pos_s, deg_s = carry.pos_hist[s - 1], carry.deg_hist[s - 1]
         grid_s = grid_hist[s - 1] if grid_hist else None
-        cols = v[s:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
+        cols = v[1:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
         out = apply_adjT(pos_s, deg_s, cols, spec, p, grid=grid_s)
-        v = torch.cat([v[:s], out.reshape(n, k - 1 - s, f).transpose(0, 1)])
-        y.append(v[s])
+        v = out.reshape(n, k - 1 - s, f).transpose(0, 1)      # slots s..K-2
+        y.append(v[0])
     return torch.stack(y)

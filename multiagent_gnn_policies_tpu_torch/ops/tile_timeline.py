@@ -1,14 +1,16 @@
-"""Where a K1/K2 tile block spends its time, from clock64 stamps.
+"""Where a tile block of K1, K2 or K3 spends its time, from clock64 stamps.
 
     python -m multiagent_gnn_policies_tpu_torch.ops.tile_timeline [--n 32768]
 
 Builds ``csrc/cells.cu`` once more with ``-DCELLS_TIMELINE`` (a library of
-its own in ``_build/``; the main path's library has no stamps), runs K1 and
-K2 once on a lattice swarm at the main path's shapes, and prints, over the
-blocks whose tile holds agents, the SM cycles of each phase of the tile
-sweep: the cell-start loads, the (first) staging pass, the walk and the
-output stores up to the block's last barrier, and the output writes; then
-how evenly the tile agents fell on the SMs. Needs a card.
+its own in ``_build/``; the main path's library has no stamps), runs K1,
+K2 and K3 (K3 on a row-strided view of the columns, as the delayed stack
+passes them) once on a lattice swarm at the main path's shapes, and
+prints, over the blocks whose tile holds agents, the SM cycles of each
+phase of the tile sweep: the cell-start loads, the (first) staging pass,
+the walk and the output stores up to the block's last barrier, and the
+output writes; then how evenly the tile agents fell on the SMs. Needs a
+card.
 """
 
 from __future__ import annotations
@@ -80,6 +82,9 @@ def main(argv=None) -> None:
     n_blocks = (-(-spec.cx // cc.TILE_ROWS)) * (-(-spec.cy // tile))
     out1 = torch.empty((args.n, 10), device=dev)
     out2 = torch.empty((args.n, 12), device=dev)
+    out3 = torch.empty((args.n, 6), device=dev)
+    pos = x[:, :2].contiguous()
+    cols3 = cols[:, 6:]                     # row stride 12, 24 bytes in
     stream = torch.cuda.current_stream().cuda_stream
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"{torch.cuda.get_device_name(0)}; N = {args.n}, {spec.cx} x "
@@ -93,6 +98,11 @@ def main(argv=None) -> None:
             grid.kept.data_ptr(), grid.cell_start.data_ptr(),
             out2.data_ptr(), args.n, 12, spec.cx, spec.cy, tile, 1.0,
             stream),
+        "K3 apply_kernel<6>": lambda: lib.cells_apply(
+            pos.data_ptr(), cols3.data_ptr(), deg.data_ptr(),
+            grid.kept.data_ptr(), grid.cell_start.data_ptr(),
+            out3.data_ptr(), args.n, 6, cols3.stride(0), spec.cx, spec.cy,
+            tile, 1.0, stream),
     }
     stamps = np.zeros((STAMP_BLOCKS, 8), np.int64)
     for name, launch in launches.items():

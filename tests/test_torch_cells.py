@@ -13,6 +13,7 @@ repository's stated bound is 1e-4); integer quantities (slots, overflow,
 degrees) must be equal.
 """
 
+import functools
 import re
 
 import numpy as np
@@ -225,7 +226,7 @@ def test_plain_sweeps_match_blocked_oracle(centralized):
 # --- the range layout the kernels walk (pure torch, no JAX) ---------------
 
 def _tile_walk(grid, spec, tile, chunk, threads, rows):
-    """Each agent's candidates as csrc/cells.cu's K1/K2 tile sweep visits
+    """Each agent's candidates as csrc/cells.cu's tile sweep visits
     them: blocks of ``rows`` grid rows by ``tile`` columns, the ``rows + 2``
     halo ranges of ``kept`` concatenated and staged ``chunk`` agents at a
     time, ``threads`` tile agents at a time, each walking its three
@@ -321,6 +322,7 @@ def test_ranges_enumerate_the_candidates_in_order(case, cap, edge):
     for tile, chunk, threads, rows in (
             (tile, tcc.FRAME_CHUNK, tcc.BLOCK_THREADS, rows),
             (tile, tcc.APPLY_DEG_CHUNK, tcc.BLOCK_THREADS, rows),
+            (tile, tcc.APPLY_CHUNK, tcc.BLOCK_THREADS, rows),
             (3, 7, 5, 1), (2, 11, 6, 3)):
         assert _tile_walk(grid, spec, tile, chunk, threads, rows) == want
     assert (cand[kept[cs[-1]:]] < 0).all()
@@ -383,6 +385,93 @@ def test_grid_build_issues_no_more_ops_than_the_table_build(capsys):
     assert int(grid.overflow) == int(overflow) > 0
 
 
+def _ystack_pre_before(carry, s0_out, spec, p, grid_hist, ones):
+    """ystack_pre as it was before K3 took the division in: the division
+    and its clamp ahead of K3 (here K3 with unit degrees ``ones``), and a
+    cat after it. Kept as the yardstick of the op count below."""
+    k = carry.history.shape[0]
+    n, f = carry.history.shape[1:]
+    y = [carry.history[0]]
+    v = s0_out.reshape(n, k - 1, f).transpose(0, 1)
+    y.append(v[0])
+    for s in range(1, k - 1):
+        cols = v[s:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
+        wcols = cols / torch.clamp_min(carry.deg_hist[s - 1], 1.0)[:, None]
+        out = tcc.apply_sweep(carry.pos_hist[s - 1], wcols, ones,
+                              grid_hist[s - 1], spec, 1.0)
+        v = torch.cat([v[:s], out.reshape(n, k - 1 - s, f).transpose(0, 1)])
+        y.append(v[s])
+    return torch.stack(y)
+
+
+def test_ystack_pre_issues_k3_and_one_stack(monkeypatch, capsys):
+    """At K = 3 the delayed stack issues two device operations per step,
+    K3 and the stack, where the division ahead of K3 (a clamp and a
+    division) and a cat after it made five. K3 stands in as one counted
+    call here (on the CPU its plain version is many operations); views
+    launch nothing and are not counted. Both versions give the same
+    stack."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    k, n = 3, 48
+    rng = np.random.default_rng(7)
+    _, tp, _, ts = _specs(n)
+    carry = tbl.DelayCarry(
+        torch.from_numpy(rng.normal(size=(k, n, 6)).astype(np.float32)),
+        torch.from_numpy(_swarm(8, n, 3.0)[None, :, :2].copy()),
+        torch.from_numpy(rng.integers(0, 5, (1, n)).astype(np.float32)))
+    grid_hist = (tcc.build_pcell_grid(carry.pos_hist[0], ts),)
+    s0 = torch.from_numpy(rng.normal(size=(n, 12)).astype(np.float32))
+    plain, seen = tcc.apply_sweep, []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def k3(*args, **kwargs):                  # one device operation
+        seen.append("K3")
+        with torch.utils._python_dispatch._disable_current_modes():
+            return plain(*args, **kwargs)
+
+    monkeypatch.setattr(tcc, "apply_sweep", k3)
+    counts, outs = [], []
+    before = functools.partial(_ystack_pre_before, ones=torch.ones(n))
+    for fn in (before, tcc.ystack_pre):
+        seen.clear()
+        with Count():
+            outs.append(fn(carry, s0, ts, tp, grid_hist=grid_hist))
+        counts.append(list(seen))
+    with capsys.disabled():
+        print(f"\nystack_pre at K = 3: {len(counts[1])} device ops "
+              f"{counts[1]} (before: {len(counts[0])} {counts[0]})")
+    assert len(counts[0]) == 5
+    assert counts[1] == ["K3", "aten.stack.default"]
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_plain_historical_apply_reads_a_strided_view_as_a_copy():
+    """apply_sweep_plain on the row-strided view ystack_pre passes equals
+    it on a contiguous copy, bit for bit (the kernel reads the view in
+    place; the plain version is its oracle)."""
+    n = 48
+    x = torch.from_numpy(_swarm(9, n, 3.0))
+    ts = tcc.make_pcell_spec(TParams(n_agents=n))
+    grid = tcc.build_pcell_grid(x[:, :2], ts)
+    s0 = torch.from_numpy(
+        np.random.default_rng(3).normal(size=(n, 12)).astype(np.float32))
+    cols = s0.reshape(n, 2, 6).transpose(0, 1)[1:].transpose(0, 1).reshape(
+        n, 6)
+    assert cols.stride() == (12, 1) and not cols.is_contiguous()
+    deg = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 6, n).astype(np.float32))
+    got = tcc.apply_sweep_plain(x[:, :2], cols, deg, grid, ts, 1.0)
+    want = tcc.apply_sweep_plain(x[:, :2], cols.contiguous(), deg, grid, ts,
+                                 1.0)
+    assert torch.equal(got, want) and got.abs().sum() > 0
+
+
 def test_tile_cells_at_the_main_paths_density():
     p = TParams(n_agents=32768)
     spec = tcc.make_pcell_spec(p)
@@ -406,7 +495,8 @@ def test_cpu_wrappers_take_plain_versions_uncounted():
     grid = tcc.build_pcell_grid(x[:, :2], ts)
     cols = torch.ones((n, 7))
     assert cols.shape[1] not in tcc.APPLY_COLS
-    out = tcc.apply_sweep(x[:, :2].contiguous(), cols, grid, ts, 1.0)
+    out = tcc.apply_sweep(x[:, :2].contiguous(), cols, torch.ones(n), grid,
+                          ts, 1.0)
     assert out.shape == cols.shape
     assert tcc.launch_counts() == {"frame_sweep": 0, "apply_deg_sweep": 0,
                                    "apply_sweep": 0}
@@ -431,4 +521,4 @@ def test_nvcc_build_is_one_plain_c_abi_call():
         assert f"constexpr int {const} = {value};" in src
     chunks = [int(c) for c in re.findall(
         r"static constexpr int kChunk = (\d+);", src)]
-    assert chunks == [tcc.FRAME_CHUNK, tcc.APPLY_DEG_CHUNK]
+    assert chunks == [tcc.FRAME_CHUNK, tcc.APPLY_DEG_CHUNK, tcc.APPLY_CHUNK]

@@ -57,9 +57,9 @@ def test_kernels_match_plain_versions_on_gpu():
     _close(tcc.apply_deg_sweep(x, cols, deg, grid, ts, 1.0),
            tcc.apply_deg_sweep_plain(x, cols, deg, grid, ts, 1.0), "K2")
     pos = x[:, :2].contiguous()
-    wcols = cols[:, :6].contiguous()
-    _close(tcc.apply_sweep(pos, wcols, grid, ts, 1.0),
-           tcc.apply_sweep_plain(pos, wcols, grid, ts, 1.0), "K3")
+    _close(tcc.apply_sweep(pos, cols[:, 6:], deg, grid, ts, 1.0),
+           tcc.apply_sweep_plain(pos, cols[:, 6:].contiguous(), deg, grid,
+                                 ts, 1.0), "K3")
 
 
 @pytest.mark.gpu
@@ -78,12 +78,13 @@ def test_wrappers_raise_on_bad_cuda_input_and_count_launches():
     tcc.reset_launch_counts()
     with pytest.raises(ValueError, match="dtype"):
         tcc.frame_sweep(x.double(), grid, ts, 1.0, True)
+    ones = torch.ones(n, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
-        tcc.apply_sweep(x[:, :2], torch.ones((n, 6), device=dev), grid, ts,
-                        1.0)
+        tcc.apply_sweep(x[:, :2], torch.ones((n, 6), device=dev), ones,
+                        grid, ts, 1.0)
     with pytest.raises(ValueError, match="columns"):
         tcc.apply_sweep(x[:, :2].contiguous(),
-                        torch.ones((n, 7), device=dev),
+                        torch.ones((n, 7), device=dev), ones,
                         grid, ts, 1.0)
     cols = torch.ones((n * 12 + 2,), device=dev)[2:].view(n, 12)
     with pytest.raises(ValueError, match="aligned"):
@@ -148,9 +149,8 @@ def test_kernels_match_plain_versions_on_hard_grids(case):
         deg = per[:, 6].contiguous()
         runs.append((per, tcc.apply_deg_sweep(x, cols, deg, grid, ts, 1.0,
                                               tile=tile),
-                     tcc.apply_sweep(x[:, :2].contiguous(),
-                                     cols[:, :6].contiguous(), grid, ts,
-                                     1.0)))
+                     tcc.apply_sweep(x[:, :2].contiguous(), cols[:, :6],
+                                     deg, grid, ts, 1.0, tile=tile)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -159,11 +159,77 @@ def test_kernels_match_plain_versions_on_hard_grids(case):
            exact=(6, 9))
     _close(applied, tcc.apply_deg_sweep_plain(x, cols, per[:, 6], grid, ts,
                                               1.0), "K2")
-    _close(applied3, tcc.apply_sweep_plain(x[:, :2], cols[:, :6], grid, ts,
-                                           1.0), "K3")
+    _close(applied3, tcc.apply_sweep_plain(x[:, :2], cols[:, :6], per[:, 6],
+                                           grid, ts, 1.0), "K3")
     dropped = grid.slot < 0
     assert (per[dropped, :9] == 0).all() and (per[dropped, 9] == 1e12).all()
     assert (applied[dropped] == 0).all() and (applied3[dropped] == 0).all()
+
+
+def _delayed_stack_case(dev, c):
+    """K3's inputs as the delayed stack hands them over at K = 3 (c = 6):
+    an earlier frame's positions, grid and degrees, and the columns as a
+    row-strided view of the (N, 2c) pre-applied output, 24 bytes in (for
+    c = 12 a view of an (N, 24) array, 48 bytes in)."""
+    n = 4096
+    tp = FlockingParams(n_agents=n)
+    ts = tcc.make_pcell_spec(tp)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = _init_candidate(gen, tp, dev)
+    grid = tcc.build_pcell_grid(x[:, :2], ts)
+    deg = tcc.frame_sweep(x, grid, ts, 1.0, True)[:, 6].contiguous()
+    s0 = torch.randn((n, 2 * c), generator=gen, device=dev)
+    cols = s0.reshape(n, 2, c).transpose(0, 1)[1:].transpose(0, 1).reshape(
+        n, c)
+    assert cols.stride() == (2 * c, 1) and not cols.is_contiguous()
+    return x[:, :2].contiguous(), cols, deg, grid, ts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [6, 12])
+def test_historical_apply_reads_the_delayed_stacks_strided_columns(c):
+    """K3 on the row-strided view the delayed stack passes (C = 6 on the
+    main path; C = 12 is built for K2's column counts and launched here),
+    against the plain version on a contiguous copy, at the default tile and
+    at one column per tile; launches on one input are bit-identical."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU "
+                    "mode; the CPU tests cover their plain versions)")
+    dev = torch.device("cuda")
+    pos, cols, deg, grid, ts = _delayed_stack_case(dev, c)
+    want = tcc.apply_sweep_plain(pos, cols.contiguous(), deg, grid, ts, 1.0)
+    runs = [tcc.apply_sweep(pos, cols, deg, grid, ts, 1.0, tile=t)
+            for t in (None, None, 1)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
+    _close(runs[0], want, f"K3 C={c}")
+    # the same sums as dividing first and adding the quotients: what K3
+    # computed before it took the division in (and the JAX package does)
+    assert torch.equal(runs[0], tcc.apply_sweep(
+        pos, cols / deg.clamp_min(1.0)[:, None], torch.ones_like(deg), grid,
+        ts, 1.0))
+
+
+@pytest.mark.gpu
+def test_historical_apply_refuses_columns_it_cannot_read_in_place():
+    """K3 reads columns whose rows are contiguous and 8-byte aligned; any
+    other view raises before a launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the checks guard a CUDA launch)")
+    dev = torch.device("cuda")
+    pos, cols, deg, grid, ts = _delayed_stack_case(dev, 6)
+    n = pos.shape[0]
+    tcc.reset_launch_counts()
+    flat = torch.ones((n * 12 + 1,), device=dev)
+    for match, view in (
+            ("stride", flat[:6 * n].view(6, n).t()),       # column-major
+            ("aligned", flat[1:].view(n, 12)[:, :6]),      # 4 bytes in
+            ("aligned", flat[:7 * n].view(n, 7)[:, :6])):  # odd row stride
+        with pytest.raises(ValueError, match=match):
+            tcc.apply_sweep(pos, view, deg, grid, ts, 1.0)
+    with pytest.raises(ValueError, match="deg"):
+        tcc.apply_sweep(pos, cols, deg[:-1], grid, ts, 1.0)
+    assert tcc.launch_counts()["apply_sweep"] == 0
 
 
 @pytest.mark.gpu
@@ -205,7 +271,7 @@ def test_grid_on_the_card_equals_the_grid_on_the_cpu():
 @pytest.mark.gpu
 def test_tile_timeline_reads_every_phase(capsys):
     """ops/tile_timeline.py builds the stamped library and reports each
-    phase of K1's and K2's tile sweep."""
+    phase of K1's, K2's and K3's tile sweep."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from multiagent_gnn_policies_tpu_torch.ops import tile_timeline
@@ -213,4 +279,4 @@ def test_tile_timeline_reads_every_phase(capsys):
     tile_timeline.main(["--n", "4096"])
     out = capsys.readouterr().out
     for label, _, _ in tile_timeline.PHASES:
-        assert out.count(label) == 2, label
+        assert out.count(label) == 3, label

@@ -1,7 +1,8 @@
-"""A whole greedy K = 3 pcells episode of the port
+"""Whole greedy pcells episodes of the port
 (multiagent_gnn_policies_tpu_torch/parallel/large_n.py) against the JAX
 package's ``rollout_large(..., path="pcells")`` (Pallas kernels in interpret
-mode), and the port's evaluate CLI on the CPU.
+mode): K = 3 and K = 2, FlockingRelative and the leader, drag and two-flock
+variants; and the port's evaluate CLI on the CPU.
 
 jax.random and torch generators give different numbers, so the port is
 handed the JAX reset's initial state (``x0``). Tolerance: 1e-4 of the
@@ -27,6 +28,7 @@ from multiagent_gnn_policies_tpu.utils import checkpoint as jck
 from multiagent_gnn_policies_tpu_torch import evaluate as tev
 from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
 from multiagent_gnn_policies_tpu_torch.models import actor as tac
+from multiagent_gnn_policies_tpu_torch.models import torch_import as tim
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as tcc
 from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
 
@@ -53,17 +55,44 @@ def _jax_reset(p, key):
     return np.array(x)
 
 
-def test_pcells_episode_matches_jax():
+def _port_actor(params, tcfg):
+    """The port's actor carrying the JAX actor's weights."""
+    actor = tac.Actor(tcfg)
+    actor.load_state_dict(tim.actor_params_from_numpy(
+        [{name: np.array(v) for name, v in layer.items()}
+         for layer in params]))
+    return actor.eval()
+
+
+@pytest.mark.parametrize("env,k,weights", [
+    ("FlockingRelative-v0", 3, "n32k"),
+    ("FlockingRelative-v0", 2, "init"),
+    ("FlockingLeader-v0", 3, "init"),
+    ("FlockingAirsimAccel-v0", 3, "init"),
+    ("FlockingTwoFlocks-v0", 3, "init"),
+])
+def test_pcells_episode_matches_jax(env, k, weights):
+    """The n32k checkpoint on FlockingRelative at K = 3; and an actor drawn
+    by the JAX package's ``init_actor`` from a fixed key at K = 2 (no
+    historical apply: K3 never runs) and on the leader, drag and two-flock
+    variants at K = 3. FlockingStochastic draws its noise from each
+    package's own generator, so it cannot be compared step by step."""
     n, steps = 48, 12
-    jp = jfl.FlockingParams(n_agents=n, episode_steps=steps)
-    tp = tfl.FlockingParams(n_agents=n, episode_steps=steps)
-    jcfg, tcfg = jac.ActorConfig(**ACFG), tac.ActorConfig(**ACFG)
-    params = jck.load(N32K, jac.init_actor(jax.random.key(0), jcfg))
+    jp = jfl.ENV_REGISTRY[env](jfl.FlockingParams(n_agents=n,
+                                                  episode_steps=steps))
+    tp = tfl.ENV_REGISTRY[env](tfl.FlockingParams(n_agents=n,
+                                                  episode_steps=steps))
+    acfg = dict(ACFG, k=k)
+    jcfg, tcfg = jac.ActorConfig(**acfg), tac.ActorConfig(**acfg)
+    params = jac.init_actor(jax.random.key(0), jcfg)
+    if weights == "n32k":
+        params = jck.load(N32K, params)
     key = jax.random.key(3)
     jr, jx, jovf = jln.rollout_large(params, jcfg, key, jp, path="pcells",
                                      return_overflow=True)
     x0 = _jax_reset(jp, key)
-    actor = tev.load_actor(N32K, tcfg, "cpu")
+    actor = (tev.load_actor(N32K, tcfg, "cpu") if weights == "n32k"
+             else _port_actor(params, tcfg))
     tr, tx, tovf = tln.rollout_large(actor, tcfg, None, tp,
                                      return_overflow=True,
                                      x0=torch.from_numpy(x0), device="cpu")
