@@ -36,7 +36,34 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
    device-busy against wall ms per step (the idle share), and each
    layer's host and device ms per step ("not measured" when the profiler
    records no device activity);
-6. budget: the run, build included, must finish in BUDGET_S; a watchdog
+6. dense eval: the dense N = 100 path (no cell kernel: its (K, N, N)
+   products are float32 cuBLAS matmuls). The in-repo
+   ``models/actor_FlockingRelative-v0_dagger_k3.npz``, read by the port's
+   loader into the DAGGER learner of ``cfg/dagger.cfg [test]``, scores 20
+   greedy episodes at N = 100, K = 3 as one batch; the mean must land in
+   -635.2 +- 54.1 (the JAX package's final eval of the run that wrote the
+   file, RESULTS.md section 1). Then one batched DAGGER episode with that
+   policy (4 envs, 50 steps) from a drawn state and coins, on the card and
+   on the CPU: samples and rewards must agree within 1e-4 of each
+   channel's largest magnitude (the tests' episode tolerance; lost strict
+   fp32 fails it), and the same episode with TF32 allowed is printed
+   beside it;
+7. baseline: the ``cfg/baseline.cfg`` sections through the port's
+   baseline trainer; the centralized expert within -501.3 +- 47.9 and the
+   decentralized one within -980.4 +- 78.9 (RESULTS.md section 1);
+8. dagger: ``cfg/dagger.cfg [test]`` at full width for 3 rounds through
+   the learner's ``train``: the eval at episode 0, finite losses with the
+   third round's sum below the first's, rollout ms per env step, ms per
+   Adam update and env steps per second; then a run stopped after 2
+   rounds with its state saved, and a fresh learner that resumes it for
+   the third round: its params must equal the uninterrupted run's (the
+   max difference is printed; bit for bit is expected); the actor export
+   read back by the port's loader gives the same actions; then one more
+   round under torch.profiler, read as phase 5 reads its steps (per env
+   step with its Adam update). Files go to a temporary directory only.
+   The cell kernels' counters, zeroed before phases 6-8, must read 0
+   after them;
+9. budget: the run, build included, must finish in BUDGET_S; a watchdog
    ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
@@ -48,6 +75,9 @@ call computes these sweeps). The last line is the JSON contract
 a non-zero exit, as is a run outside a checkout of the repository.
 """
 
+import bisect
+import copy
+import dataclasses
 import faulthandler
 import json
 import math
@@ -55,6 +85,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 sys.dont_write_bytecode = True   # write nothing outside the build directory
@@ -72,11 +103,23 @@ TRACE_STEPS = 20
 REL_PLAIN = 1e-5
 REL_ORACLE = 1e-4
 REWARD_REF, REWARD_BAND = -458.8, 15.0
+# RESULTS.md section 1 (the JAX package's runs at N = 100): the DAGGER K = 3
+# final eval and the two expert baselines, mean and std over 20 episodes
+DAGGER_BAND = (-635.2, 54.1)
+BASELINE_BANDS = {True: (-501.3, 47.9), False: (-980.4, 78.9)}
+DENSE_ROUNDS = 3
+DENSE_PARITY_ENVS = 4          # the card-vs-CPU dense episode: envs, steps
+DENSE_PARITY_STEPS = 50
+REL_EPISODE = 1e-4
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 CHECKPOINT = os.path.join(ROOT, "models",
                           "actor_FlockingRelative-v0_dagger_n32k.npz")
 CONFIG = os.path.join(ROOT, "cfg", "dagger_n32k.cfg")
+DAGGER_K3 = os.path.join(ROOT, "models",
+                         "actor_FlockingRelative-v0_dagger_k3.npz")
+DAGGER_CONFIG = os.path.join(ROOT, "cfg", "dagger.cfg")
+BASELINE_CONFIG = os.path.join(ROOT, "cfg", "baseline.cfg")
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -269,20 +312,33 @@ def summarize_trace(events, steps, wall_ms, prof_wall_ms):
 
     host = {}                       # layer -> host us (CPU-side ranges)
     spans, kernels = [], []         # device-side layer ranges; device ops
+    shadows = 0
     for e in events:
         if e.device_type == DeviceType.CUDA:
-            (spans if e.name.startswith("layer: ") else kernels).append(e)
+            # a record_function range (a layer's, Optimizer.step's) has a
+            # device-side copy, a user annotation: not device work
+            if e.is_user_annotation:
+                if e.name.startswith("layer: "):
+                    spans.append(e)
+                else:
+                    shadows += 1
+            else:
+                kernels.append(e)
         elif e.name.startswith("layer: "):
             host[e.name[7:]] = host.get(e.name[7:], 0.0) + (
                 e.time_range.elapsed_us())
     print(f"#   trace: {steps} steps, wall {wall_ms:.4f} ms/step "
-          f"({prof_wall_ms:.4f} under the profiler)", flush=True)
+          f"({prof_wall_ms:.4f} under the profiler); {len(spans)} layer and "
+          f"{shadows} other annotation ranges on the device side set aside",
+          flush=True)
     if not kernels:
         print("#   trace: device time not measured (the profiler recorded no "
               "device activity)", flush=True)
         return
+    kernels.sort(key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in kernels]
     busy_us, end = 0.0, float("-inf")
-    for e in sorted(kernels, key=lambda e: e.time_range.start):
+    for e in kernels:
         s0, s1 = e.time_range.start, e.time_range.end   # union of intervals
         if s1 > end:
             busy_us += s1 - max(s0, end)
@@ -303,9 +359,8 @@ def summarize_trace(events, steps, wall_ms, prof_wall_ms):
     # a device op belongs to the layer whose device-side range holds it
     layer_dev = {}
     for sp in spans:
-        inside = [e for e in kernels
-                  if sp.time_range.start <= e.time_range.start
-                  < sp.time_range.end]
+        inside = kernels[bisect.bisect_left(starts, sp.time_range.start):
+                         bisect.bisect_left(starts, sp.time_range.end)]
         us, n = layer_dev.get(sp.name[7:], (0.0, 0))
         layer_dev[sp.name[7:]] = (
             us + sum(e.time_range.elapsed_us() for e in inside),
@@ -355,6 +410,189 @@ def trace_steps(torch, ln, cc, cfg, actor, state, gen, steps):
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
     return wall_ms
+
+
+
+class _Events:
+    """A metrics logger that keeps the learner's events in a list."""
+
+    def __init__(self):
+        self.events = []
+
+    def log(self, event, **fields):
+        self.events.append((event, fields))
+
+
+def _in_band(what, value, band):
+    ref, width = band
+    if not math.isfinite(value) or abs(value - ref) > width:
+        raise AssertionError(f"{what} {value} outside {ref} +- {width}")
+
+
+def dense_eval_phase(torch, im, tfl, load_actor_npz, actor_params_from_numpy,
+                     dcfg):
+    """Phase 6: the in-repo dagger_k3 checkpoint, 20 greedy episodes at
+    N = 100 as one batch, through the learner's evaluate."""
+    icfg = im.ImitationConfig.from_experiment(dcfg)
+    learner = im.ImitationLearner(icfg, device=DEVICE)
+    learner.actor.load_state_dict(actor_params_from_numpy(
+        load_actor_npz(DAGGER_K3, icfg.actor)))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    tfl.reset(gen, icfg.env, (icfg.n_test_episodes,))
+    torch.cuda.synchronize()
+    reset_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    mean, std = learner.evaluate()          # ends in a copy to the host
+    eval_s = time.perf_counter() - t
+    steps = icfg.env.episode_steps
+    print(f"#   dense eval: dagger_k3, {icfg.n_test_episodes} episodes at "
+          f"N = {icfg.env.n_agents}, K = {icfg.actor.k}: {mean} +- {std}; "
+          f"{eval_s:.3f} s, {1e3 * eval_s / steps:.4f} ms per batched step "
+          f"(its reset included; a reset alone {reset_ms:.2f} ms)",
+          flush=True)
+    _in_band("dagger_k3 eval mean", mean, DAGGER_BAND)
+    err = dense_parity(torch, im, tfl, learner, icfg)
+    return mean, std, 1e3 * eval_s / steps, err
+
+
+def _dense_episode(im, env, actor, acfg, x0, coins):
+    samples, rewards = im.rollout_episode(actor, None, 0.5, env, acfg,
+                                          mode="dagger", x0=x0, coins=coins)
+    return {"agg": samples["agg"].reshape(-1, samples["agg"].shape[-1]),
+            "act": samples["act"].reshape(-1, samples["act"].shape[-1]),
+            "reward": rewards.reshape(-1, 1)}
+
+
+def dense_parity(torch, im, tfl, learner, icfg):
+    """One batched DAGGER episode (DENSE_PARITY_ENVS envs of
+    DENSE_PARITY_STEPS steps, the dagger_k3 policy) on the card from a
+    drawn x0 and coins, held against the same episode on the CPU: samples
+    (agg, act) and rewards within REL_EPISODE of each channel's largest
+    magnitude, the tests' tolerance for episodes. The same episode with
+    TF32 allowed is printed beside it (not checked), to show what the
+    check would see if strict fp32 were lost."""
+    params = dataclasses.replace(icfg.env, episode_steps=DENSE_PARITY_STEPS)
+    env = tfl.make_env(icfg.env_name, params)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    state, _ = env.reset(gen, (DENSE_PARITY_ENVS,))
+    coins = torch.rand((DENSE_PARITY_STEPS, DENSE_PARITY_ENVS),
+                       generator=gen, device=DEVICE) < 0.5
+    cpu_actor = copy.deepcopy(learner.actor).cpu()
+    want = _dense_episode(im, env, cpu_actor, icfg.actor,
+                          state.x.cpu(), coins.cpu())
+    got = _dense_episode(im, env, learner.actor, icfg.actor, state.x,
+                         coins)
+    errs = {k: check_close(f"dense episode card vs CPU, {k}", got[k].cpu(),
+                           want[k], REL_EPISODE) for k in want}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = _dense_episode(im, env, learner.actor, icfg.actor,
+                              state.x, coins)
+    finally:
+        tfl.strict_fp32()
+    rel = max(float(((tf32[k].cpu().double() - want[k].double()).abs()
+                     .amax(0) / want[k].double().abs().amax(0)
+                     .clamp_min(1e-30)).max()) for k in want)
+    print(f"#   dense episode with TF32 allowed (not checked): max rel "
+          f"error against the CPU {rel:.3g}", flush=True)
+    return max(errs.values())
+
+
+def baseline_phase(ExperimentConfig, load_ini, train_baseline):
+    """Phase 7: the cfg/baseline.cfg sections on the card."""
+    ini = load_ini(BASELINE_CONFIG)
+    out = {}
+    for name in ini.sections():
+        bcfg = ExperimentConfig.from_section(ini[name])
+        t = time.perf_counter()
+        stats = train_baseline(bcfg, device=DEVICE)
+        wall = time.perf_counter() - t
+        print(f"#   baseline [{name}]: centralized={bcfg.centralized}, "
+              f"N = {bcfg.n_agents}, {bcfg.n_test_episodes} episodes: "
+              f"{stats['mean']} +- {stats['std']} ({wall:.3f} s)", flush=True)
+        _in_band(f"baseline [{name}] mean", stats["mean"],
+                 BASELINE_BANDS[bcfg.centralized])
+        out[bcfg.centralized] = stats["mean"]
+    return out
+
+
+def dagger_phase(torch, im, load_actor_npz, actor_params_from_numpy, Actor,
+                 dcfg):
+    """Phase 8: DENSE_ROUNDS DAGGER rounds of cfg/dagger.cfg [test] at full
+    width, a state save and resume, and the actor export."""
+    icfg = im.ImitationConfig.from_experiment(dcfg, mode="dagger")
+    log = _Events()
+    full = im.ImitationLearner(icfg, log, device=DEVICE)
+    losses = []
+    for r in range(1, DENSE_ROUNDS + 1):
+        full.train(stop_after=r)
+        losses.append(float(full.last_loss_sum))
+    evals = [f for e, f in log.events if e == "eval"]
+    if [f["episode"] for f in evals] != [0] or not math.isfinite(
+            evals[0]["reward_mean"]):
+        raise AssertionError(f"evals {evals}")
+    print(f"#   dagger: eval at episode 0 {evals[0]['reward_mean']} +- "
+          f"{evals[0]['reward_std']}; loss sums per round {losses}",
+          flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss sums {losses}")
+    timing = full.timing_summary()
+    print(f"#   dagger: rollout {timing['rollout_ms_per_step']:.4f} ms per "
+          f"env step, {timing['update_ms_per_update']:.4f} ms per Adam "
+          f"update, {timing['env_steps_per_s']:.1f} env steps/s "
+          f"({full.timing['rollout_steps']} steps, "
+          f"{full.timing['updates']} updates)", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state.npz")
+        part = im.ImitationLearner(icfg, device=DEVICE)
+        if not part.train(state_path=state,
+                          stop_after=DENSE_ROUNDS - 1)["interrupted"]:
+            raise AssertionError("the stopped run did not stop")
+        log2 = _Events()
+        rest = im.ImitationLearner(icfg, log2, device=DEVICE)
+        rest.train(state_path=state, stop_after=DENSE_ROUNDS)
+        if log2.events[0] != ("resume", {"round": DENSE_ROUNDS - 1,
+                                         "beta": part._beta}):
+            raise AssertionError(f"resume events {log2.events[:1]}")
+        got, want = rest.actor.state_dict(), full.actor.state_dict()
+        diff = max(float((got[k] - want[k]).abs().max()) for k in want)
+        scale = max(float(v.abs().max()) for v in want.values())
+        same = all(torch.equal(got[k], want[k]) for k in want)
+        print(f"#   dagger: resumed round {DENSE_ROUNDS} against the "
+              f"uninterrupted run: max param difference {diff} (largest "
+              f"param {scale:.4g}), bit for bit {same}", flush=True)
+        if diff > 1e-6 * scale:
+            raise AssertionError(f"resume differs by {diff}")
+        path = os.path.join(tmp, "actor")
+        full.export_actor(path)
+        back = Actor(icfg.actor)
+        back.load_state_dict(actor_params_from_numpy(load_actor_npz(
+            path + ".npz", icfg.actor)))
+        back = back.to(DEVICE)
+        with torch.no_grad():
+            y = full.buffer.sample(full.gen, icfg.batch_size)["agg"]
+            if not torch.equal(back(y), full.actor(y)):
+                raise AssertionError("the exported actor acts differently")
+    # one more round under torch.profiler, its two halves annotated
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    steps = icfg.env.episode_steps
+    wall_ms = 1e3 * (full.timing["rollout_s"] + full.timing["update_s"]) / (
+        full.timing["rollout_steps"])
+    layers = _Annotated(record_function, ((im, "rollout_episode", "rollout"),
+                                          (im, "adam_update", "Adam update")))
+    with layers, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        full.train(stop_after=DENSE_ROUNDS + 1)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    print(f"#   dagger trace: one round, per env step with its Adam update",
+          flush=True)
+    summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
+    return losses, timing, same
 
 
 def main():
@@ -549,7 +787,41 @@ def main():
                               TRACE_STEPS)
     phase("trace", t, steps=TRACE_STEPS, ms_per_step=f"{step_ms:.4f}")
 
-    # 6. budget
+    # 6-8. the dense N = 100 path; it launches none of the cell kernels
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as im
+    from multiagent_gnn_policies_tpu_torch.algos.baseline import (
+        train_baseline)
+    from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
+    from multiagent_gnn_policies_tpu_torch.models.actor import Actor
+    from multiagent_gnn_policies_tpu_torch.models.torch_import import (
+        actor_params_from_numpy)
+    from multiagent_gnn_policies_tpu_torch.utils.checkpoint import (
+        load_actor_npz)
+
+    dcfg = ExperimentConfig.from_section(load_ini(DAGGER_CONFIG)["test"])
+    cc.reset_launch_counts()
+    t = time.perf_counter()
+    d_mean, d_std, d_ms, d_err = dense_eval_phase(
+        torch, im, tfl, load_actor_npz, actor_params_from_numpy, dcfg)
+    phase("dense eval", t, reward_mean=d_mean, reward_std=d_std,
+          ms_per_batched_step=f"{d_ms:.4f}", card_vs_cpu_max_abs_err=d_err)
+    t = time.perf_counter()
+    base = baseline_phase(ExperimentConfig, load_ini, train_baseline)
+    phase("baseline", t, centralized=base[True], decentralized=base[False])
+    t = time.perf_counter()
+    losses, speed, bitwise = dagger_phase(
+        torch, im, load_actor_npz, actor_params_from_numpy, Actor, dcfg)
+    phase("dagger", t, rounds=DENSE_ROUNDS,
+          rollout_ms_per_step=f"{speed['rollout_ms_per_step']:.4f}",
+          update_ms_per_update=f"{speed['update_ms_per_update']:.4f}",
+          env_steps_per_s=f"{speed['env_steps_per_s']:.1f}",
+          resume_bit_for_bit=bitwise)
+    dense_launches = cc.launch_counts()
+    if any(dense_launches.values()):
+        raise AssertionError(f"the dense path launched cell kernels: "
+                             f"{dense_launches}")
+
+    # 9. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:

@@ -1,0 +1,445 @@
+"""Behaviour cloning and DAGGER on the dense N = 100 path.
+
+The counterpart of the JAX package's ``algos/imitation.py``. One training
+round collects ``n_rollout_envs`` episodes as one batch of envs (env step,
+expert, delayed graph state, policy, DAGGER coin), writes them into the
+replay buffer on the device, and then runs ``updates_per_step`` Adam
+updates per episode. The host waits on the device only where the JAX
+learner fetches a value: once per reset block, at the round's timing
+points, and where an eval is read.
+
+Semantics kept:
+  * DAGGER: a per-step expert coin per episode with probability ``beta``;
+    the expert's action is stored as the label whatever the coin says;
+    ``beta <- max(beta * beta_coeff, 0.5)`` per episode, the 0.5 floor
+    included;
+  * cloning: expert-only rollouts; evals every ``test_interval`` episodes;
+    cloning returns the best eval's stats, DAGGER the final eval's;
+  * updates start once the buffer holds more than one batch; MSE over all
+    elements; Adam with ``actor_lr`` (``torch.optim.Adam``'s defaults are
+    ``optax.adam``'s: betas 0.9 / 0.999, eps 1e-8 outside the square root);
+  * the buffer stores the delayed features pre-aggregated,
+    ``delay_gso^T · delay_state`` (the actor aggregates before its first
+    layer, ``ind_agg = 0``).
+
+The metric events are the JAX learner's (``eval``, ``final_eval``,
+``resume``, with its fields), plus one ``timing`` event after
+``final_eval``: rollout ms per env step, ms per Adam update and env steps
+per second.
+
+Random draws come from one ``torch.Generator`` on the device, seeded from
+``seed``: the actor's init, every reset, coin and replay sample, and the
+stochastic variant's noise. Its state is part of the training state, so a
+resumed run continues the same stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from multiagent_gnn_policies_tpu_torch.algos.replay import ReplayBuffer
+from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+    EnvState,
+    FlockingEnv,
+    FlockingParams,
+    make_env,
+    strict_fp32,
+)
+from multiagent_gnn_policies_tpu_torch.models.actor import (
+    Actor,
+    ActorConfig,
+    init_actor_,
+)
+from multiagent_gnn_policies_tpu_torch.models.torch_import import (
+    actor_numpy_from_params,
+)
+from multiagent_gnn_policies_tpu_torch.ops.graph import (
+    aggregate,
+    initial_graph_state,
+    update_graph_state,
+)
+from multiagent_gnn_policies_tpu_torch.utils import checkpoint
+from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
+from multiagent_gnn_policies_tpu_torch.utils.debug import check_finite
+from multiagent_gnn_policies_tpu_torch.utils.metrics import MetricsLogger
+
+
+@dataclasses.dataclass(frozen=True)
+class ImitationConfig:
+    """Static configuration of an imitation run."""
+
+    mode: str                    # 'dagger' | 'cloning'
+    actor: ActorConfig
+    env_name: str
+    env: FlockingParams
+    batch_size: int = 20
+    buffer_size: int = 10000
+    updates_per_episode: int = 200
+    actor_lr: float = 5e-5
+    n_train_episodes: int = 400
+    beta_coeff: float = 0.993
+    beta_floor: float = 0.5
+    test_interval: int = 40
+    n_test_episodes: int = 20
+    n_rollout_envs: int = 1
+    seed: int = 11
+    # include the replay buffer in training-state checkpoints: True
+    # resumes bit for bit; False writes a small file and a resumed run
+    # starts with an empty buffer, which the next round refills
+    checkpoint_buffer: bool = True
+
+    @classmethod
+    def from_experiment(cls, x: ExperimentConfig,
+                        mode: Optional[str] = None) -> "ImitationConfig":
+        """Build from an INI-backed :class:`ExperimentConfig`."""
+        actor = ActorConfig(n_s=x.n_states, n_a=x.n_actions, hidden=x.hidden,
+                            k=x.k, ind_agg=0)
+        env = FlockingParams(n_agents=x.n_agents, comm_radius=x.comm_radius,
+                             dt=x.dt, v_max=x.v_max,
+                             episode_steps=x.episode_steps)
+        return cls(
+            mode=(mode or x.alg), actor=actor, env_name=x.env, env=env,
+            batch_size=x.batch_size, buffer_size=x.buffer_size,
+            updates_per_episode=x.updates_per_step, actor_lr=x.actor_lr,
+            n_train_episodes=x.n_train_episodes, beta_coeff=x.beta_coeff,
+            test_interval=x.test_interval, n_test_episodes=x.n_test_episodes,
+            n_rollout_envs=x.n_rollout_envs, seed=x.seed,
+            checkpoint_buffer=x.checkpoint_buffer,
+        )
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def rollout_episode(actor: Actor, gen: Optional[torch.Generator], beta,
+                    env: FlockingEnv, acfg: ActorConfig, *, mode: str,
+                    collect: bool = True, n_envs: int = 1,
+                    x0: Optional[torch.Tensor] = None,
+                    coins: Optional[torch.Tensor] = None):
+    """``n_envs`` episodes of ``episode_steps`` steps, run as one batch.
+
+    ``mode`` is "eval" (greedy policy), "cloning" (expert actions) or
+    "dagger" (per step and episode, the expert's action where the coin
+    ``rand < beta`` falls, else the policy's). Returns ``(samples,
+    rewards)``, where ``samples`` holds per step the pre-aggregated delayed
+    features ``"agg"`` ``(n_envs·T, K, N, F)`` and the expert action
+    ``"act"`` ``(n_envs·T, N, n_a)``, episode-major, and ``rewards`` is each
+    episode's summed reward ``(n_envs,)``; with ``collect=False`` only the
+    rewards. ``x0`` ``(n_envs, N, 4)`` replaces the reset's draw (and sets
+    ``n_envs``) and ``coins`` ``(T, n_envs)`` the coin draws, for tests.
+    """
+    T = env.params.episode_steps
+    with torch.no_grad():
+        if x0 is None:
+            state, obs = env.reset(gen, (n_envs,))
+        else:
+            state = EnvState(x0, 0)
+            obs = env.observe(state)
+            n_envs = x0.shape[0]
+        device = state.x.device
+        gs = initial_graph_state(obs.values, obs.network, acfg.k)
+        if mode == "dagger" and coins is None:
+            coins = torch.rand((T, n_envs), generator=gen,
+                               device=device) < beta
+        total = torch.zeros(n_envs, device=device)
+        aggs, acts = [], []
+        for t in range(T):
+            agg = aggregate(gs.delay_gso, gs.delay_state)     # (E, K, N, F)
+            if mode == "eval":
+                act, expert = actor(agg), None
+            else:
+                expert = env.controller(state)
+                if mode == "cloning":
+                    act = expert
+                else:
+                    act = torch.where(coins[t][:, None, None], expert,
+                                      actor(agg))
+            state, obs, r, _ = env.step(state, act, gen)
+            gs = update_graph_state(gs, obs.values, obs.network)
+            total += r
+            if collect:
+                aggs.append(agg)
+                acts.append(expert)
+    if not collect:
+        return total
+    samples = {"agg": torch.stack(aggs, 1).flatten(0, 1),
+               "act": torch.stack(acts, 1).flatten(0, 1)}
+    return samples, total
+
+
+def adam_update(actor: Actor, opt: torch.optim.Optimizer,
+                batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One Adam step on the MSE between the policy's action on
+    ``batch["agg"]`` and ``batch["act"]``; returns the (detached) loss."""
+    loss = F.mse_loss(actor(batch["agg"]), batch["act"])
+    opt.zero_grad(set_to_none=True)
+    loss.backward()
+    opt.step()
+    return loss.detach()
+
+
+class ImitationLearner:
+    """Cloning/DAGGER trainer: owns the actor, Adam, the buffer and the
+    generator, all on ``device``."""
+
+    def __init__(self, cfg: ImitationConfig,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        if cfg.mode not in ("dagger", "cloning"):
+            raise ValueError(f"unknown imitation mode {cfg.mode!r}")
+        strict_fp32()
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.env = make_env(cfg.env_name, cfg.env)
+        self.logger = logger or MetricsLogger()
+        self.gen = torch.Generator(device=self.device)
+        self.gen.manual_seed(cfg.seed)
+        self.actor = init_actor_(Actor(cfg.actor).to(self.device), self.gen)
+        self.opt = torch.optim.Adam(self.actor.parameters(), lr=cfg.actor_lr)
+        n, a = cfg.env.n_agents, cfg.actor
+        self.buffer = ReplayBuffer(cfg.buffer_size, {
+            "agg": torch.zeros((a.k, n, a.n_s), device=self.device),
+            "act": torch.zeros((n, a.n_a), device=self.device)})
+        # training-loop state (checkpointed, see training_state())
+        self._rnd = 0
+        self._beta = 1.0
+        self._best = {"mean": -np.inf, "std": 0.0, "params": None}
+        self.last_loss_sum: Optional[torch.Tensor] = None
+        # cumulative wall seconds of the rounds' two halves
+        self.timing = {"rollout_s": 0.0, "rollout_steps": 0,
+                       "update_s": 0.0, "updates": 0}
+
+    def _round(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One training round: collect, insert, update. Returns the mean
+        episode reward and the round's loss sum, on the device."""
+        cfg = self.cfg
+        n_envs = cfg.n_rollout_envs
+        t0 = time.perf_counter()
+        samples, rewards = rollout_episode(
+            self.actor, self.gen, self._beta, self.env, cfg.actor,
+            mode=cfg.mode, n_envs=n_envs)
+        self.buffer.insert(samples)
+        _sync(self.device)
+        t1 = time.perf_counter()
+        loss_sum = torch.zeros((), device=self.device)
+        n_up = 0
+        if self.buffer.size > cfg.batch_size:
+            n_up = cfg.updates_per_episode * n_envs
+            for _ in range(n_up):
+                loss_sum += adam_update(
+                    self.actor, self.opt,
+                    self.buffer.sample(self.gen, cfg.batch_size))
+        _sync(self.device)
+        t2 = time.perf_counter()
+        self.timing["rollout_s"] += t1 - t0
+        self.timing["rollout_steps"] += cfg.env.episode_steps * n_envs
+        self.timing["update_s"] += t2 - t1
+        self.timing["updates"] += n_up
+        self.last_loss_sum = loss_sum
+        return rewards.mean(), loss_sum
+
+    def evaluate(self) -> Tuple[float, float]:
+        """Mean and population std of ``n_test_episodes`` greedy episodes,
+        run as one batch."""
+        rewards = rollout_episode(
+            self.actor, self.gen, 0.0, self.env, self.cfg.actor, mode="eval",
+            collect=False, n_envs=self.cfg.n_test_episodes)
+        r = rewards.cpu().numpy()
+        return float(r.mean()), float(r.std())
+
+    def timing_summary(self) -> Dict[str, float]:
+        """Rollout ms per env step, ms per Adam update and env steps per
+        second of the rounds run so far."""
+        t = self.timing
+        return {
+            "rollout_ms_per_step":
+                1e3 * t["rollout_s"] / max(t["rollout_steps"], 1),
+            "update_ms_per_update": 1e3 * t["update_s"] / max(t["updates"], 1),
+            "env_steps_per_s": t["rollout_steps"] / max(
+                t["rollout_s"] + t["update_s"], 1e-9),
+        }
+
+    # --- full training state: checkpoint and resume ---
+
+    def _opt_tree(self) -> dict:
+        """Adam's per-parameter state, zeros before the first step (the
+        state Adam starts from), so the tree's structure never changes."""
+        out = {}
+        for i, p in enumerate(self.actor.parameters()):
+            st = self.opt.state.get(p, {})
+            out[str(i)] = {
+                "step": st.get("step", torch.zeros((), dtype=torch.float32)),
+                "exp_avg": st.get("exp_avg", torch.zeros_like(p)),
+                "exp_avg_sq": st.get("exp_avg_sq", torch.zeros_like(p)),
+            }
+        return out
+
+    def training_state(self) -> dict:
+        """Everything a resume needs: params, Adam, the replay buffer
+        (unless ``checkpoint_buffer`` is off), the generator, the loop
+        counters and the best eval."""
+        best = self._best["params"]
+        params = dict(self.actor.state_dict())
+        buf = {}
+        if self.cfg.checkpoint_buffer:
+            buf = {"buffer": {**self.buffer.data,
+                              "size": np.int64(self.buffer.size),
+                              "cursor": np.int64(self.buffer.cursor)}}
+        return {
+            **buf,
+            "params": params,
+            "opt_state": self._opt_tree(),
+            "generator": self.gen.get_state(),
+            "round": np.int64(self._rnd),
+            "beta": np.float64(self._beta),
+            "best_mean": np.float64(self._best["mean"]),
+            "best_std": np.float64(self._best["std"]),
+            "has_best": np.bool_(best is not None),
+            "best_params": best if best is not None else params,
+        }
+
+    def save_training_state(self, path: str) -> None:
+        # a checkpoint holding NaN would resume into a poisoned run
+        check_finite(dict(self.actor.state_dict()), "params")
+        check_finite(self._opt_tree(), "opt_state")
+        checkpoint.save_tree(path, self.training_state())
+
+    def load_training_state(self, path: str) -> None:
+        st = checkpoint.load_tree(path, self.training_state())
+        as_t = lambda tree: {k: torch.from_numpy(v) for k, v in tree.items()}
+        self.actor.load_state_dict(as_t(st["params"]))
+        opt_sd = self.opt.state_dict()
+        opt_sd["state"] = {
+            int(i): {"step": torch.tensor(float(s["step"])),
+                     "exp_avg": torch.from_numpy(s["exp_avg"]),
+                     "exp_avg_sq": torch.from_numpy(s["exp_avg_sq"])}
+            for i, s in st["opt_state"].items()}
+        self.opt.load_state_dict(opt_sd)
+        if self.cfg.checkpoint_buffer:
+            b = st["buffer"]
+            for k, d in self.buffer.data.items():
+                d.copy_(torch.from_numpy(b[k]))
+            self.buffer.size, self.buffer.cursor = int(b["size"]), int(
+                b["cursor"])
+        # else: resume with the empty buffer; the next round refills it
+        self.gen.set_state(torch.from_numpy(st["generator"]))
+        self._rnd = int(st["round"])
+        self._beta = float(st["beta"])
+        self._best = {
+            "mean": float(st["best_mean"]),
+            "std": float(st["best_std"]),
+            "params": ({k: v.to(self.device)
+                        for k, v in as_t(st["best_params"]).items()}
+                       if bool(st["has_best"]) else None),
+        }
+
+    def export_actor(self, save_path: str,
+                     params: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """Write the actor (or ``params``) as ``save_path + ".npz"``, which
+        both packages read, and as a reference-layout torch state_dict at
+        ``save_path``."""
+        layers = actor_numpy_from_params(
+            params if params is not None else self.actor.state_dict(),
+            self.cfg.actor)
+        checkpoint.save_actor_npz(save_path + ".npz", layers)
+        checkpoint.save_actor_torch_format(save_path, layers)
+
+    def train(self, save_path: Optional[str] = None,
+              state_path: Optional[str] = None, checkpoint_every: int = 0,
+              stop_after: Optional[int] = None) -> dict:
+        """Run (or resume) the training loop.
+
+        Args:
+          save_path: final (DAGGER) or best (cloning) actor export.
+          state_path: training-state file; loaded at entry when it exists
+            (resume), written every ``checkpoint_every`` rounds and at exit.
+          checkpoint_every: rounds between state saves (0 = at exit only).
+          stop_after: return after this many rounds in all, with the state
+            saved (when ``state_path``) and ``interrupted=True``; a later
+            call resumes bit for bit.
+        """
+        cfg = self.cfg
+        if state_path and os.path.exists(state_path):
+            self.load_training_state(state_path)
+            self.logger.log("resume", round=self._rnd, beta=self._beta)
+        episodes_per_round = cfg.n_rollout_envs
+        n_rounds = max(1, cfg.n_train_episodes // episodes_per_round)
+        steps_per_round = cfg.env.episode_steps * episodes_per_round
+
+        while self._rnd < n_rounds:
+            if stop_after is not None and self._rnd >= stop_after:
+                if state_path:
+                    self.save_training_state(state_path)
+                return {"mean": self._best["mean"], "std": self._best["std"],
+                        "interrupted": True}
+            rnd = self._rnd
+            episode = rnd * episodes_per_round
+            if cfg.mode == "dagger":
+                # anneal per episode: a round of n_rollout_envs episodes
+                # advances the schedule by that many episodes
+                self._beta = max(
+                    self._beta * cfg.beta_coeff ** episodes_per_round,
+                    cfg.beta_floor)
+            t0 = time.perf_counter()
+            ep_reward, loss_sum = self._round()
+            self._rnd = rnd + 1
+
+            if episode % cfg.test_interval < episodes_per_round:
+                dt_round = time.perf_counter() - t0
+                mean, std = self.evaluate()
+                self.logger.log(
+                    "eval", episode=episode, steps=self._rnd * steps_per_round,
+                    reward_mean=mean, reward_std=std, beta=self._beta,
+                    policy_loss_sum=float(loss_sum),
+                    rollout_reward=float(ep_reward),
+                    round_s=dt_round,
+                    env_steps_per_s=steps_per_round / dt_round,
+                )
+                if mean > self._best["mean"]:
+                    self._best = {"mean": mean, "std": std, "params": {
+                        k: v.detach().clone()
+                        for k, v in self.actor.state_dict().items()}}
+            if (state_path and checkpoint_every
+                    and self._rnd % checkpoint_every == 0):
+                self.save_training_state(state_path)
+
+        final_mean, final_std = self.evaluate()
+        self.logger.log("final_eval", reward_mean=final_mean,
+                        reward_std=final_std)
+        self.logger.log("timing", **self.timing_summary())
+        if state_path:
+            self.save_training_state(state_path)
+
+        if cfg.mode == "cloning" and self._best["params"] is not None:
+            # cloning reports (and keeps) the best eval
+            stats = {"mean": self._best["mean"], "std": self._best["std"]}
+            save_params = self._best["params"]
+        else:
+            # DAGGER reports the final eval
+            stats = {"mean": final_mean, "std": final_std}
+            save_params = None
+        if save_path:
+            self.export_actor(save_path, save_params)
+        return stats
+
+
+def train_dagger(cfg: ExperimentConfig, logger=None, save_path=None,
+                 state_path=None, checkpoint_every=0, device="cuda") -> dict:
+    learner = ImitationLearner(
+        ImitationConfig.from_experiment(cfg, mode="dagger"), logger, device)
+    return learner.train(save_path, state_path, checkpoint_every)
+
+
+def train_cloning(cfg: ExperimentConfig, logger=None, save_path=None,
+                  state_path=None, checkpoint_every=0, device="cuda") -> dict:
+    learner = ImitationLearner(
+        ImitationConfig.from_experiment(cfg, mode="cloning"), logger, device)
+    return learner.train(save_path, state_path, checkpoint_every)

@@ -1,0 +1,63 @@
+"""Structure-of-arrays replay buffer on the device.
+
+The counterpart of the JAX package's ``algos/replay.py``: a preallocated
+tensor per record field with leading dim ``capacity``, filled as a ring.
+``size`` and ``cursor`` are Python ints, so the trainers' update gate
+``size > batch_size`` never waits on the device.
+
+Sampling is uniform without replacement over the filled prefix: a uniform
+per slot, slots past ``size`` masked to ``-inf``, and the top ``batch``
+slots taken. The imitation trainers store the pre-aggregated delayed
+features ``delay_gso^T · delay_state`` ((K, N, F) per step) and the expert
+action.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+
+class ReplayBuffer:
+    """Ring buffer over a dict of fields.
+
+    Attributes:
+      data: field -> ``(capacity, ...)`` tensor.
+      size: number of filled slots.
+      cursor: next slot to write.
+    """
+
+    def __init__(self, capacity: int, example: Dict[str, torch.Tensor]):
+        """Allocate ``capacity`` records shaped, typed and placed like
+        ``example``'s fields."""
+        self.data = {k: v.new_zeros((capacity, *v.shape))
+                     for k, v in example.items()}
+        self.size = 0
+        self.cursor = 0
+
+    @property
+    def capacity(self) -> int:
+        return next(iter(self.data.values())).shape[0]
+
+    def insert(self, samples: Dict[str, torch.Tensor]) -> None:
+        """Write ``T`` stacked records (leading axis) at the cursor, wrapping
+        around; a chunk larger than the capacity raises ``ValueError``."""
+        cap = self.capacity
+        t = next(iter(samples.values())).shape[0]
+        if t > cap:
+            raise ValueError(f"chunk of {t} exceeds buffer capacity {cap}")
+        dev = next(iter(self.data.values())).device
+        idx = (torch.arange(t, device=dev) + self.cursor) % cap
+        for k, d in self.data.items():
+            d.index_copy_(0, idx, samples[k])
+        self.size = min(self.size + t, cap)
+        self.cursor = (self.cursor + t) % cap
+
+    def sample(self, gen: torch.Generator,
+               batch: int) -> Dict[str, torch.Tensor]:
+        """``batch`` distinct filled records, uniformly, drawn from ``gen``."""
+        u = torch.rand(self.capacity, generator=gen, device=gen.device)
+        u[self.size:] = float("-inf")
+        idx = torch.topk(u, batch).indices
+        return {k: d.index_select(0, idx) for k, d in self.data.items()}

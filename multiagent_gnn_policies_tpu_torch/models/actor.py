@@ -15,7 +15,8 @@ Weights: JAX layer ``i`` holds ``w`` (F_out, F_in, taps) and ``b``
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import math
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -78,3 +79,16 @@ class Actor(nn.Module):
             if i < last or self.cfg.bound == "tanh":
                 h = torch.tanh(h)
         return h
+
+
+def init_actor_(actor: Actor, gen: Optional[torch.Generator] = None) -> Actor:
+    """Draw every weight and bias uniformly in ``±1/sqrt(fan_in · taps)``
+    from ``gen``, the JAX package's ``init_actor`` distribution (the
+    reference's ``nn.Conv2d`` default): here ``in_features`` is
+    ``fan_in · taps``."""
+    with torch.no_grad():
+        for layer in actor.layers:
+            bound = 1.0 / math.sqrt(layer.in_features)
+            layer.weight.uniform_(-bound, bound, generator=gen)
+            layer.bias.uniform_(-bound, bound, generator=gen)
+    return actor

@@ -1,17 +1,28 @@
-"""Carry the JAX package's actor weights onto the port's ``Actor``.
+"""Convert actor weights between the JAX layout, the port's ``Actor`` and
+the reference's torch ``state_dict``.
 
 JAX layer ``i`` is ``{'w': (F_out, F_in, taps), 'b': (F_out,)}``. The
 port's first layer is an ``nn.Linear`` over the flattened (K, F) taps,
 k-major, so its weight is ``w`` with the tap axis moved before the feature
-axis; later layers take ``w[:, :, 0]``.
+axis; later layers take ``w[:, :, 0]``. The reference's state_dict holds
+``conv_layers.{i}.weight`` ``(F_out, F_in, taps, 1)`` and
+``conv_layers.{i}.bias`` (the layout of the in-repo
+``models/actor_FlockingRelative-v0_dagger_k3``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Mapping
 
 import numpy as np
 import torch
+
+
+def _to_numpy(v) -> np.ndarray:
+    """A float32 copy, never a view of a live parameter."""
+    if isinstance(v, torch.Tensor):
+        v = v.detach().cpu().numpy()
+    return np.array(v, dtype=np.float32)
 
 
 def actor_params_from_numpy(layers: List[dict]) -> Dict[str, torch.Tensor]:
@@ -20,13 +31,55 @@ def actor_params_from_numpy(layers: List[dict]) -> Dict[str, torch.Tensor]:
     it to the module's device)."""
     sd = {}
     for i, layer in enumerate(layers):
-        w = np.asarray(layer["w"], dtype=np.float32)
+        w = _to_numpy(layer["w"])
         if w.ndim != 3:
             raise ValueError(f"layer {i}: w must be (F_out, F_in, taps), "
                              f"got {w.shape}")
         f_out = w.shape[0]
         sd[f"layers.{i}.weight"] = torch.from_numpy(
             np.ascontiguousarray(w.transpose(0, 2, 1).reshape(f_out, -1)))
-        sd[f"layers.{i}.bias"] = torch.from_numpy(
-            np.asarray(layer["b"], dtype=np.float32).copy())
+        sd[f"layers.{i}.bias"] = torch.from_numpy(_to_numpy(layer["b"]))
+    return sd
+
+
+def actor_numpy_from_params(sd: Mapping[str, torch.Tensor],
+                            acfg) -> List[dict]:
+    """The inverse of :func:`actor_params_from_numpy`: an ``Actor``
+    state_dict -> JAX-layout layers of float32 numpy arrays, for the
+    architecture ``acfg`` (``models.actor.ActorConfig``)."""
+    layers = []
+    for i in range(acfg.n_layers):
+        w = _to_numpy(sd[f"layers.{i}.weight"])
+        f_out, taps = w.shape[0], acfg.taps(i)
+        w = w.reshape(f_out, taps, -1).transpose(0, 2, 1)
+        layers.append({"w": np.ascontiguousarray(w),
+                       "b": _to_numpy(sd[f"layers.{i}.bias"])})
+    return layers
+
+
+def actor_params_from_state_dict(sd: Mapping[str, object]) -> List[dict]:
+    """Reference Actor state_dict -> JAX-layout layers (numpy):
+    ``conv_layers.{i}.weight (F_out, F_in, taps, 1)`` -> ``w (F_out, F_in,
+    taps)``."""
+    layers = []
+    i = 0
+    while f"conv_layers.{i}.weight" in sd:
+        w = _to_numpy(sd[f"conv_layers.{i}.weight"])
+        if w.ndim != 4 or w.shape[-1] != 1:
+            raise ValueError(f"conv_layers.{i}.weight: want (F_out, F_in, "
+                             f"taps, 1), got {w.shape}")
+        layers.append({"w": np.ascontiguousarray(w[:, :, :, 0]),
+                       "b": _to_numpy(sd[f"conv_layers.{i}.bias"])})
+        i += 1
+    if not layers:
+        raise ValueError("no conv_layers.* keys found in state_dict")
+    return layers
+
+
+def actor_state_dict_from_params(layers: List[dict]) -> Dict[str, np.ndarray]:
+    """JAX-layout layers -> the reference's state_dict layout (numpy)."""
+    sd: Dict[str, np.ndarray] = {}
+    for i, layer in enumerate(layers):
+        sd[f"conv_layers.{i}.weight"] = _to_numpy(layer["w"])[:, :, :, None]
+        sd[f"conv_layers.{i}.bias"] = _to_numpy(layer["b"])
     return sd

@@ -28,6 +28,8 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     FlockingParams,
     _init_candidate,
     _lattice_regime,
+    dynamics as _dynamics,
+    reward as _reward,
     strict_fp32,
 )
 from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
@@ -57,30 +59,6 @@ class EpisodeState(NamedTuple):
     grid_hist: Tuple[cc.PCellGrid, ...]  # grids of pos_hist, newest first
     s0: torch.Tensor                 # (N, (K-1)·F) pre-applied s=0 columns
     overflow: torch.Tensor           # () max overflow so far
-
-
-def _dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
-              gen: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Double-integrator step: clip, gain, leaders, drag, velocity noise."""
-    u = torch.clamp(action, -p.max_accel, p.max_accel) * p.gain
-    if p.n_leaders > 0:
-        is_leader = (torch.arange(x.shape[0], device=x.device)
-                     < p.n_leaders)[:, None]
-        u = torch.where(is_leader, 0.0, u)
-    pos = x[:, 0:2] + x[:, 2:4] * p.dt + 0.5 * u * p.dt * p.dt
-    vel = x[:, 2:4] + u * p.dt
-    if p.drag > 0.0:
-        vel = vel * (1.0 - p.drag * p.dt)
-    if p.dynamics_noise > 0.0:
-        noise = torch.randn(vel.shape, generator=gen, device=x.device,
-                            dtype=vel.dtype)
-        vel = vel + p.dynamics_noise * noise
-    return torch.cat([pos, vel], -1)
-
-
-def _reward(x: torch.Tensor) -> torch.Tensor:
-    """Negative total velocity variance."""
-    return -torch.var(x[:, 2:4], dim=0, correction=0).sum()
 
 
 def _frame(cfg: LargeNConfig, x: torch.Tensor, apply_cols=None):

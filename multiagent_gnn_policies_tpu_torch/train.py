@@ -1,0 +1,135 @@
+"""Experiment CLI of the port: the counterpart of ``train.py``.
+
+    python -m multiagent_gnn_policies_tpu_torch.train cfg/dagger.cfg \\
+        [--sections a,b] [--metrics PATH] [--state-dir DIR] \\
+        [--checkpoint-every R] [--profile DIR] [--device cuda|cpu]
+
+Reads an INI experiment file (one section = one experiment, ``[DEFAULT]``
+inherited), runs each section's algorithm on the card (``--device cpu``
+only when asked) and prints the same CSV as ``train.py``: the first
+section's header, then ``section, mean, std`` per section (a file with
+only ``[DEFAULT]`` prints the stats dict).
+
+Algorithms: ``dagger``, ``cloning`` and ``baseline`` on the dense path. A
+section the port cannot run yet exits non-zero naming the JAX trainer it
+lacks: DAGGER or cloning at ``n_agents > 1024`` or ``trainer = large``
+(whose dense (K, N, N) graph state would not fit: 12.9 GB per step at
+N = 32,768), and ``ddpg``.
+
+Actor exports go to ``runs/torch/models/actor_{env}_{fname}[.npz]`` under
+the working directory, never over the checkpoints in ``models/``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import numpy as np
+import torch
+
+MODELS_DIR = os.path.join("runs", "torch", "models")
+
+_NOT_PORTED = {
+    "large": ("DAGGER and cloning at n_agents > 1024 (or trainer = large) "
+              "need the large-N trainer, multiagent_gnn_policies_tpu/algos/"
+              "imitation_large.py (train_dagger_large / train_cloning_large), "
+              "which the port does not have yet"),
+    "ddpg": ("ddpg needs multiagent_gnn_policies_tpu/algos/ddpg.py "
+             "(train_ddpg; algos/ddpg_large.py above 1024 agents), which the "
+             "port does not have yet"),
+}
+
+
+def run_experiment(section, metrics_path=None, state_dir=None,
+                   checkpoint_every=0, device="cuda"):
+    from multiagent_gnn_policies_tpu_torch.algos.baseline import (
+        train_baseline,
+    )
+    from multiagent_gnn_policies_tpu_torch.algos.imitation import (
+        train_cloning,
+        train_dagger,
+    )
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import strict_fp32
+    from multiagent_gnn_policies_tpu_torch.utils.config import (
+        ExperimentConfig,
+    )
+    from multiagent_gnn_policies_tpu_torch.utils.metrics import MetricsLogger
+
+    strict_fp32()
+    cfg = ExperimentConfig.from_section(section)
+    np.random.seed(cfg.seed)
+
+    trainers = {"dagger": train_dagger, "cloning": train_cloning,
+                "baseline": train_baseline}
+    use_large = cfg.trainer == "large" or (
+        cfg.trainer == "auto" and cfg.n_agents > 1024)
+    if cfg.alg == "ddpg":
+        raise SystemExit(f"section {section.name}: {_NOT_PORTED['ddpg']}")
+    if cfg.alg not in trainers:
+        raise SystemExit(f"Invalid algorithm/mode name: {cfg.alg!r}")
+    if use_large and cfg.alg in ("dagger", "cloning"):
+        raise SystemExit(f"section {section.name}: {_NOT_PORTED['large']}")
+
+    save_path = None
+    if cfg.fname:
+        save_path = os.path.join(MODELS_DIR, f"actor_{cfg.env}_{cfg.fname}")
+    extra = {}
+    if state_dir and cfg.alg in ("dagger", "cloning"):
+        os.makedirs(state_dir, exist_ok=True)
+        extra = {"state_path": os.path.join(
+                     state_dir, f"{section.name or 'DEFAULT'}_state.npz"),
+                 "checkpoint_every": checkpoint_every}
+    with MetricsLogger(metrics_path, echo=cfg.debug) as logger:
+        stats = trainers[cfg.alg](cfg, logger=logger, save_path=save_path,
+                                  device=device, **extra)
+    return cfg, stats
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(
+        description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
+    ap.add_argument("config", help="INI experiment file")
+    ap.add_argument("--metrics", default=None, help="JSONL metrics output path")
+    ap.add_argument("--sections", default=None,
+                    help="comma-separated subset of sections to run")
+    ap.add_argument("--state-dir", default=None,
+                    help="directory of training-state checkpoints; a state "
+                         "file there resumes its section")
+    ap.add_argument("--checkpoint-every", type=int, default=10,
+                    help="rounds between state checkpoints (with --state-dir)")
+    ap.add_argument("--profile", default=None,
+                    help="write a torch.profiler Chrome trace of the whole "
+                         "run into this directory")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="cuda (default) or cpu; nothing falls back")
+    args = ap.parse_args(argv)
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("no CUDA device (torch.cuda.is_available() is "
+                         "False); pass --device cpu to run on the CPU")
+
+    from multiagent_gnn_policies_tpu_torch.utils.config import load_ini
+    from multiagent_gnn_policies_tpu_torch.utils.profiling import trace
+
+    config = load_ini(args.config)
+    only = set(args.sections.split(",")) if args.sections else None
+    sections = [s for s in config.sections() if only is None or s in only]
+    with trace(args.profile):
+        run_all(sections, config, args)
+
+
+def run_all(sections, config, args):
+    run = lambda sec: run_experiment(sec, args.metrics, args.state_dir,
+                                     args.checkpoint_every, args.device)
+    if not sections:
+        _, stats = run(config[config.default_section])
+        print(stats)
+        return
+    print(config[sections[0]].get("header"), flush=True)
+    for name in sections:
+        _, stats = run(config[name])
+        print(f"{name}, {stats['mean']}, {stats['std']}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -54,6 +54,10 @@ def _swarm(seed, n, spread=3.0):
     "path", sorted(glob.glob(str(ROOT / "cfg" / "*.cfg"))),
     ids=lambda p: os.path.basename(p))
 def test_config_sections_parse_equal(path):
+    """Every field of the full ``ExperimentConfig``, in both packages,
+    parses to the same value in every section of every cfg file."""
+    assert ([f.name for f in dataclasses.fields(tcfg.ExperimentConfig)]
+            == [f.name for f in dataclasses.fields(jcfg.ExperimentConfig)])
     jcp, tcp = jcfg.load_ini(path), tcfg.load_ini(path)
     assert jcp.sections() == tcp.sections()
     for name in tcp.sections() or [tcp.default_section]:
