@@ -63,16 +63,41 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
    step with its Adam update). Files go to a temporary directory only.
    The cell kernels' counters, zeroed before phases 6-8, must read 0
    after them;
-9. budget: the run, build included, must finish in BUDGET_S; a watchdog
-   ends it with a non-zero exit after WATCHDOG_S.
+10. expert: one 200-step N = 32,768 episode of the analytic expert
+    through the evaluate entry point's ``--expert`` path, centralized
+    within -443.4 +- 15 and decentralized within -849.6 +- 25 (RESULTS.md
+    section 8: -443.4 +- 3.1, -849.6 +- 4.9), overflow 0, K1 201
+    launches and K2 and K3 none (counters zeroed before each episode);
+11. large dagger, this slice's main path: ``cfg/dagger_n32k.cfg [n32k]``
+    at full width (N = 32,768, K = 3, hidden 32x2, store_agents 4,096,
+    batch 20, 200 updates a round) for LARGE_ROUNDS rounds through the
+    large-N learner's ``train``. Cut in depth: the buffer from 10,000 to
+    LARGE_BUFFER records and the eval from 10 episodes to 1 (at episode
+    0 only). Each round's counters (zeroed before it) must read 201/200/200
+    per episode (a collection episode; round 1 also its eval episode);
+    finite loss sums with the third below the first; collection ms per
+    env step and ms per Adam update; a run stopped after 2 rounds, its
+    state saved to a temporary directory, resumed by a fresh learner for
+    the third round: its params and buffer must equal the uninterrupted
+    run's bit for bit; then one more round under torch.profiler, read as
+    phase 8 reads its round (per collection step with its Adam update);
+12. variants: one greedy episode of each in-repo
+    ``models/actor_Flocking{Leader,Stochastic,AirsimAccel,TwoFlocks}-v0_dagger_*_n32k.npz``
+    under its ``cfg/dagger_variants_n32k.cfg`` section at N = 32,768:
+    overflow 0, 201/200/200 launches, the first three within +-15 of
+    RESULTS.md section 8 (-458.5, -521.4, -391.4), TwoFlocks (cell_margin
+    1.6, cell_cap 32) finite with its reward printed;
+13. budget: the run, build included, must finish in BUDGET_S; a watchdog
+    ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
-``{"kernels": [...]}`` (per kernel: launches on the main path, max abs error
-against the plain version, ms, plain ms, the bound worked out from this
-run's bytes and operations, and the PyTorch library time, null: no PyTorch
-call computes these sweeps). The last line is the JSON contract
-``{"ok": true, "device": {...}}``. Any failure is an uncaught exception and
-a non-zero exit, as is a run outside a checkout of the repository.
+``{"kernels": [...]}`` (per kernel: launches on this slice's main path,
+phase 11's three uninterrupted rounds, max abs error against the plain
+version, ms, plain ms, the bound worked out from this run's bytes and
+operations, and the PyTorch library time, null: no PyTorch call computes
+these sweeps). The last line is the JSON contract ``{"ok": true, "device":
+{...}}``. Any failure is an uncaught exception and a non-zero exit, as is a
+run outside a checkout of the repository.
 """
 
 import bisect
@@ -120,6 +145,15 @@ DAGGER_K3 = os.path.join(ROOT, "models",
                          "actor_FlockingRelative-v0_dagger_k3.npz")
 DAGGER_CONFIG = os.path.join(ROOT, "cfg", "dagger.cfg")
 BASELINE_CONFIG = os.path.join(ROOT, "cfg", "baseline.cfg")
+VARIANTS_CONFIG = os.path.join(ROOT, "cfg", "dagger_variants_n32k.cfg")
+# RESULTS.md section 8 (the JAX package's runs at N = 32,768): the experts
+# (10 episodes) and the variant checkpoints (5 episodes), mean; the band
+# half-widths are this script's
+EXPERT_BANDS = {True: (-443.4, 15.0), False: (-849.6, 25.0)}
+VARIANT_BANDS = {"leader": (-458.5, 15.0), "stoch": (-521.4, 15.0),
+                 "airsim": (-391.4, 15.0), "twoflocks": None}
+LARGE_ROUNDS = 3
+LARGE_BUFFER = 600             # records: 3 rounds of 200 steps
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -595,6 +629,161 @@ def dagger_phase(torch, im, load_actor_npz, actor_params_from_numpy, Actor,
     return losses, timing, same
 
 
+def _counted(cc, fn):
+    """``fn()`` with the kernel counters zeroed just before and read just
+    after: ``(result, launches)``."""
+    cc.reset_launch_counts()
+    out = fn()
+    return out, cc.launch_counts()
+
+
+def _launches(episodes, policy=True, t=200):
+    """What ``episodes`` episodes of ``t`` steps launch: K1 T+1 times each,
+    K2 and K3 T times each for a policy, never for the expert."""
+    return {"frame_sweep": episodes * (t + 1),
+            "apply_deg_sweep": episodes * t if policy else 0,
+            "apply_sweep": episodes * t if policy else 0}
+
+
+def expert_phase(ev, cc, load_ini, n_agents):
+    """Phase 10: one 200-step episode of the analytic expert at
+    ``n_agents`` through the evaluate entry point's ``--expert`` path,
+    centralized and decentralized (the ``[n32k]`` section with
+    ``centralized`` set): each in its RESULTS.md section 8 band, overflow 0
+    (the entry point exits 3 otherwise), K1 201 launches, K2 and K3 none."""
+    out = {}
+    for centralized in (True, False):
+        section = load_ini(CONFIG)["n32k"]
+        section["centralized"] = str(centralized)
+        t = time.perf_counter()
+        stats, launches = _counted(cc, lambda: ev.evaluate_blocked(
+            section, None, n_agents=n_agents, n_episodes=1, expert=True,
+            device=DEVICE))
+        wall = time.perf_counter() - t
+        print(f"#   expert: centralized={centralized}, N = {n_agents}: "
+              f"{stats['mean']}, overflow {stats['overflow']}, launches "
+              f"{launches}, {wall:.3f} s ({1e3 * wall / 200:.4f} ms per step, "
+              f"reset included)", flush=True)
+        _in_band(f"expert centralized={centralized}", stats["mean"],
+                 EXPERT_BANDS[centralized])
+        if launches != _launches(1, policy=False):
+            raise AssertionError(f"expert launches {launches}")
+        out[centralized] = stats["mean"]
+    return out
+
+
+def large_dagger_phase(torch, im, il, cc, ExperimentConfig, load_ini,
+                       n_agents):
+    """Phase 11: ``cfg/dagger_n32k.cfg [n32k]`` at full width (N, K = 3,
+    hidden 32x2, S = 4,096, batch 20) for LARGE_ROUNDS rounds through the
+    large-N learner's ``train``. Cut in depth: the buffer to LARGE_BUFFER
+    records, one eval episode (at episode 0 only, as test_interval 40
+    gives). Each round's launches (zeroed before it): a collection episode
+    and, in round 1, the eval episode, 201/200/200 each. Finite loss sums,
+    the third below the first; a run stopped after 2 rounds and resumed
+    from its state file (a temporary directory) equals the uninterrupted
+    run bit for bit; one more round under torch.profiler, read as phase 8
+    reads its round."""
+    import dataclasses as dc
+
+    canon = ExperimentConfig.from_section(load_ini(CONFIG)["n32k"])
+    xcfg = dc.replace(canon, n_agents=n_agents, buffer_size=LARGE_BUFFER,
+                      n_test_episodes=1)
+    lcfg = il.LargeNImitationConfig.from_experiment(xcfg, mode="dagger")
+    log = _Events()
+    full = il.LargeNImitationLearner(lcfg, log, device=DEVICE)
+    losses, total = [], {}
+    for r in range(1, LARGE_ROUNDS + 1):
+        _, launches = _counted(cc, lambda: full.train(stop_after=r))
+        losses.append(float(full.last_loss_sum))
+        want = _launches(2 if r == 1 else 1)
+        if launches != want:
+            raise AssertionError(f"round {r}: launches {launches} != {want}")
+        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+    evals = [f for e, f in log.events if e == "eval"]
+    if [f["episode"] for f in evals] != [0] or not math.isfinite(
+            evals[0]["reward_mean"]):
+        raise AssertionError(f"evals {evals}")
+    timing = full.timing_summary()
+    print(f"#   large dagger: N = {n_agents}, S = {lcfg.store_agents}, "
+          f"buffer {LARGE_BUFFER} records (cut from {canon.buffer_size}), "
+          f"1 eval episode (from {canon.n_test_episodes}): eval at episode 0 "
+          f"{evals[0]['reward_mean']}; "
+          f"loss sums per round {losses}; collection "
+          f"{timing['rollout_ms_per_step']:.4f} ms per env step, "
+          f"{timing['update_ms_per_update']:.4f} ms per Adam update, "
+          f"{timing['env_steps_per_s']:.1f} env steps/s; launches over the "
+          f"{LARGE_ROUNDS} rounds {total}", flush=True)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"loss sums {losses}")
+    with tempfile.TemporaryDirectory() as tmp:
+        state = os.path.join(tmp, "state.npz")
+        part = il.LargeNImitationLearner(lcfg, device=DEVICE)
+        if not part.train(state_path=state,
+                          stop_after=LARGE_ROUNDS - 1)["interrupted"]:
+            raise AssertionError("the stopped run did not stop")
+        state_mb = os.path.getsize(state) / 2**20
+        del part
+        rest = il.LargeNImitationLearner(lcfg, device=DEVICE)
+        rest.train(state_path=state, stop_after=LARGE_ROUNDS)
+        got, want = rest.actor.state_dict(), full.actor.state_dict()
+        same = all(torch.equal(got[k], want[k]) for k in want) and all(
+            torch.equal(rest.buffer.data[k], full.buffer.data[k])
+            for k in full.buffer.data)
+        diff = max(float((got[k] - want[k]).abs().max()) for k in want)
+        print(f"#   large dagger: resumed round {LARGE_ROUNDS} against the "
+              f"uninterrupted run: max param difference {diff}, params and "
+              f"buffer bit for bit {same} (state file {state_mb:.1f} MiB)",
+              flush=True)
+        if not same:
+            raise AssertionError(f"resume differs by {diff}")
+        del rest
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    steps = lcfg.env.episode_steps
+    wall_ms = 1e3 * (full.timing["rollout_s"] + full.timing["update_s"]) / (
+        full.timing["rollout_steps"])
+    layers = _Annotated(record_function, (
+        (il, "collect_episode", "collection"),
+        (im, "adam_update", "Adam update")))
+    with layers, profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        full.train(stop_after=LARGE_ROUNDS + 1)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    print("#   large dagger trace: one round, per collection step with its "
+          "Adam update", flush=True)
+    summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
+    return losses, timing, same, total
+
+
+def variants_phase(ev, cc, load_ini, n_agents):
+    """Phase 12: one greedy episode of each in-repo variant checkpoint
+    ``models/actor_{env}_{fname}.npz`` under its
+    ``cfg/dagger_variants_n32k.cfg`` section (TwoFlocks with its
+    ``cell_margin 1.6``, ``cell_cap 32``): overflow 0, 201/200/200
+    launches, and the leader, stochastic and drag variants within +-15 of
+    RESULTS.md section 8; TwoFlocks finite, its reward printed."""
+    ini = load_ini(VARIANTS_CONFIG)
+    out = {}
+    for name in ini.sections():
+        section = ini[name]
+        path = os.path.join(ROOT, "models", f"actor_{section['env']}_"
+                            f"{section['fname']}.npz")
+        stats, launches = _counted(cc, lambda: ev.evaluate_blocked(
+            section, path, n_agents=n_agents, n_episodes=1, device=DEVICE))
+        print(f"#   variant [{name}] {section['env']}: {stats['mean']}, "
+              f"overflow {stats['overflow']}, launches {launches}",
+              flush=True)
+        if launches != _launches(1) or not math.isfinite(stats["mean"]):
+            raise AssertionError(f"variant {name}: {stats}, {launches}")
+        if VARIANT_BANDS[name] is not None:
+            _in_band(f"variant [{name}]", stats["mean"], VARIANT_BANDS[name])
+        out[name] = stats["mean"]
+    return out
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -821,7 +1010,26 @@ def main():
         raise AssertionError(f"the dense path launched cell kernels: "
                              f"{dense_launches}")
 
-    # 9. budget
+    # 10-12. the large-N expert, large-N DAGGER, the variant checkpoints
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as il
+
+    t = time.perf_counter()
+    experts = expert_phase(ev, cc, load_ini, N)
+    phase("expert", t, centralized=experts[True],
+          decentralized=experts[False])
+    t = time.perf_counter()
+    l_losses, l_speed, l_bitwise, l_launches = large_dagger_phase(
+        torch, im, il, cc, ExperimentConfig, load_ini, N)
+    phase("large dagger", t, rounds=LARGE_ROUNDS,
+          collection_ms_per_step=f"{l_speed['rollout_ms_per_step']:.4f}",
+          update_ms_per_update=f"{l_speed['update_ms_per_update']:.4f}",
+          resume_bit_for_bit=l_bitwise,
+          launches=json.dumps(l_launches, separators=(",", ":")))
+    t = time.perf_counter()
+    variants = variants_phase(ev, cc, load_ini, N)
+    phase("variants", t, **variants)
+
+    # 13. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:
@@ -835,7 +1043,7 @@ def main():
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": f"{TPU_SOURCE}:{line}",
-            "launches": launches[fn_name], "max_abs_err": err[name],
+            "launches": l_launches[fn_name], "max_abs_err": err[name],
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": None,
         })

@@ -204,10 +204,7 @@ class ImitationLearner:
         self.gen.manual_seed(cfg.seed)
         self.actor = init_actor_(Actor(cfg.actor).to(self.device), self.gen)
         self.opt = torch.optim.Adam(self.actor.parameters(), lr=cfg.actor_lr)
-        n, a = cfg.env.n_agents, cfg.actor
-        self.buffer = ReplayBuffer(cfg.buffer_size, {
-            "agg": torch.zeros((a.k, n, a.n_s), device=self.device),
-            "act": torch.zeros((n, a.n_a), device=self.device)})
+        self.buffer = ReplayBuffer(cfg.buffer_size, self._example_record())
         # training-loop state (checkpointed, see training_state())
         self._rnd = 0
         self._beta = 1.0
@@ -217,15 +214,29 @@ class ImitationLearner:
         self.timing = {"rollout_s": 0.0, "rollout_steps": 0,
                        "update_s": 0.0, "updates": 0}
 
+    def _example_record(self) -> Dict[str, torch.Tensor]:
+        """One replay record, shaped as the buffer stores it: the (K, N, F)
+        pre-aggregated features and the (N, n_a) expert action."""
+        n, a = self.cfg.env.n_agents, self.cfg.actor
+        return {"agg": torch.zeros((a.k, n, a.n_s), device=self.device),
+                "act": torch.zeros((n, a.n_a), device=self.device)}
+
+    def _collect(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The round's ``n_rollout_envs`` episodes: their records, episode
+        by episode, and the mean episode reward on the device."""
+        cfg = self.cfg
+        samples, rewards = rollout_episode(
+            self.actor, self.gen, self._beta, self.env, cfg.actor,
+            mode=cfg.mode, n_envs=cfg.n_rollout_envs)
+        return samples, rewards.mean()
+
     def _round(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """One training round: collect, insert, update. Returns the mean
         episode reward and the round's loss sum, on the device."""
         cfg = self.cfg
         n_envs = cfg.n_rollout_envs
         t0 = time.perf_counter()
-        samples, rewards = rollout_episode(
-            self.actor, self.gen, self._beta, self.env, cfg.actor,
-            mode=cfg.mode, n_envs=n_envs)
+        samples, ep_reward = self._collect()
         self.buffer.insert(samples)
         _sync(self.device)
         t1 = time.perf_counter()
@@ -244,7 +255,7 @@ class ImitationLearner:
         self.timing["update_s"] += t2 - t1
         self.timing["updates"] += n_up
         self.last_loss_sum = loss_sum
-        return rewards.mean(), loss_sum
+        return ep_reward, loss_sum
 
     def evaluate(self) -> Tuple[float, float]:
         """Mean and population std of ``n_test_episodes`` greedy episodes,

@@ -1,0 +1,241 @@
+"""Cloning and DAGGER at large N (N = 32,768 and up) on one device.
+
+The counterpart of the JAX package's ``algos/imitation_large.py``. The
+dense learner's (K, N, N) graph state cannot hold a swarm of this size, so
+a round here collects through the O(N) cell sweeps of
+``parallel/large_n.py`` and stores an agent subsample:
+
+* **Collection** is a Python loop of env steps (the JAX package's
+  ``lax.scan``). Each step takes the delayed stack ``y`` (K3 in
+  ``ystack_pre``), the frame's expert (K1's gradient channels and the
+  float64 consensus), the action (the expert when cloning; the expert
+  where the episode's per-step coin ``rand < beta`` falls, else the
+  policy, when DAGGER), the record ``{agg: y[:, idx], act: expert[idx]}``
+  of ``store_agents`` agents drawn uniformly with replacement, the env
+  step, and the new frame with the next step's s = 0 apply (K1 and K2).
+  A K = 3 episode of T steps launches K1 T+1 times and K2 and K3 T times
+  each, as an evaluation episode does. Collection always uses the
+  centralized expert, whatever the config says, as the JAX package does.
+* **Agent-subsampled replay**: a record is (K, S, F) features and (S, 2)
+  labels. With ``ind_agg == 0`` the policy is per-agent in its own
+  pre-aggregated rows, so the MSE over a uniform subsample is unbiased,
+  and the canonical buffer (10,000 records of S = 4,096) takes 3.28 GB
+  against 26.2 GB for whole-swarm records.
+* **Updates, resume, schedule and export** are the dense learner's
+  (``algos/imitation.py``): ``updates_per_episode · n_rollout_envs`` Adam
+  updates a round once the buffer holds more than one batch.
+* **Exactness gate**: a round whose collection dropped a radius neighbour
+  (grid overflow > 0) raises before anything is stored, and an eval
+  episode with overflow or a non-finite reward raises.
+
+The port runs the "pcells" path at every N: ``graph_path`` "auto" and
+"pcells" are accepted, "blocked", "cells" and "binned" raise. The mesh
+modes are not ported.
+
+Random draws come from the learner's one device generator: the actor's
+init, every reset, the coins, the subsample indices, the replay samples
+and the eval resets. A collection episode draws its reset, then all its
+coins, then its (T, S) indices, one call each.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from multiagent_gnn_policies_tpu_torch.algos.imitation import (
+    ImitationConfig,
+    ImitationLearner,
+)
+from multiagent_gnn_policies_tpu_torch.envs.flocking import ENV_REGISTRY
+from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
+from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
+from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
+
+# graph backends of the JAX learner that the port does not have
+_OTHER_PATHS = {
+    "blocked": "multiagent_gnn_policies_tpu/ops/blocked.py (delayed_ystack, "
+               "the O(N^2) blocked rollout)",
+    "cells": "multiagent_gnn_policies_tpu/ops/cells.py",
+    "binned": "multiagent_gnn_policies_tpu/ops/binned.py",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class LargeNImitationConfig(ImitationConfig):
+    """:class:`ImitationConfig` and the large-N collection settings.
+
+    Attributes:
+      store_agents: agents per stored replay record (a uniform subsample
+        with replacement; 0 = all agents, only sensible at small N).
+      graph_path: "auto" or "pcells" (the port's one backend).
+      cell_margin / cell_cap / cell_edge_mult: the cell grid
+        (``make_pcell_spec``; ``cell_cap`` 0 = 16).
+    """
+
+    store_agents: int = 4096
+    graph_path: str = "auto"
+    cell_margin: float = 1.3
+    cell_cap: int = 0
+    cell_edge_mult: float = 1.0
+
+    @classmethod
+    def from_experiment(cls, x: ExperimentConfig, mode: Optional[str] = None
+                        ) -> "LargeNImitationConfig":
+        """Build from an INI-backed :class:`ExperimentConfig`;
+        ``store_agents`` 0 becomes ``min(N, 4096)``, and it is capped at N."""
+        base = ImitationConfig.from_experiment(x, mode=mode)
+        s = x.store_agents or min(x.n_agents, 4096)
+        return cls(
+            **{f.name: getattr(base, f.name)
+               for f in dataclasses.fields(base)},
+            store_agents=min(s, x.n_agents),
+            graph_path=x.graph_path,
+            cell_cap=x.cell_cap,
+            cell_margin=x.cell_margin,
+            cell_edge_mult=x.cell_edge_mult,
+        )
+
+
+def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
+                    acfg: ActorConfig, mode: str, s_store: int,
+                    gen: Optional[torch.Generator], beta: float, device,
+                    x0: Optional[torch.Tensor] = None,
+                    coins: Optional[torch.Tensor] = None,
+                    idx: Optional[torch.Tensor] = None):
+    """One collecting episode of ``cfg.params.episode_steps`` steps.
+
+    ``mode`` is "cloning" (expert actions) or "dagger" (per step, the
+    expert's action where the coin falls, else the policy's). ``cfg``
+    must compute the expert (``need_expert``). Returns ``(samples, reward,
+    overflow)``: ``samples`` holds per step the subsampled features
+    ``"agg"`` (T, K, S, F) and expert actions ``"act"`` (T, S, 2),
+    ``reward`` is the episode's summed reward and ``overflow`` its max
+    grid overflow, both () on the device. ``x0`` (N, 4), ``coins`` (T,)
+    bool and ``idx`` (T, S) replace the reset's, the coins' and the
+    subsample's draws, for tests.
+    """
+    p = cfg.params
+    T = p.episode_steps
+    device = torch.device(device)
+    with torch.no_grad():
+        state = ln._episode_init(cfg, acfg, gen, device, x0)
+        if mode == "dagger" and coins is None:
+            coins = torch.rand(T, generator=gen, device=device) < beta
+        if idx is None:
+            idx = torch.randint(0, p.n_agents, (T, s_store), generator=gen,
+                                device=device)
+        aggs, acts, rewards = [], [], []
+        for t in range(T):
+            y = ln._ystack(cfg, state)
+            expert = state.fq.expert
+            if mode == "cloning":
+                act = expert
+            else:
+                act = torch.where(coins[t], expert, actor(y))
+            aggs.append(y[:, idx[t]])
+            acts.append(expert[idx[t]])
+            state, r = ln._advance(cfg, state, act, gen)
+            rewards.append(r)
+    samples = {"agg": torch.stack(aggs), "act": torch.stack(acts)}
+    return samples, torch.stack(rewards).sum(), state.overflow
+
+
+class LargeNImitationLearner(ImitationLearner):
+    """Cloning/DAGGER trainer at large N: cell-sweep collection and an
+    agent-subsampled buffer, everything else the dense learner's."""
+
+    def __init__(self, cfg: LargeNImitationConfig, logger=None,
+                 device="cuda"):
+        if cfg.graph_path in _OTHER_PATHS:
+            raise ValueError(
+                f"graph_path = {cfg.graph_path} needs "
+                f"{_OTHER_PATHS[cfg.graph_path]}, which the port does not "
+                f"have; it runs pcells at every N (graph_path auto or "
+                f"pcells)")
+        if cfg.graph_path not in ("auto", "pcells"):
+            raise ValueError(f"unknown graph_path {cfg.graph_path!r}")
+        if cfg.actor.ind_agg != 0 or cfg.actor.k < 2:
+            raise ValueError("the fused pcells path needs ind_agg == 0, "
+                             "k >= 2")
+        p = ENV_REGISTRY[cfg.env_name](cfg.env)
+        # collection acts on the centralized expert, as the JAX learner's
+        self._lcfg = ln.LargeNConfig(
+            params=p,
+            cell_spec=cc.make_pcell_spec(p, cap=cfg.cell_cap or 16,
+                                         margin=cfg.cell_margin,
+                                         edge_mult=cfg.cell_edge_mult),
+            centralized=True, need_expert=True)
+        super().__init__(cfg, logger, device)
+
+    @property
+    def store_agents(self) -> int:
+        return self.cfg.store_agents or self.cfg.env.n_agents
+
+    def _example_record(self) -> Dict[str, torch.Tensor]:
+        a, s = self.cfg.actor, self.store_agents
+        return {"agg": torch.zeros((a.k, s, a.n_s), device=self.device),
+                "act": torch.zeros((s, a.n_a), device=self.device)}
+
+    def _collect(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+        """The round's ``n_rollout_envs`` episodes, one after another; raises
+        if any step's grid overflowed (the host waits here, as the JAX
+        learner's gate does)."""
+        cfg = self.cfg
+        runs = [collect_episode(self._lcfg, self.actor, cfg.actor, cfg.mode,
+                                self.store_agents, self.gen, self._beta,
+                                self.device)
+                for _ in range(cfg.n_rollout_envs)]
+        ovf = int(torch.stack([o for _, _, o in runs]).max())
+        if ovf:
+            raise RuntimeError(
+                f"neighbor-structure overflow={ovf} during collection: the "
+                f"episode dropped radius neighbors (a cell over capacity or "
+                f"an agent outside the grid); raise cell_margin or cell_cap. "
+                f"Training on a truncated graph is invalid.")
+        samples = {k: torch.cat([s[k] for s, _, _ in runs])
+                   for k in runs[0][0]}
+        return samples, torch.stack([r for _, r, _ in runs]).mean()
+
+    def evaluate(self) -> Tuple[float, float]:
+        """Mean and population std of ``n_test_episodes`` greedy episodes
+        through ``rollout_large``, one after another; raises on an episode
+        with grid overflow or a non-finite reward."""
+        cfg = self.cfg
+        rewards = []
+        for _ in range(cfg.n_test_episodes):
+            r, _, ovf = ln.rollout_large(
+                self.actor, cfg.actor, self.gen, self._lcfg.params,
+                cap=cfg.cell_cap or None, cell_margin=cfg.cell_margin,
+                cell_edge_mult=cfg.cell_edge_mult, return_overflow=True,
+                device=self.device)
+            tot, ovf = float(r.sum()), int(ovf)
+            if ovf or not math.isfinite(tot):
+                raise RuntimeError(f"eval episode overflow={ovf} reward="
+                                   f"{tot}: invalid rollout, refusing to "
+                                   f"score it")
+            rewards.append(tot)
+        return float(np.mean(rewards)), float(np.std(rewards))
+
+
+def train_dagger_large(cfg: ExperimentConfig, logger=None, save_path=None,
+                       state_path=None, checkpoint_every=0,
+                       device="cuda") -> dict:
+    learner = LargeNImitationLearner(
+        LargeNImitationConfig.from_experiment(cfg, mode="dagger"), logger,
+        device)
+    return learner.train(save_path, state_path, checkpoint_every)
+
+
+def train_cloning_large(cfg: ExperimentConfig, logger=None, save_path=None,
+                        state_path=None, checkpoint_every=0,
+                        device="cuda") -> dict:
+    learner = LargeNImitationLearner(
+        LargeNImitationConfig.from_experiment(cfg, mode="cloning"), logger,
+        device)
+    return learner.train(save_path, state_path, checkpoint_every)

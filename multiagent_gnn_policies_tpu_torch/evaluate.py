@@ -2,11 +2,14 @@
 ``evaluate.py``'s large-N path (its ``evaluate_blocked``).
 
     python -m multiagent_gnn_policies_tpu_torch.evaluate cfg/dagger_n32k.cfg \\
-        --actor-path models/actor_FlockingRelative-v0_dagger_n32k.npz \\
-        --n-agents 32768 [--episodes E] [--device cuda|cpu]
+        (--actor-path models/actor_FlockingRelative-v0_dagger_n32k.npz \\
+         | --expert) [--n-agents 32768] [--episodes E] [--cell-margin M] \\
+        [--cell-cap C] [--cell-edge-mult E] [--device cuda|cpu]
 
-Each section of the INI file is evaluated with greedy episodes through the
-O(N) cell sweeps and printed as the JAX CLI prints it: the header line, then
+Each section of the INI file is evaluated with greedy episodes of the
+checkpoint, or with ``--expert`` of the analytic controller (centralized
+or not as the section's ``centralized`` says), through the O(N) cell
+sweeps and printed as the JAX CLI prints it: the header line, then
 ``section, mean, std``. A run whose cell grid overflowed in any step
 (neighbours dropped, so the rewards are not the exact-graph dynamics) exits
 with status 3 and prints no result.
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from typing import Optional
 
 import numpy as np
 import torch
@@ -52,10 +56,14 @@ def episode_generator(seed: int, episode: int, device) -> torch.Generator:
     return gen
 
 
-def evaluate_blocked(section, actor_path: str, n_agents=None,
+def evaluate_blocked(section, actor_path: Optional[str], n_agents=None,
                      n_episodes=None, per_episode=False, cell_margin=None,
+                     expert=False, cell_cap=None, cell_edge_mult=None,
                      device="cuda"):
-    """Greedy large-N evaluation of a checkpoint under ``section``'s env.
+    """Large-N evaluation under ``section``'s env: greedy episodes of the
+    checkpoint at ``actor_path``, or of the analytic expert with
+    ``expert`` (``actor_path`` unused). ``cell_margin``, ``cell_cap`` and
+    ``cell_edge_mult`` override the section's grid.
 
     Returns ``{"mean", "std", "rewards", "overflow"}``; exits with status 3
     when any step's cell grid overflowed."""
@@ -64,18 +72,21 @@ def evaluate_blocked(section, actor_path: str, n_agents=None,
                        comm_radius=cfg.comm_radius, dt=cfg.dt,
                        v_max=cfg.v_max, episode_steps=cfg.episode_steps)
     p = ENV_REGISTRY[cfg.env](p)
-    acfg = ActorConfig(n_s=cfg.n_states, n_a=cfg.n_actions, hidden=cfg.hidden,
-                       k=cfg.k, ind_agg=0)
     device = torch.device(device)
-    actor = load_actor(actor_path, acfg, device)
+    actor = acfg = None
+    if not expert:
+        acfg = ActorConfig(n_s=cfg.n_states, n_a=cfg.n_actions,
+                           hidden=cfg.hidden, k=cfg.k, ind_agg=0)
+        actor = load_actor(actor_path, acfg, device)
     rewards, max_overflow = [], 0
     for ep in range(n_episodes or cfg.n_test_episodes):
         r, _, ovf = rollout_large(
             actor, acfg, episode_generator(cfg.seed, ep, device), p,
             centralized_expert=cfg.centralized, return_overflow=True,
             cell_margin=cell_margin or cfg.cell_margin,
-            cap=cfg.cell_cap or None, cell_edge_mult=cfg.cell_edge_mult,
-            device=device)
+            cap=cell_cap or cfg.cell_cap or None,
+            cell_edge_mult=cell_edge_mult or cfg.cell_edge_mult,
+            device=device, expert_mode=expert)
         total, ovf = float(r.sum()), int(ovf)
         max_overflow = max(max_overflow, ovf)
         if per_episode:
@@ -84,7 +95,7 @@ def evaluate_blocked(section, actor_path: str, n_agents=None,
     if max_overflow:
         print(f"ERROR: neighbor-structure overflow={max_overflow} (max over "
               f"episodes/steps) — results are invalid; raise --cell-margin "
-              f"or the cfg's cell_cap", file=sys.stderr)
+              f"or --cell-cap", file=sys.stderr)
         raise SystemExit(3)
     return {"mean": float(np.mean(rewards)), "std": float(np.std(rewards)),
             "rewards": rewards, "overflow": max_overflow}
@@ -94,8 +105,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("config", help="INI experiment file")
-    ap.add_argument("--actor-path", required=True,
+    ap.add_argument("--actor-path", default=None,
                     help="actor checkpoint (.npz of the JAX package)")
+    ap.add_argument("--expert", action="store_true",
+                    help="evaluate the analytic expert instead of a "
+                         "checkpoint")
     ap.add_argument("--n-agents", type=int, default=None,
                     help="swarm-size override")
     ap.add_argument("--episodes", type=int, default=None,
@@ -104,9 +118,17 @@ def main(argv=None):
                     help="print every episode reward")
     ap.add_argument("--cell-margin", type=float, default=None,
                     help="cell-grid extent margin override")
+    ap.add_argument("--cell-cap", type=int, default=None,
+                    help="cell slot-capacity override (overlapping flocks "
+                         "need 32)")
+    ap.add_argument("--cell-edge-mult", type=float, default=None,
+                    help="cell-edge multiple override (the sweep stays "
+                         "exact for any value >= 1)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default) or cpu; nothing falls back")
     args = ap.parse_args(argv)
+    if not args.expert and not args.actor_path:
+        ap.error("--actor-path is required (or pass --expert)")
 
     config = load_ini(args.config)
     sections = config.sections() or [config.default_section]
@@ -115,7 +137,9 @@ def main(argv=None):
         stats = evaluate_blocked(
             config[name], args.actor_path, n_agents=args.n_agents,
             n_episodes=args.episodes, per_episode=args.per_episode,
-            cell_margin=args.cell_margin, device=args.device)
+            cell_margin=args.cell_margin, expert=args.expert,
+            cell_cap=args.cell_cap, cell_edge_mult=args.cell_edge_mult,
+            device=args.device)
         print(f"{name}, {stats['mean']}, {stats['std']}")
 
 

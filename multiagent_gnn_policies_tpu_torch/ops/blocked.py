@@ -31,7 +31,8 @@ class FrameQuantities(NamedTuple):
       values: (N, 6) observation feature row-sums.
       degree: (N,) radius-graph degree (excluding self).
       expert: (N, 2) analytic flocking-controller accelerations, or None
-        from the cell sweeps (the greedy policy path never reads it).
+        from the cell sweeps unless asked for (``need_expert``: the greedy
+        policy path never reads it).
       min_r2: () minimum squared pairwise distance.
     """
 

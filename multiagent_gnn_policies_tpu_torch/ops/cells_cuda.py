@@ -42,6 +42,9 @@ from multiagent_gnn_policies_tpu_torch.ops.blocked import (
     DelayCarry,
     FrameQuantities,
 )
+from multiagent_gnn_policies_tpu_torch.ops.precision import (
+    centralized_consensus,
+)
 
 # column counts the apply kernels are built for (cells.cu): K2's (K-1)·F
 # and K3's F at K = 3, F = 6
@@ -384,22 +387,42 @@ reset_launch_counts()
 
 # --- the JAX package's wrappers, on one device ----------------------------
 
-def _frame_quantities(per: torch.Tensor) -> FrameQuantities:
-    return FrameQuantities(values=per[:, :6], degree=per[:, 6], expert=None,
+def _expert_from(per: torch.Tensor, x: torch.Tensor,
+                 centralized: bool) -> torch.Tensor:
+    """The analytic expert from K1's channels: ``-(consensus + gradient)``,
+    clipped to ±10. Centralized, the consensus is ``sum_{j != i}(v_i -
+    v_j)`` over the whole swarm (float64, :mod:`ops.precision`) and the
+    gradient channels 7-8 are masked by ``r² <= 1``; decentralized, both
+    are neighbour sums over the radius graph (channels 0 and 3, and 7-8
+    masked by the radius)."""
+    if centralized:
+        cons = centralized_consensus(x[:, 2:4])
+    else:
+        cons = per[:, 0:4:3]
+    return torch.clamp(-(cons + per[:, 7:9]), -10.0, 10.0)
+
+
+def _frame_quantities(per: torch.Tensor, x: torch.Tensor, centralized: bool,
+                      need_expert: bool) -> FrameQuantities:
+    expert = _expert_from(per, x, centralized) if need_expert else None
+    return FrameQuantities(values=per[:, :6], degree=per[:, 6], expert=expert,
                            min_r2=per[:, 9].min())
 
 
 def frame(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-          p: FlockingParams, centralized: bool = True) -> FrameQuantities:
+          p: FlockingParams, centralized: bool = True,
+          need_expert: bool = False) -> FrameQuantities:
     """Frame quantities of ``x`` (N, 4) through K1 (``blocked_frame``
-    semantics; ``min_r2`` over each agent's 3x3-cell candidates). No expert
-    (``expert`` is None): the greedy policy path never reads it."""
+    semantics; ``min_r2`` over each agent's 3x3-cell candidates). The
+    expert only with ``need_expert`` (``expert`` is None otherwise: the
+    greedy policy path never reads it)."""
     per = frame_sweep(x, grid, spec, float(p.comm_radius) ** 2, centralized)
-    return _frame_quantities(per)
+    return _frame_quantities(per, x, centralized, need_expert)
 
 
 def frame_apply(x: torch.Tensor, cols: torch.Tensor, grid: PCellGrid,
-                spec: PCellSpec, p: FlockingParams, centralized: bool = True):
+                spec: PCellSpec, p: FlockingParams, centralized: bool = True,
+                need_expert: bool = False):
     """:func:`frame`'s quantities and ``out_i = sum_{j in nbr(i)} cols_j /
     deg_j`` over the same new graph: K1, then K2 reading K1's degrees.
     Returns ``(FrameQuantities, (N, C) applied columns)``."""
@@ -407,7 +430,7 @@ def frame_apply(x: torch.Tensor, cols: torch.Tensor, grid: PCellGrid,
     per = frame_sweep(x, grid, spec, r2cut, centralized)
     applied = apply_deg_sweep(x, cols.contiguous(), per[:, 6].contiguous(),
                               grid, spec, r2cut)
-    return _frame_quantities(per), applied
+    return _frame_quantities(per, x, centralized, need_expert), applied
 
 
 def apply_adjT(pos_src: torch.Tensor, deg_src: torch.Tensor,

@@ -1,7 +1,7 @@
-"""Large-N greedy policy rollouts on one device, through the cell sweeps.
+"""Large-N rollouts on one device, through the cell sweeps.
 
 The counterpart of the JAX package's ``parallel/large_n.py`` for the
-"pcells" policy path on one device: reset, then a Python loop of env steps
+"pcells" path on one device: reset, then a Python loop of env steps
 (the JAX package's ``lax.scan`` body, ``_scan_steps``). Each step of a K >= 2
 policy runs
 
@@ -13,9 +13,15 @@ policy runs
 4. the delay-carry update; the grids of the K-2 historical graphs are
    carried, not rebuilt.
 
+An expert-mode step rolls the analytic controller instead of a policy:
+the double-integrator step on the frame's expert, then the new frame
+alone (a grid build and K1). It carries no delayed stack, so it runs no
+K2 and no K3.
+
 A K = 3 episode of T steps launches K1 T+1 times (reset + T) and K2 and
-K3 T times each. The per-episode max grid overflow is returned: 0 means
-every step's sweep was exact.
+K3 T times each; an expert-mode episode launches K1 T+1 times and K2 and
+K3 never. The per-episode max grid overflow is returned: 0 means every
+step's sweep was exact.
 """
 
 from __future__ import annotations
@@ -42,35 +48,45 @@ from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
 
 
 class LargeNConfig(NamedTuple):
-    """Static setup of a single-device pcells rollout."""
+    """Static setup of a single-device pcells rollout.
+
+    ``centralized`` selects every frame's expert (and K1's gradient mask);
+    ``need_expert`` computes it (``fq.expert``), which only expert-mode
+    rollouts and the imitation learner's collection read (the JAX
+    package's ``LargeNConfig.need_expert``)."""
 
     params: FlockingParams
     cell_spec: cc.PCellSpec
     centralized: bool = True
+    need_expert: bool = False
 
 
 class EpisodeState(NamedTuple):
-    """What one step carries to the next (the JAX scan carry)."""
+    """What one step carries to the next (the JAX scan carry). Expert mode
+    carries no delayed stack: ``carry`` and ``s0`` are None, ``grid_hist``
+    is empty."""
 
     x: torch.Tensor                  # (N, 4) state
-    carry: DelayCarry
+    carry: Optional[DelayCarry]
     fq: cc.FrameQuantities           # frame of x
     grid: cc.PCellGrid               # grid of x
     grid_hist: Tuple[cc.PCellGrid, ...]  # grids of pos_hist, newest first
-    s0: torch.Tensor                 # (N, (K-1)·F) pre-applied s=0 columns
+    s0: Optional[torch.Tensor]       # (N, (K-1)·F) pre-applied s=0 columns
     overflow: torch.Tensor           # () max overflow so far
 
 
 def _frame(cfg: LargeNConfig, x: torch.Tensor, apply_cols=None):
     """Grid and frame of ``x``; with ``apply_cols`` also the fused K2 apply
     of those columns over the same graph. Returns ``(fq, grid[, applied])``.
-    No expert: greedy policy rollouts never read it."""
+    The expert as ``cfg`` says (``centralized``, ``need_expert``)."""
     grid = cc.build_pcell_grid(x[:, :2], cfg.cell_spec)
     if apply_cols is not None:
         fq, applied = cc.frame_apply(x, apply_cols, grid, cfg.cell_spec,
-                                     cfg.params, cfg.centralized)
+                                     cfg.params, cfg.centralized,
+                                     cfg.need_expert)
         return fq, grid, applied
-    fq = cc.frame(x, grid, cfg.cell_spec, cfg.params, cfg.centralized)
+    fq = cc.frame(x, grid, cfg.cell_spec, cfg.params, cfg.centralized,
+                  cfg.need_expert)
     return fq, grid
 
 
@@ -78,7 +94,7 @@ def _reset(cfg: LargeNConfig, gen: torch.Generator, device):
     """Initial state with its frame and grid. In the lattice regime the
     candidate is valid by construction; below it, candidates are redrawn
     (at most ``max_resets`` times) until min separation and min degree
-    hold."""
+    hold. The frame's expert is ``cfg``'s, which step 0 acts on."""
     p = cfg.params
     x = _init_candidate(gen, p, device)
     fq, grid = _frame(cfg, x)
@@ -102,16 +118,19 @@ def _s0_cols(carry: DelayCarry) -> torch.Tensor:
     return carry.history[:k_1].transpose(0, 1).reshape(n, k_1 * f)
 
 
-def _episode_init(cfg: LargeNConfig, acfg: ActorConfig,
+def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
                   gen: Optional[torch.Generator], device,
                   x0: Optional[torch.Tensor] = None) -> EpisodeState:
-    """Reset (or the injected ``x0``) and the initial episode state."""
+    """Reset (or the injected ``x0``) and the initial episode state; with
+    ``acfg`` None (expert mode) no delayed stack."""
     p = cfg.params
     if x0 is None:
         x, fq, grid = _reset(cfg, gen, device)
     else:
         x = x0.to(device=device, dtype=torch.float32).contiguous()
         fq, grid = _frame(cfg, x)
+    if acfg is None:
+        return EpisodeState(x, None, fq, grid, (), None, grid.overflow)
     k = acfg.k
     carry = delay_carry_init(fq.values, p.n_agents, k)
     # the K-2 historical graphs start as the reset frame's grid: their
@@ -122,13 +141,23 @@ def _episode_init(cfg: LargeNConfig, acfg: ActorConfig,
     return EpisodeState(x, carry, fq, grid, grid_hist, s0, grid.overflow)
 
 
-def _step(cfg: LargeNConfig, actor: torch.nn.Module, state: EpisodeState,
-          gen: Optional[torch.Generator] = None):
-    """One env step of the fused policy path; returns ``(state', reward)``."""
-    p = cfg.params
-    x, carry, fq, grid, grid_hist, s0, ovf = state
-    y = cc.ystack_pre(carry, s0, cfg.cell_spec, p, grid_hist=grid_hist)
-    x2 = _dynamics(x, actor(y), p, gen)
+def _ystack(cfg: LargeNConfig, state: EpisodeState) -> torch.Tensor:
+    """The policy's (K, N, F) input: the delayed stack of ``state``."""
+    return cc.ystack_pre(state.carry, state.s0, cfg.cell_spec, cfg.params,
+                         grid_hist=state.grid_hist)
+
+
+def _advance(cfg: LargeNConfig, state: EpisodeState, act: torch.Tensor,
+             gen: Optional[torch.Generator] = None):
+    """The env step under ``act`` (N, 2), the new frame and, unless in
+    expert mode, the delayed stack's update; returns ``(state', reward)``."""
+    x, carry, fq, grid, grid_hist, _, ovf = state
+    x2 = _dynamics(x, act, cfg.params, gen)
+    if carry is None:
+        fq2, grid2 = _frame(cfg, x2)
+        state2 = state._replace(x=x2, fq=fq2, grid=grid2,
+                                overflow=torch.maximum(ovf, grid2.overflow))
+        return state2, _reward(x2)
     fq2, grid2, s02 = _frame(cfg, x2, apply_cols=_s0_cols(carry))
     carry2 = delay_carry_update(
         carry, fq2.values, x[:, :2],
@@ -139,10 +168,19 @@ def _step(cfg: LargeNConfig, actor: torch.nn.Module, state: EpisodeState,
     return state2, _reward(x2)
 
 
-def _scan_steps(cfg: LargeNConfig, actor: torch.nn.Module,
+def _step(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
+          state: EpisodeState, gen: Optional[torch.Generator] = None):
+    """One env step of the fused policy path, or of the expert with
+    ``actor`` None; returns ``(state', reward)``."""
+    act = state.fq.expert if actor is None else actor(_ystack(cfg, state))
+    return _advance(cfg, state, act, gen)
+
+
+def _scan_steps(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
                 state: EpisodeState, n_steps: int,
                 gen: Optional[torch.Generator] = None):
-    """``n_steps`` env steps from ``state``: ``(state', rewards (T,))``."""
+    """``n_steps`` env steps from ``state`` (of the expert with ``actor``
+    None): ``(state', rewards (T,))``."""
     rewards = []
     for _ in range(n_steps):
         state, r = _step(cfg, actor, state, gen)
@@ -150,27 +188,38 @@ def _scan_steps(cfg: LargeNConfig, actor: torch.nn.Module,
     return state, torch.stack(rewards)
 
 
-def rollout_large(actor: torch.nn.Module, acfg: ActorConfig,
+def rollout_large(actor: Optional[torch.nn.Module],
+                  acfg: Optional[ActorConfig],
                   gen: Optional[torch.Generator], p: FlockingParams,
                   centralized_expert: bool = True, cap: Optional[int] = None,
                   cell_margin: float = 1.3, cell_edge_mult: float = 1.0,
                   return_overflow: bool = False,
-                  x0: Optional[torch.Tensor] = None, device="cuda"):
-    """One greedy episode of ``p.episode_steps`` steps through the cell
-    sweeps (the JAX package's "pcells" path). Returns ``(rewards (T,), final_x)``, plus the max per-step grid
-    overflow with ``return_overflow`` (0 means every step was exact).
+                  x0: Optional[torch.Tensor] = None, device="cuda",
+                  expert_mode: bool = False):
+    """One episode of ``p.episode_steps`` steps through the cell sweeps (the
+    JAX package's "pcells" path): greedy, or the analytic expert with
+    ``expert_mode``. Returns ``(rewards (T,), final_x)``, plus the max
+    per-step grid overflow with ``return_overflow`` (0 means every step was
+    exact).
 
     Args:
       actor / acfg: the policy (``ind_agg`` must be 0, ``acfg.k >= 2``; on
         the card ``acfg.k`` is 2 or 3 with F = 6, the column counts the
-        apply kernels are built for).
+        apply kernels are built for); ignored (may be None) with
+        ``expert_mode``.
       gen: the generator of the reset (and of the stochastic variant's
         noise); may be None when ``x0`` is given and the env is noiseless.
+      centralized_expert: the expert's kind (expert mode reads it; K1's
+        gradient mask follows it either way).
       cap / cell_margin / cell_edge_mult: the cell grid (``make_pcell_spec``).
       x0: an (N, 4) initial state to use instead of the reset's draw.
       device: "cuda" (default) or "cpu"; nothing falls back to the CPU.
+      expert_mode: roll the analytic controller instead of the policy (the
+        large-N expert baseline): a grid build and K1 per step.
     """
-    if acfg.ind_agg != 0 or acfg.k < 2:
+    if expert_mode:
+        actor = acfg = None
+    elif acfg is None or acfg.ind_agg != 0 or acfg.k < 2:
         raise ValueError("the fused pcells path needs ind_agg == 0, k >= 2")
     strict_fp32()
     device = torch.device(device)
@@ -179,6 +228,7 @@ def rollout_large(actor: torch.nn.Module, acfg: ActorConfig,
         cell_spec=cc.make_pcell_spec(p, cap=cap or 16, margin=cell_margin,
                                      edge_mult=cell_edge_mult),
         centralized=centralized_expert,
+        need_expert=expert_mode,
     )
     with torch.no_grad():
         state = _episode_init(cfg, acfg, gen, device, x0)

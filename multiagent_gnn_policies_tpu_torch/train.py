@@ -10,11 +10,12 @@ only when asked) and prints the same CSV as ``train.py``: the first
 section's header, then ``section, mean, std`` per section (a file with
 only ``[DEFAULT]`` prints the stats dict).
 
-Algorithms: ``dagger``, ``cloning`` and ``baseline`` on the dense path. A
-section the port cannot run yet exits non-zero naming the JAX trainer it
-lacks: DAGGER or cloning at ``n_agents > 1024`` or ``trainer = large``
-(whose dense (K, N, N) graph state would not fit: 12.9 GB per step at
-N = 32,768), and ``ddpg``.
+Algorithms: ``dagger``, ``cloning`` and ``baseline``. DAGGER and cloning
+sections with ``trainer = large``, or ``trainer = auto`` and
+``n_agents > 1024``, train through the large-N learner
+(``algos/imitation_large.py``: cell-sweep collection, agent-subsampled
+replay), the others through the dense one. ``ddpg`` exits non-zero naming
+the JAX trainer the port lacks.
 
 Actor exports go to ``runs/torch/models/actor_{env}_{fname}[.npz]`` under
 the working directory, never over the checkpoints in ``models/``.
@@ -30,15 +31,10 @@ import torch
 
 MODELS_DIR = os.path.join("runs", "torch", "models")
 
-_NOT_PORTED = {
-    "large": ("DAGGER and cloning at n_agents > 1024 (or trainer = large) "
-              "need the large-N trainer, multiagent_gnn_policies_tpu/algos/"
-              "imitation_large.py (train_dagger_large / train_cloning_large), "
-              "which the port does not have yet"),
-    "ddpg": ("ddpg needs multiagent_gnn_policies_tpu/algos/ddpg.py "
-             "(train_ddpg; algos/ddpg_large.py above 1024 agents), which the "
-             "port does not have yet"),
-}
+_DDPG_NOT_PORTED = (
+    "ddpg needs multiagent_gnn_policies_tpu/algos/ddpg.py (train_ddpg; "
+    "algos/ddpg_large.py above 1024 agents), which the port does not have "
+    "yet")
 
 
 def run_experiment(section, metrics_path=None, state_dir=None,
@@ -64,12 +60,19 @@ def run_experiment(section, metrics_path=None, state_dir=None,
                 "baseline": train_baseline}
     use_large = cfg.trainer == "large" or (
         cfg.trainer == "auto" and cfg.n_agents > 1024)
+    if use_large and cfg.alg in ("dagger", "cloning"):
+        # the dense (K, N, N) graph state would not fit (12.9 GB per step
+        # at N = 32,768): cell-sweep collection and subsampled replay
+        from multiagent_gnn_policies_tpu_torch.algos.imitation_large import (
+            train_cloning_large,
+            train_dagger_large,
+        )
+        trainers["dagger"] = train_dagger_large
+        trainers["cloning"] = train_cloning_large
     if cfg.alg == "ddpg":
-        raise SystemExit(f"section {section.name}: {_NOT_PORTED['ddpg']}")
+        raise SystemExit(f"section {section.name}: {_DDPG_NOT_PORTED}")
     if cfg.alg not in trainers:
         raise SystemExit(f"Invalid algorithm/mode name: {cfg.alg!r}")
-    if use_large and cfg.alg in ("dagger", "cloning"):
-        raise SystemExit(f"section {section.name}: {_NOT_PORTED['large']}")
 
     save_path = None
     if cfg.fname:

@@ -2,7 +2,8 @@
 (multiagent_gnn_policies_tpu_torch/parallel/large_n.py) against the JAX
 package's ``rollout_large(..., path="pcells")`` (Pallas kernels in interpret
 mode): K = 3 and K = 2, FlockingRelative and the leader, drag and two-flock
-variants; and the port's evaluate CLI on the CPU.
+variants; and the port's evaluate CLI on the CPU (checkpoints, the expert,
+the grid overrides).
 
 jax.random and torch generators give different numbers, so the port is
 handed the JAX reset's initial state (``x0``). Tolerance: 1e-4 of the
@@ -167,6 +168,52 @@ def test_evaluate_cli_on_cpu(tmp_path, capsys):
     assert float(mean) == pytest.approx(np.mean(per_ep))
     assert float(std) == pytest.approx(np.std(per_ep))
     assert np.isfinite(per_ep).all() and max(per_ep) < 0
+
+
+@pytest.mark.parametrize("centralized", [True, False],
+                         ids=["centralized", "decentralized"])
+def test_evaluate_cli_expert_on_cpu(tmp_path, capsys, centralized):
+    """``--expert`` needs no checkpoint and rolls the analytic controller
+    the section names; its episode is ``rollout_large``'s expert mode under
+    the CLI's episode generator."""
+    cfg = tmp_path / "expert.cfg"
+    cfg.write_text(EVAL_CFG + f"centralized = {centralized}\n")
+    tev.main([str(cfg), "--expert", "--device", "cpu", "--per-episode"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0] == "reward" and lines[-1].startswith("small, ")
+    per_ep = [float(v) for v in lines[1:-1]]
+    assert len(per_ep) == 2 and np.isfinite(per_ep).all()
+    tp = tfl.FlockingParams(n_agents=600, episode_steps=4)
+    r, _ = tln.rollout_large(None, None, tev.episode_generator(5, 1, "cpu"),
+                             tp, centralized_expert=centralized,
+                             device="cpu", expert_mode=True)
+    assert per_ep[1] == float(r.sum())
+
+
+def test_evaluate_cli_cell_overrides(tmp_path, capsys):
+    """``--cell-edge-mult 2`` sweeps the same graph from larger cells (the
+    same rewards to float32 summation order, 1e-5 relative); ``--cell-cap
+    1`` overflows and exits 3."""
+    args = [_cfg(tmp_path), "--actor-path", N32K, "--device", "cpu",
+            "--episodes", "1"]
+    tev.main(args)
+    tev.main(args + ["--cell-edge-mult", "2.0", "--cell-cap", "64"])
+    rows = [l for l in capsys.readouterr().out.splitlines()
+            if l.startswith("small, ")]
+    base, wide = (float(r.split(", ")[1]) for r in rows)
+    assert wide == pytest.approx(base, rel=1e-5)
+    with pytest.raises(SystemExit) as e:
+        tev.main(args + ["--cell-cap", "1"])
+    assert e.value.code == 3
+    assert "overflow=" in capsys.readouterr().err
+
+
+def test_evaluate_cli_needs_a_checkpoint_or_the_expert(tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        tev.main([_cfg(tmp_path), "--device", "cpu"])
+    assert e.value.code == 2
+    assert "--actor-path is required (or pass --expert)" in (
+        capsys.readouterr().err)
 
 
 def test_evaluate_cli_exits_3_on_overflow(tmp_path, capsys):
