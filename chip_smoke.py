@@ -87,17 +87,46 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     overflow 0, 201/200/200 launches, the first three within +-15 of
     RESULTS.md section 8 (-458.5, -521.4, -391.4), TwoFlocks (cell_margin
     1.6, cell_cap 32) finite with its reward printed;
-13. budget: the run, build included, must finish in BUDGET_S; a watchdog
+13. transfer, this slice's main path: the in-repo
+    ``models/actor_FlockingStochastic-v0_transfer2_stoch{1..4}`` policies
+    of ``cfg/transfer_stoch.cfg`` (hidden 32x2, K = 4, 3, 2, 1).
+    (a) A K = 4 lattice reset at N = 32,768 under the section made
+    noiseless (FlockingRelative), 4 policy steps, then on that step's own
+    inputs K2 at 18 columns (and at 6, K = 2's width) and K3 at 12 on the
+    row-strided view the delayed stack passes, each against its plain
+    version (1e-5) and timed beside it with its bound and the launch
+    floor; 24 columns in two counted chunks (18 + 6) of K2 and of K3
+    against the plain versions (1e-5); and at N = 4,096 the whole K = 4
+    stack of ystack_pre against the O(N²) delayed_ystack (1e-4).
+    (b) ``evaluate cfg/transfer_stoch.cfg --actor-base ... --n-agents
+    32768 --episodes 1`` through the CLI's main, the counters zeroed per
+    section: overflow 0, finite rewards, K1/K2/K3 launches 201/200/400,
+    201/200/200, 201/200/0 and 201/0/0 for K = 4, 3, 2, 1; rewards and ms
+    per step printed. No JAX number exists at this N, so the same
+    evaluation at N = 4,096 with 3 episodes per section (and a
+    ``--save-trajectory`` file, its keys and shapes checked) must land
+    within +-1.5 of the JAX package's means there (-25.05, -25.71,
+    -26.55, -28.62), overflow 0. (c) One 20-step K = 4 and one K = 1
+    episode at N = 4,096 (noiseless, x0 drawn on the card) on the card
+    and through the plain versions on the CPU: rewards and final states
+    within 1e-4. (d) The dense route (no ``--n-agents``): N = 50, 20
+    episodes per section, each mean within the JAX package's mean +- std
+    (-39.44 +- 4.33, -39.75 +- 4.38, -40.79 +- 4.81, -44.29 +- 5.95), no
+    cell kernel launched, one ``--save-trajectory`` file checked;
+14. budget: the run, build included, must finish in BUDGET_S; a watchdog
     ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
-``{"kernels": [...]}`` (per kernel: launches on this slice's main path,
-phase 11's three uninterrupted rounds, max abs error against the plain
-version, ms, plain ms, the bound worked out from this run's bytes and
-operations, and the PyTorch library time, null: no PyTorch call computes
-these sweeps). The last line is the JSON contract ``{"ok": true, "device":
-{...}}``. Any failure is an uncaught exception and a non-zero exit, as is a
-run outside a checkout of the repository.
+``{"kernels": [...]}``, one entry per kernel and column width the run
+launched (K1; K2 at 6, 12 and 18; K3 at 6 and 12): launches on this
+slice's main path (phase 13 (b), every K at N = 32,768), max abs error
+against the plain version, ms, plain ms, the bound worked out from this
+run's bytes and operations, and the PyTorch library time, null: no
+PyTorch call computes these sweeps. K1, K2 at 12 and K3 at 6 are timed
+in phase 3 (K = 3's inputs), the others in phase 13 (a). The last line is
+the JSON contract ``{"ok": true, "device": {...}}``. Any failure is an
+uncaught exception and a non-zero exit, as is a run outside a checkout of
+the repository.
 """
 
 import bisect
@@ -154,6 +183,23 @@ VARIANT_BANDS = {"leader": (-458.5, 15.0), "stoch": (-521.4, 15.0),
                  "airsim": (-391.4, 15.0), "twoflocks": None}
 LARGE_ROUNDS = 3
 LARGE_BUFFER = 600             # records: 3 rounds of 200 steps
+TRANSFER_CONFIG = os.path.join(ROOT, "cfg", "transfer_stoch.cfg")
+TRANSFER_BASE = os.path.join(
+    ROOT, "models", "actor_FlockingStochastic-v0_transfer2_stoch")
+TRANSFER_STEPS = 4             # K = 4 policy steps before the width checks
+TRANSFER_EPISODES = 3          # per section at N_ORACLE
+PARITY_STEPS = 20
+# per K: K1, K2 and K3 launches of one 200-step episode
+TRANSFER_LAUNCHES = {4: (201, 200, 400), 3: (201, 200, 200),
+                     2: (201, 200, 0), 1: (201, 0, 0)}
+# the JAX package on a CPU, `evaluate.py cfg/transfer_stoch.cfg
+# --actor-base ...`: with --n-agents 4096 --episodes 3 (its blocked path),
+# the mean per K, band +-1.5 (about three episode stds); and the dense
+# route at N = 50 (20 episodes), mean and std
+TRANSFER_LARGE_BANDS = {4: (-25.05, 1.5), 3: (-25.71, 1.5),
+                        2: (-26.55, 1.5), 1: (-28.62, 1.5)}
+TRANSFER_DENSE_BANDS = {4: (-39.44, 4.33), 3: (-39.75, 4.38),
+                        2: (-40.79, 4.81), 1: (-44.29, 5.95)}
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -224,11 +270,25 @@ def bound_ms(n_bytes, n_ops):
                                        else "operations")
 
 
-def pair_counts(cc, x_pos, grid, spec):
+def pair_counts(cc, x_pos, grid, spec, r2cut=1.0):
     """(candidate pairs, radius-neighbour pairs) that this input's sweep
     visits: what the data needs, not the cap's worst case."""
     valid, _, _, _, r2 = cc._pair_geometry(x_pos, cc._candidates(grid, spec))
-    return int(valid.sum()), int((valid & (r2 < 1.0)).sum())
+    return int(valid.sum()), int((valid & (r2 < r2cut)).sum())
+
+
+def apply_work(n, c, cand, nbr, nb, historical):
+    """(bytes moved, operations) that one K2 (``historical`` False) or K3
+    sweep over ``c`` columns needs on this input: positions (K2 reads
+    them from the (N, 4) state), degrees and raw columns read once, the
+    neighbour structure, the output written once; 6 operations per
+    candidate pair's r^2 test and, per radius-neighbour pair, K2's
+    weight product and sum (2 + 2C), K3's sums (C) after a clamp and C
+    divisions per agent."""
+    n_bytes = n * 8 + n * 4 + n * 4 * c + nb + n * 4 * c
+    if historical:
+        return n_bytes, (1 + c) * n + 6 * cand + c * nbr
+    return n_bytes, 6 * cand + (2 + 2 * c) * nbr
 
 
 def neighbour_bytes(grid, spec):
@@ -252,9 +312,10 @@ def ptxas_summary(lines):
     name, frame = None, ""
     for line in lines:
         m = re.search(r"entry function .*?((?:frame|apply_deg|apply)_kernel)"
-                      r"(?:ILi(\d+)E)?", line)
+                      r"(?:ILi(\d+)E(?:Li(\d+)E)?)?", line)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            args = ", ".join(a for a in m.group(2, 3) if a)
+            name = m.group(1) + (f"<{args}>" if args else "")
         elif "bytes stack frame" in line:
             frame = "; " + line.strip()
         elif "Used" in line and name:
@@ -784,6 +845,323 @@ def variants_phase(ev, cc, load_ini, n_agents):
     return out
 
 
+def _transfer_section(load_ini, k, noiseless=False):
+    """The ``cfg/transfer_stoch.cfg`` section of filter length ``k``;
+    with ``noiseless`` its env is FlockingRelative (the same swarm and
+    radius without the velocity noise), for runs held step by step."""
+    section = load_ini(TRANSFER_CONFIG)[str(k)]
+    if noiseless:
+        section["env"] = "FlockingRelative-v0"
+    return section
+
+
+def _large_setup(ev, ln, cc, ExperimentConfig, section, n, steps=None):
+    """(params, LargeNConfig, ActorConfig, actor) of ``section`` at ``n``
+    agents, as ``evaluate_blocked`` builds them, with its checkpoint."""
+    import dataclasses as dc
+
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+        ENV_REGISTRY, FlockingParams)
+    from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+
+    xcfg = ExperimentConfig.from_section(section)
+    p = ENV_REGISTRY[xcfg.env](FlockingParams(
+        n_agents=n, comm_radius=xcfg.comm_radius, dt=xcfg.dt,
+        v_max=xcfg.v_max, episode_steps=xcfg.episode_steps))
+    if steps is not None:
+        p = dc.replace(p, episode_steps=steps)
+    spec = cc.make_pcell_spec(p, cap=xcfg.cell_cap or 16,
+                              margin=xcfg.cell_margin,
+                              edge_mult=xcfg.cell_edge_mult)
+    cfg = ln.LargeNConfig(params=p, cell_spec=spec,
+                          centralized=xcfg.centralized)
+    acfg = ActorConfig(n_s=xcfg.n_states, n_a=xcfg.n_actions,
+                       hidden=xcfg.hidden, k=xcfg.k)
+    return p, cfg, acfg, ev.load_actor(f"{TRANSFER_BASE}{xcfg.k}", acfg,
+                                       DEVICE)
+
+
+def transfer_kernels(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
+                     gen, floor_ms):
+    """Phase 13 (a): the widths K = 4 adds, on a K = 4 step's own inputs
+    at N (the transfer2_stoch4 policy, TRANSFER_STEPS steps from a lattice
+    reset, the noiseless section): K2 at 18 columns (and at 6, K = 2's
+    width) and K3 at 12 on the row-strided view the delayed stack passes,
+    each against its plain version (REL_PLAIN) and timed beside it with
+    its bound; 24 columns in two counted chunks of each; and at N_ORACLE
+    the whole K = 4 stack of ystack_pre against the O(N²) delayed_ystack
+    (REL_ORACLE). Returns ``({name: (ms, plain_ms, bound_ms, bound_by)},
+    {name: max abs err})``."""
+    section = _transfer_section(load_ini, 4, noiseless=True)
+    p, cfg, acfg, actor = _large_setup(ev, ln, cc, ExperimentConfig,
+                                       section, N)
+    spec, r2cut = cfg.cell_spec, float(p.comm_radius) ** 2
+    state = ln._episode_init(cfg, acfg, gen, DEVICE)
+    state, _ = ln._scan_steps(cfg, actor, state, TRANSFER_STEPS, gen)
+    if int(state.overflow):
+        raise AssertionError(f"K = 4 steps at N={N}: overflow "
+                             f"{int(state.overflow)}")
+    x, grid, carry = state.x, state.grid, state.carry
+    deg = state.fq.degree.contiguous()
+    cols18 = ln._s0_cols(carry)                       # (N, 18) contiguous
+    cols6 = carry.history[0]                          # K = 2's (N, 6)
+    pos_h, deg_h, grid_h = carry.pos_hist[0], carry.deg_hist[0], \
+        state.grid_hist[0]
+    cols_h = state.s0.reshape(N, 3, 6)[:, 1:].reshape(N, 12)
+    if cols_h.stride() != (18, 1):
+        raise AssertionError(f"K3's view has strides {cols_h.stride()}")
+    # K = 3's widths on the same input, to compare the widths
+    cols12 = cols18[:, :12].contiguous()
+    cols_h6 = state.s0.reshape(N, 3, 6)[:, 2]
+    cases = {
+        "K2 C=18": (lambda: cc.apply_deg_sweep(x, cols18, deg, grid, spec,
+                                               r2cut),
+                    lambda: cc.apply_deg_sweep_plain(x, cols18, deg, grid,
+                                                     spec, r2cut)),
+        "K2 C=6": (lambda: cc.apply_deg_sweep(x, cols6, deg, grid, spec,
+                                              r2cut),
+                   lambda: cc.apply_deg_sweep_plain(x, cols6, deg, grid,
+                                                    spec, r2cut)),
+        "K3 C=12": (lambda: cc.apply_sweep(pos_h, cols_h, deg_h, grid_h,
+                                           spec, r2cut),
+                    lambda: cc.apply_sweep_plain(pos_h, cols_h, deg_h,
+                                                 grid_h, spec, r2cut)),
+        "K2 C=12, this input": (
+            lambda: cc.apply_deg_sweep(x, cols12, deg, grid, spec, r2cut),
+            lambda: cc.apply_deg_sweep_plain(x, cols12, deg, grid, spec,
+                                             r2cut)),
+        "K3 C=6, this input": (
+            lambda: cc.apply_sweep(pos_h, cols_h6, deg_h, grid_h, spec,
+                                   r2cut),
+            lambda: cc.apply_sweep_plain(pos_h, cols_h6, deg_h, grid_h,
+                                         spec, r2cut)),
+    }
+    err = {name: check_close(f"{name} vs plain, K = 4 step, N={N}",
+                             fn(), plain(), REL_PLAIN)
+           for name, (fn, plain) in cases.items()}
+    # 24 columns: two launches each (18 + 6), each chunk read in place
+    cols24 = torch.cat([cols18, cols6], 1)
+    chunked = {"K2": (lambda: cc.apply_deg_sweep(x, cols24, deg, grid, spec,
+                                                 r2cut),
+                      lambda: cc.apply_deg_sweep_plain(x, cols24, deg, grid,
+                                                       spec, r2cut)),
+               "K3": (lambda: cc.apply_sweep(pos_h, cols24, deg_h, grid_h,
+                                             spec, r2cut),
+                      lambda: cc.apply_sweep_plain(pos_h, cols24, deg_h,
+                                                   grid_h, spec, r2cut))}
+    for name, (fn, plain) in chunked.items():
+        out, launches = _counted(cc, fn)
+        by_cols = cc.launch_counts_by_cols()
+        want = "apply_deg_sweep" if name == "K2" else "apply_sweep"
+        if by_cols[want] != {6: 1, 18: 1} or sum(launches.values()) != 2:
+            raise AssertionError(f"{name} at 24 columns: {by_cols}")
+        check_close(f"{name} C=24 in chunks of 18 and 6 vs plain", out,
+                    plain(), REL_PLAIN)
+    # the whole K = 4 stack at N_ORACLE against the O(N^2) oracle
+    p4, cfg4, _, _ = _large_setup(ev, ln, cc, ExperimentConfig, section,
+                                  N_ORACLE)
+    s4 = ln._episode_init(cfg4, acfg, gen, DEVICE)
+    s4, _ = ln._scan_steps(cfg4, actor, s4, 2 * TRANSFER_STEPS, gen)
+    y = ln._ystack(cfg4, s4)
+    ref = bl.delayed_ystack(s4.carry, s4.x[:, :2], p4, block=512,
+                            deg_now=s4.fq.degree)
+    if y.shape != (4, N_ORACLE, 6) or not bool((ref[3] != 0).any()):
+        raise AssertionError(f"K = 4 stack {tuple(y.shape)}, slot 3 zero")
+    check_close(f"K = 4 ystack_pre vs delayed_ystack, N={N_ORACLE}",
+                y.transpose(0, 1).reshape(N_ORACLE, -1),
+                ref.transpose(0, 1).reshape(N_ORACLE, -1), REL_ORACLE)
+    # times beside the plain versions and the bound of this input
+    cand, nbr = pair_counts(cc, x[:, :2], grid, spec, r2cut)
+    cand_h, nbr_h = pair_counts(cc, pos_h, grid_h, spec, r2cut)
+    nb, nb_h = neighbour_bytes(grid, spec), neighbour_bytes(grid_h, spec)
+    work = {"K2 C=18": apply_work(N, 18, cand, nbr, nb, False),
+            "K2 C=6": apply_work(N, 6, cand, nbr, nb, False),
+            "K3 C=12": apply_work(N, 12, cand_h, nbr_h, nb_h, True),
+            "K2 C=12, this input": apply_work(N, 12, cand, nbr, nb, False),
+            "K3 C=6, this input": apply_work(N, 6, cand_h, nbr_h, nb_h,
+                                             True)}
+    timing = {}
+    for name, (fn, plain) in cases.items():
+        ms, plain_ms = device_ms(fn), device_ms(plain)
+        b_ms, b_by = bound_ms(*work[name])
+        timing[name] = (ms, plain_ms, b_ms, b_by)
+        print(f"#   {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by}), {work[name][0]} B, "
+              f"{work[name][1]} ops; launch floor {floor_ms:.4f} ms",
+              flush=True)
+    print(f"#   this input: radius {p.comm_radius}, {cand} candidate and "
+          f"{nbr} neighbour pairs (historical graph {cand_h}, {nbr_h})",
+          flush=True)
+    return timing, err
+
+
+def transfer_eval(torch, ev, cc, ExperimentConfig, n_agents, episodes,
+                  extra=()):
+    """``evaluate cfg/transfer_stoch.cfg --actor-base ... --n-agents
+    n_agents --episodes episodes`` through the CLI's main, each section's
+    ``evaluate_blocked`` call with the counters zeroed just before it and
+    read just after. Returns ``{K: (stats, launches, launches by columns,
+    ms per step)}``; an overflow exits 3 (evaluate_blocked's gate)."""
+    per, orig = {}, ev.evaluate_blocked
+
+    def counted(section, path, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats, launches = _counted(cc, lambda: orig(section, path, **kw))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        steps = episodes * ExperimentConfig.from_section(
+            section).episode_steps
+        per[int(section.name)] = (stats, launches, cc.launch_counts_by_cols(),
+                                  1e3 * wall / steps)
+        return stats
+
+    ev.evaluate_blocked = counted
+    try:
+        ev.main([TRANSFER_CONFIG, "--actor-base", TRANSFER_BASE,
+                 "--n-agents", str(n_agents), "--episodes", str(episodes),
+                 "--per-episode", "--device", DEVICE, *extra])
+    finally:
+        ev.evaluate_blocked = orig
+    return per
+
+
+def transfer_parity(torch, ev, ln, cc, ExperimentConfig, load_ini, gen):
+    """Phase 13 (c): one PARITY_STEPS-step episode at N_ORACLE of K = 4 and
+    of K = 1 under the noiseless section, from an x0 drawn on the card,
+    on the card and through the plain versions on the CPU: rewards and
+    final states within REL_EPISODE."""
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+        _init_candidate)
+
+    err = 0.0
+    for k in (4, 1):
+        section = _transfer_section(load_ini, k, noiseless=True)
+        p, cfg, acfg, actor = _large_setup(ev, ln, cc, ExperimentConfig,
+                                           section, N_ORACLE, PARITY_STEPS)
+        x0 = _init_candidate(gen, p, DEVICE)
+        kw = dict(cap=cfg.cell_spec.cap, return_overflow=True)
+        got = ln.rollout_large(actor, acfg, None, p, x0=x0, device=DEVICE,
+                               **kw)
+        cpu_actor = copy.deepcopy(actor).cpu()
+        want = ln.rollout_large(cpu_actor, acfg, None, p, x0=x0.cpu(),
+                                device="cpu", **kw)
+        if int(got[2]) or int(want[2]):
+            raise AssertionError(f"K = {k} parity episode overflowed")
+        err = max(err, check_close(
+            f"K = {k} episode card vs CPU, rewards ({PARITY_STEPS} steps, "
+            f"N={N_ORACLE})", got[0].cpu()[:, None], want[0][:, None],
+            REL_EPISODE))
+        err = max(err, check_close(f"K = {k} episode card vs CPU, final x",
+                                   got[1].cpu(), want[1], REL_EPISODE))
+    return err
+
+
+def transfer_dense(torch, ev, cc, load_ini):
+    """Phase 13 (d): ``evaluate cfg/transfer_stoch.cfg --actor-base ...``
+    with no ``--n-agents``: the dense route at the sections' N = 50, 20
+    episodes each, each mean in its TRANSFER_DENSE_BANDS band, no cell
+    kernel launched; then one ``--save-trajectory`` file of section [4]
+    in a temporary directory, its keys and shapes checked."""
+    per, orig = {}, ev.evaluate_section
+
+    def timed(section, path, **kw):
+        t = time.perf_counter()
+        stats = orig(section, path, **kw)
+        per[int(section.name)] = (stats, time.perf_counter() - t)
+        return stats
+
+    ev.evaluate_section = timed
+    cc.reset_launch_counts()
+    try:
+        ev.main([TRANSFER_CONFIG, "--actor-base", TRANSFER_BASE,
+                 "--device", DEVICE])
+    finally:
+        ev.evaluate_section = orig
+    if any(cc.launch_counts().values()):
+        raise AssertionError(f"the dense route launched cell kernels: "
+                             f"{cc.launch_counts()}")
+    for k, (stats, wall) in sorted(per.items(), reverse=True):
+        print(f"#   transfer dense: K = {k}, N = 50, "
+              f"{len(stats['rewards'])} episodes: {stats['mean']} +- "
+              f"{stats['std']} ({wall:.3f} s)", flush=True)
+        _in_band(f"dense transfer K = {k}", stats["mean"],
+                 TRANSFER_DENSE_BANDS[k])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "traj.npz")
+        section = load_ini(TRANSFER_CONFIG)["4"]
+        k, ckpt = ev.section_checkpoint(section, None, TRANSFER_BASE, None)
+        orig(section, ckpt, k=k, traj_path=path, device=DEVICE)
+        _check_trajectory(path, {"x": (200, 50, 4), "reward": (200,)})
+    return {k: stats["mean"] for k, (stats, _) in per.items()}
+
+
+def _check_trajectory(path, shapes):
+    import numpy as np
+
+    with np.load(path) as z:
+        got = {key: z[key].shape for key in z.files}
+        if got != shapes or not all(np.isfinite(z[key]).all()
+                                    for key in z.files):
+            raise AssertionError(f"trajectory {got} != {shapes} or not "
+                                 f"finite")
+
+
+def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
+    """Phase 13, this slice's main path: (a) the new widths, (b) the
+    full-width cross-K evaluation at N and the N_ORACLE check against the
+    JAX package's means, (c) card against CPU at K = 4 and K = 1, (d) the
+    dense route. Returns the kernel timings and errors of (a) and the
+    launches by width of (b)'s N = 32,768 run, summed over its sections."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    floor_ms = device_ms(lambda: torch.cuda._sleep(0))
+    with torch.no_grad():
+        timing, err = transfer_kernels(torch, ev, ln, cc, bl,
+                                       ExperimentConfig, load_ini, gen,
+                                       floor_ms)
+    # (b) the main path: every K at N, one episode per section
+    per = transfer_eval(torch, ev, cc, ExperimentConfig, N, 1)
+    total = {}
+    for k, (stats, launches, by_cols, ms) in sorted(per.items(),
+                                                    reverse=True):
+        want = dict(zip(("frame_sweep", "apply_deg_sweep", "apply_sweep"),
+                        TRANSFER_LAUNCHES[k]))
+        print(f"#   transfer: K = {k}, N = {N}: {stats['mean']}, overflow "
+              f"{stats['overflow']}, launches {launches} by columns "
+              f"{by_cols}, {ms:.4f} ms per step (reset and load included)",
+              flush=True)
+        if (launches != want or stats["overflow"]
+                or not math.isfinite(stats["mean"])):
+            raise AssertionError(f"K = {k}: {stats}, launches {launches} "
+                                 f"!= {want}")
+        for fn, cols in by_cols.items():
+            for c, count in cols.items():
+                total[fn, c] = total.get((fn, c), 0) + count
+    # the same evaluation at N_ORACLE against the JAX package's means
+    with tempfile.TemporaryDirectory() as tmp:
+        traj = os.path.join(tmp, "large.npz")
+        small = transfer_eval(torch, ev, cc, ExperimentConfig, N_ORACLE,
+                              TRANSFER_EPISODES, ("--save-trajectory", traj))
+        _check_trajectory(traj, {"x": (200, 2000, 4), "reward": (200,),
+                                 "final_x": (N_ORACLE, 4),
+                                 "subset_indices": (2000,)})
+    for k, (stats, _, _, ms) in sorted(small.items(), reverse=True):
+        print(f"#   transfer: K = {k}, N = {N_ORACLE}, {TRANSFER_EPISODES} "
+              f"episodes: {stats['mean']} +- {stats['std']}, overflow "
+              f"{stats['overflow']}, {ms:.4f} ms per step", flush=True)
+        if stats["overflow"]:
+            raise AssertionError(f"K = {k} at N={N_ORACLE} overflowed")
+        _in_band(f"transfer K = {k} at N={N_ORACLE}", stats["mean"],
+                 TRANSFER_LARGE_BANDS[k])
+    with torch.no_grad():
+        parity_err = transfer_parity(torch, ev, ln, cc, ExperimentConfig,
+                                     load_ini, gen)
+    dense = transfer_dense(torch, ev, cc, load_ini)
+    means = {k: per[k][0]["mean"] for k in per}
+    ms = {k: per[k][3] for k in per}
+    return timing, err, total, means, ms, parity_err, dense
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1029,24 +1407,47 @@ def main():
     variants = variants_phase(ev, cc, load_ini, N)
     phase("variants", t, **variants)
 
-    # 13. budget
+    # 13. transfer: every K of the in-repo transfer policies, this slice's
+    # main path
+    t = time.perf_counter()
+    (t_timing, t_err, t_launches, t_means, t_ms, t_parity,
+     t_dense) = transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig,
+                               load_ini)
+    phase("transfer", t, **{f"K{k}_reward": t_means[k] for k in t_means},
+          **{f"K{k}_ms_per_step": f"{t_ms[k]:.4f}" for k in t_ms},
+          card_vs_cpu_max_abs_err=t_parity,
+          **{f"K{k}_dense": t_dense[k] for k in t_dense})
+
+    # 14. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:
         raise AssertionError(f"run took {total:.1f} s > {BUDGET_S} s")
 
+    # one entry per kernel and width this run launched: phase 3 timed K1,
+    # K2 at 12 and K3 at 6 (K = 3's widths), phase 13 the others; the
+    # launches are phase 13's main path (every K at N = 32,768)
+    timing.update(t_timing)
+    err.update(t_err)
     kernels = []
-    for name, fn_name, line in (("K1", "frame_sweep", 496),
-                                ("K2", "apply_deg_sweep", 613),
-                                ("K3", "apply_sweep", 572)):
-        ms, plain_ms, b_ms, b_by = timing[name]
+    for name, key, fn_name, c, line in (
+            ("K1", "K1", "frame_sweep", 10, 496),
+            ("K2 C=6", "K2 C=6", "apply_deg_sweep", 6, 613),
+            ("K2 C=12", "K2", "apply_deg_sweep", 12, 613),
+            ("K2 C=18", "K2 C=18", "apply_deg_sweep", 18, 613),
+            ("K3 C=6", "K3", "apply_sweep", 6, 572),
+            ("K3 C=12", "K3 C=12", "apply_sweep", 12, 572)):
+        ms, plain_ms, b_ms, b_by = timing[key]
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": f"{TPU_SOURCE}:{line}",
-            "launches": l_launches[fn_name], "max_abs_err": err[name],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "launches": t_launches.get((fn_name, c), 0),
+            "max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+        if not kernels[-1]["launches"]:
+            raise AssertionError(f"{name} was not launched on the main "
+                                 f"path")
     faulthandler.cancel_dump_traceback_later()
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -96,11 +96,12 @@ class ImitationConfig:
     checkpoint_buffer: bool = True
 
     @classmethod
-    def from_experiment(cls, x: ExperimentConfig,
-                        mode: Optional[str] = None) -> "ImitationConfig":
-        """Build from an INI-backed :class:`ExperimentConfig`."""
+    def from_experiment(cls, x: ExperimentConfig, mode: Optional[str] = None,
+                        k: Optional[int] = None) -> "ImitationConfig":
+        """Build from an INI-backed :class:`ExperimentConfig`; ``k``
+        overrides its filter length (transfer evaluation across K)."""
         actor = ActorConfig(n_s=x.n_states, n_a=x.n_actions, hidden=x.hidden,
-                            k=x.k, ind_agg=0)
+                            k=k or x.k, ind_agg=0)
         env = FlockingParams(n_agents=x.n_agents, comm_radius=x.comm_radius,
                              dt=x.dt, v_max=x.v_max,
                              episode_steps=x.episode_steps)
@@ -174,6 +175,30 @@ def rollout_episode(actor: Actor, gen: Optional[torch.Generator], beta,
     samples = {"agg": torch.stack(aggs, 1).flatten(0, 1),
                "act": torch.stack(acts, 1).flatten(0, 1)}
     return samples, total
+
+
+def rollout_trajectory(actor: Actor, gen: Optional[torch.Generator],
+                       env: FlockingEnv, acfg: ActorConfig,
+                       x0: Optional[torch.Tensor] = None):
+    """One greedy episode of one env that records its states: ``(xs (T, N,
+    4), rewards (T,))``, the state and reward after each step (the
+    visualisation dump of ``evaluate --save-trajectory``). ``x0`` (N, 4)
+    replaces the reset's draw, for tests."""
+    with torch.no_grad():
+        if x0 is None:
+            state, obs = env.reset(gen)
+        else:
+            state = EnvState(x0, 0)
+            obs = env.observe(state)
+        gs = initial_graph_state(obs.values, obs.network, acfg.k)
+        xs, rewards = [], []
+        for _ in range(env.params.episode_steps):
+            act = actor(aggregate(gs.delay_gso, gs.delay_state))
+            state, obs, r, _ = env.step(state, act, gen)
+            gs = update_graph_state(gs, obs.values, obs.network)
+            xs.append(state.x)
+            rewards.append(r)
+    return torch.stack(xs), torch.stack(rewards)
 
 
 def adam_update(actor: Actor, opt: torch.optim.Optimizer,
@@ -257,13 +282,17 @@ class ImitationLearner:
         self.last_loss_sum = loss_sum
         return ep_reward, loss_sum
 
-    def evaluate(self) -> Tuple[float, float]:
-        """Mean and population std of ``n_test_episodes`` greedy episodes,
-        run as one batch."""
+    def eval_rewards(self) -> np.ndarray:
+        """The summed rewards of ``n_test_episodes`` greedy episodes, run
+        as one batch."""
         rewards = rollout_episode(
             self.actor, self.gen, 0.0, self.env, self.cfg.actor, mode="eval",
             collect=False, n_envs=self.cfg.n_test_episodes)
-        r = rewards.cpu().numpy()
+        return rewards.cpu().numpy()
+
+    def evaluate(self) -> Tuple[float, float]:
+        """Mean and population std of :meth:`eval_rewards`."""
+        r = self.eval_rewards()
         return float(r.mean()), float(r.std())
 
     def timing_summary(self) -> Dict[str, float]:

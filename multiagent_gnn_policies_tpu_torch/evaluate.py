@@ -1,23 +1,45 @@
-"""Large-N checkpoint evaluation on the GPU: the PyTorch counterpart of
-``evaluate.py``'s large-N path (its ``evaluate_blocked``).
+"""Checkpoint evaluation on the GPU: the PyTorch counterpart of
+``evaluate.py``, routed as it routes.
 
-    python -m multiagent_gnn_policies_tpu_torch.evaluate cfg/dagger_n32k.cfg \\
-        (--actor-path models/actor_FlockingRelative-v0_dagger_n32k.npz \\
-         | --expert) [--n-agents 32768] [--episodes E] [--cell-margin M] \\
-        [--cell-cap C] [--cell-edge-mult E] [--device cuda|cpu]
+Plain evaluation (one checkpoint under every section's env):
 
-Each section of the INI file is evaluated with greedy episodes of the
-checkpoint, or with ``--expert`` of the analytic controller (centralized
-or not as the section's ``centralized`` says), through the O(N) cell
-sweeps and printed as the JAX CLI prints it: the header line, then
-``section, mean, std``. A run whose cell grid overflowed in any step
-(neighbours dropped, so the rewards are not the exact-graph dynamics) exits
-with status 3 and prints no result.
+    python -m multiagent_gnn_policies_tpu_torch.evaluate cfg/dagger.cfg \\
+        --actor-path models/actor_FlockingRelative-v0_dagger_k3.npz
+
+Transfer evaluation (a per-section ``k`` picks checkpoint ``<base><k>``,
+the extensionless state_dict first, else ``<base><k>.npz``, and builds the
+actor and the delayed state with that ``k``):
+
+    python -m multiagent_gnn_policies_tpu_torch.evaluate \\
+        cfg/transfer_stoch.cfg \\
+        --actor-base models/actor_FlockingStochastic-v0_transfer2_stoch \\
+        [--n-agents 32768]
+
+Without ``--n-agents`` or ``--expert`` a section is evaluated on the dense
+path at its own N (the imitation learner's greedy eval, ``n_test_episodes``
+episodes as one batch). With ``--n-agents`` (or ``--expert``, which rolls
+the analytic controller, centralized or not as the section's
+``centralized`` says) it goes through the O(N) cell sweeps: ``--episodes``,
+``--cell-margin``, ``--cell-cap`` and ``--cell-edge-mult`` apply there. A
+large-N run whose cell grid overflowed in any step (neighbours dropped, so
+the rewards are not the exact-graph dynamics) exits with status 3 and
+prints no result.
+
+Checkpoints are ``.npz`` files of either package or reference-layout
+torch ``state_dict`` files (any other name). ``--k`` overrides the
+section's K. Output: the header line, then ``section, mean, std``;
+``--per-episode`` prints each episode's reward, and ``--save-trajectory
+out.npz`` writes one greedy episode's states: on the dense path ``x (T, N,
+4)`` and ``reward (T,)``; on the large-N path episode 0's ``x (T, M, 4)``
+for M = min(2000, N) evenly spaced agents, ``reward``, ``final_x (N, 4)``
+and ``subset_indices (M,)``. ``alg = ddpg`` sections exit non-zero: the
+port has no DDPG evaluator yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from typing import Optional
 
@@ -31,19 +53,51 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
 from multiagent_gnn_policies_tpu_torch.models.actor import Actor, ActorConfig
 from multiagent_gnn_policies_tpu_torch.models.torch_import import (
     actor_params_from_numpy,
+    actor_params_from_state_dict,
 )
-from multiagent_gnn_policies_tpu_torch.parallel.large_n import rollout_large
+from multiagent_gnn_policies_tpu_torch.parallel.large_n import (
+    rollout_large,
+    traj_subset_indices,
+)
 from multiagent_gnn_policies_tpu_torch.utils.checkpoint import load_actor_npz
 from multiagent_gnn_policies_tpu_torch.utils.config import (
     ExperimentConfig,
     load_ini,
 )
 
+TRAJ_AGENTS = 2000      # agents a large-N trajectory records at most
+
+
+def load_actor_layers(path: str, acfg: ActorConfig):
+    """JAX-layout actor layers from a ``.npz`` checkpoint or a reference
+    torch ``state_dict`` file, each layer's shape checked against the
+    actor ``acfg`` implies; exits naming the layer and both shapes."""
+    if path.endswith(".npz"):
+        try:
+            return load_actor_npz(path, acfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from e
+    layers = actor_params_from_state_dict(
+        torch.load(path, map_location="cpu", weights_only=True))
+    if len(layers) != acfg.n_layers:
+        raise SystemExit(f"{path}: {len(layers)} layers != cfg-implied "
+                         f"{acfg.n_layers}")
+    widths = acfg.widths
+    for i, layer in enumerate(layers):
+        want = (widths[i + 1], widths[i], acfg.taps(i))
+        if layer["w"].shape != want or layer["b"].shape != want[:1]:
+            raise SystemExit(
+                f"{path}: layer {i} weight shape {layer['w'].shape} != "
+                f"cfg-implied {want}")
+    return layers
+
 
 def load_actor(path: str, acfg: ActorConfig, device) -> Actor:
-    """The port's ``Actor`` with the weights of a JAX ``.npz`` checkpoint."""
+    """The port's ``Actor`` with the weights of ``path`` (see
+    :func:`load_actor_layers`)."""
     actor = Actor(acfg)
-    actor.load_state_dict(actor_params_from_numpy(load_actor_npz(path, acfg)))
+    actor.load_state_dict(actor_params_from_numpy(
+        load_actor_layers(path, acfg)))
     return actor.to(device).eval()
 
 
@@ -56,14 +110,15 @@ def episode_generator(seed: int, episode: int, device) -> torch.Generator:
     return gen
 
 
-def evaluate_blocked(section, actor_path: Optional[str], n_agents=None,
-                     n_episodes=None, per_episode=False, cell_margin=None,
-                     expert=False, cell_cap=None, cell_edge_mult=None,
-                     device="cuda"):
+def evaluate_blocked(section, actor_path: Optional[str], k=None,
+                     n_agents=None, n_episodes=None, per_episode=False,
+                     cell_margin=None, expert=False, cell_cap=None,
+                     cell_edge_mult=None, traj_path=None, device="cuda"):
     """Large-N evaluation under ``section``'s env: greedy episodes of the
-    checkpoint at ``actor_path``, or of the analytic expert with
-    ``expert`` (``actor_path`` unused). ``cell_margin``, ``cell_cap`` and
-    ``cell_edge_mult`` override the section's grid.
+    checkpoint at ``actor_path`` with filter length ``k`` (the section's
+    when None), or of the analytic expert with ``expert`` (``actor_path``
+    unused). ``cell_margin``, ``cell_cap`` and ``cell_edge_mult`` override
+    the section's grid; ``traj_path`` receives episode 0's trajectory.
 
     Returns ``{"mean", "std", "rewards", "overflow"}``; exits with status 3
     when any step's cell grid overflowed."""
@@ -76,17 +131,27 @@ def evaluate_blocked(section, actor_path: Optional[str], n_agents=None,
     actor = acfg = None
     if not expert:
         acfg = ActorConfig(n_s=cfg.n_states, n_a=cfg.n_actions,
-                           hidden=cfg.hidden, k=cfg.k, ind_agg=0)
+                           hidden=cfg.hidden, k=k or cfg.k, ind_agg=0)
         actor = load_actor(actor_path, acfg, device)
+    traj_agents = min(TRAJ_AGENTS, p.n_agents) if traj_path else 0
     rewards, max_overflow = [], 0
     for ep in range(n_episodes or cfg.n_test_episodes):
-        r, _, ovf = rollout_large(
+        out = rollout_large(
             actor, acfg, episode_generator(cfg.seed, ep, device), p,
             centralized_expert=cfg.centralized, return_overflow=True,
             cell_margin=cell_margin or cfg.cell_margin,
             cap=cell_cap or cfg.cell_cap or None,
             cell_edge_mult=cell_edge_mult or cfg.cell_edge_mult,
-            device=device, expert_mode=expert)
+            device=device, expert_mode=expert,
+            traj_agents=traj_agents if ep == 0 else 0)
+        r, final_x, ovf = out[:3]
+        if ep == 0 and traj_path:
+            np.savez(traj_path, x=out[3].cpu().numpy(), reward=r.cpu().numpy(),
+                     final_x=final_x.cpu().numpy(),
+                     subset_indices=traj_subset_indices(
+                         p.n_agents, traj_agents).to(torch.int32).numpy())
+            print(f"# trajectory ({out[3].shape[0]} steps, "
+                  f"{traj_agents}/{p.n_agents} agents) -> {traj_path}")
         total, ovf = float(r.sum()), int(ovf)
         max_overflow = max(max_overflow, ovf)
         if per_episode:
@@ -101,21 +166,82 @@ def evaluate_blocked(section, actor_path: Optional[str], n_agents=None,
             "rewards": rewards, "overflow": max_overflow}
 
 
+def evaluate_section(section, actor_path: str, k=None, per_episode=False,
+                     traj_path=None, device="cuda"):
+    """Dense evaluation at the section's N: the imitation learner's greedy
+    eval (``n_test_episodes`` episodes as one batch) of the checkpoint at
+    ``actor_path`` with filter length ``k`` (the section's when None);
+    ``traj_path`` receives one more greedy episode's trajectory. Returns
+    ``{"mean", "std", "rewards"}``."""
+    from multiagent_gnn_policies_tpu_torch.algos.imitation import (
+        ImitationConfig,
+        ImitationLearner,
+        rollout_trajectory,
+    )
+
+    cfg = ExperimentConfig.from_section(section)
+    if cfg.alg == "ddpg":
+        raise SystemExit(
+            "alg = ddpg: the port has no DDPG evaluator yet; evaluate this "
+            "section with the JAX package's evaluate.py "
+            "(multiagent_gnn_policies_tpu/algos/ddpg.py)")
+    icfg = ImitationConfig.from_experiment(cfg, mode="dagger", k=k)
+    learner = ImitationLearner(icfg, device=device)
+    learner.actor.load_state_dict(actor_params_from_numpy(
+        load_actor_layers(actor_path, icfg.actor)))
+    learner.actor.eval()
+    rewards = learner.eval_rewards()
+    if per_episode:
+        for r in rewards:
+            print(float(r))
+    if traj_path:
+        gen = torch.Generator(device=learner.device)
+        gen.manual_seed(cfg.seed)
+        xs, rs = rollout_trajectory(learner.actor, gen, learner.env,
+                                    icfg.actor)
+        np.savez(traj_path, x=xs.cpu().numpy(), reward=rs.cpu().numpy())
+        print(f"# trajectory ({xs.shape[0]} steps, N={xs.shape[1]}) -> "
+              f"{traj_path}")
+    return {"mean": float(rewards.mean()), "std": float(rewards.std()),
+            "rewards": [float(r) for r in rewards]}
+
+
+def section_checkpoint(section, actor_path, actor_base, k):
+    """``(k, path)`` of a section: with ``actor_base`` the section's K and
+    ``<base><K>`` (``+ ".npz"`` only when the extensionless file is
+    missing), else ``k`` and ``actor_path``."""
+    if not actor_base:
+        return k, actor_path
+    k = section.getint("k")
+    path = f"{actor_base}{k}"
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path += ".npz"
+    return k, path
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("config", help="INI experiment file")
     ap.add_argument("--actor-path", default=None,
-                    help="actor checkpoint (.npz of the JAX package)")
+                    help="checkpoint evaluated for every section (.npz, or "
+                         "a reference torch state_dict)")
+    ap.add_argument("--actor-base", default=None,
+                    help="transfer mode: per-section k selects <base><k>")
+    ap.add_argument("--k", type=int, default=None,
+                    help="filter-length override (transfer across K)")
     ap.add_argument("--expert", action="store_true",
                     help="evaluate the analytic expert instead of a "
-                         "checkpoint")
+                         "checkpoint (large-N path)")
     ap.add_argument("--n-agents", type=int, default=None,
-                    help="swarm-size override")
+                    help="swarm-size override (takes the large-N path)")
     ap.add_argument("--episodes", type=int, default=None,
-                    help="override n_test_episodes")
+                    help="override n_test_episodes (large-N path)")
     ap.add_argument("--per-episode", action="store_true",
                     help="print every episode reward")
+    ap.add_argument("--save-trajectory", default=None,
+                    help="dump one greedy episode's agent states to this "
+                         ".npz")
     ap.add_argument("--cell-margin", type=float, default=None,
                     help="cell-grid extent margin override")
     ap.add_argument("--cell-cap", type=int, default=None,
@@ -127,19 +253,29 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="cuda (default) or cpu; nothing falls back")
     args = ap.parse_args(argv)
-    if not args.expert and not args.actor_path:
-        ap.error("--actor-path is required (or pass --expert)")
+    if not args.expert and bool(args.actor_path) == bool(args.actor_base):
+        ap.error("exactly one of --actor-path / --actor-base is required "
+                 "(or pass --expert)")
 
     config = load_ini(args.config)
     sections = config.sections() or [config.default_section]
     print(config[sections[0]].get("header"))
     for name in sections:
-        stats = evaluate_blocked(
-            config[name], args.actor_path, n_agents=args.n_agents,
-            n_episodes=args.episodes, per_episode=args.per_episode,
-            cell_margin=args.cell_margin, expert=args.expert,
-            cell_cap=args.cell_cap, cell_edge_mult=args.cell_edge_mult,
-            device=args.device)
+        section = config[name]
+        k, path = section_checkpoint(section, args.actor_path,
+                                     args.actor_base, args.k)
+        if args.n_agents or args.expert:
+            stats = evaluate_blocked(
+                section, path, k=k, n_agents=args.n_agents,
+                n_episodes=args.episodes, per_episode=args.per_episode,
+                cell_margin=args.cell_margin, expert=args.expert,
+                cell_cap=args.cell_cap, cell_edge_mult=args.cell_edge_mult,
+                traj_path=args.save_trajectory, device=args.device)
+        else:
+            stats = evaluate_section(section, path, k=k,
+                                     per_episode=args.per_episode,
+                                     traj_path=args.save_trajectory,
+                                     device=args.device)
         print(f"{name}, {stats['mean']}, {stats['std']}")
 
 

@@ -29,9 +29,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     # x, kept, cell_start, out, n, cx, cy, tile, r2cut, centralized, stream
     "cells_frame": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, cols, deg, kept, cell_start, out, n, c, cx, cy, tile, r2cut, stream
+    # x, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, tile, r2cut,
+    # stream
     "cells_apply_deg": [_P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _F, _P],
+                        _I, _I, _I, _I, _I, _I, _F, _P],
     # pos, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, tile, r2cut,
     # stream
     "cells_apply": [_P, _P, _P, _P, _P, _P,

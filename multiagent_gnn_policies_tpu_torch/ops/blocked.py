@@ -9,7 +9,8 @@ The counterpart of the JAX package's ``ops/blocked.py``:
   and in ``chip_smoke.py``.
 * :class:`DelayCarry`, :func:`delay_carry_init` and
   :func:`delay_carry_update` hold the feature history and the historical
-  graphs' positions and degrees that the delayed y-stack reads.
+  graphs' positions and degrees that the delayed y-stack reads;
+  :func:`delayed_ystack` is the stack's O(N²) oracle at any K.
 """
 
 from __future__ import annotations
@@ -143,6 +144,37 @@ def delay_carry_init(values: torch.Tensor, n: int, k: int) -> DelayCarry:
     return DelayCarry(history=history,
                       pos_hist=torch.zeros((max(k - 2, 0), n, 2), **kw),
                       deg_hist=torch.ones((max(k - 2, 0), n), **kw))
+
+
+def delayed_ystack(carry: DelayCarry, pos_now: torch.Tensor,
+                   p: FlockingParams, block: int = 128,
+                   deg_now: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The aggregated delayed stack ``y_k = G_k(t)^T x_{t-k}`` (K, N, F) by
+    K-1 blocked transpose-applies over the historical graphs: ``A_t^T`` to
+    every delayed slot, then ``A_{t-1}^T`` to slots >= 2, ... (newest
+    first). The oracle of the cell path's ``ystack_pre``, never on the main
+    path.
+
+    Args:
+      carry: the delay carry before this step's history shift
+        (``history[0]`` is x_t, ``pos_hist[0]`` the positions at t-1, ...).
+      pos_now: (N, 2) current positions (the graph ``A_t``).
+      deg_now: (N,) degrees of ``A_t``, recomputed when None.
+    """
+    k = carry.history.shape[0]
+    n, f = carry.history.shape[1:]
+    y = [carry.history[0]]
+    if k == 1:
+        return torch.stack(y)
+    v = carry.history[1:].clone()                       # slots 1..K-1
+    for s in range(k - 1):
+        pos_s = pos_now if s == 0 else carry.pos_hist[s - 1]
+        deg_s = deg_now if s == 0 else carry.deg_hist[s - 1]
+        cols = v[s:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
+        out = blocked_apply_adjT(pos_s, cols, p, block, deg=deg_s)
+        v[s:] = out.reshape(n, k - 1 - s, f).transpose(0, 1)
+        y.append(v[s])
+    return torch.stack(y)
 
 
 def delay_carry_update(carry: DelayCarry, new_values: torch.Tensor,

@@ -12,16 +12,22 @@ per neighbour row); ``csrc/cells.cu`` sweeps all three kernels in
 cell-row tiles staged in shared memory.
 
 Three kernels, each with a wrapper that launches it for CUDA tensors (and
-counts the launch in ``.launches``) and takes the plain PyTorch version
-below it for CPU tensors; for a CUDA tensor a wrapper launches its kernel or
-raises, never falls back:
+counts each launch in ``.launches``, and by column count in
+``.launches_by_cols``) and takes the plain PyTorch version below it for CPU
+tensors; for a CUDA tensor a wrapper launches its kernel or raises, never
+falls back:
 
 * :func:`frame_sweep` (K1): (N, 4) state -> (N, 10) frame channels;
 * :func:`apply_deg_sweep` (K2): state, (N, C) raw columns and the new
   graph's (N,) degrees -> (N, C) degree-normalised neighbour sums;
-* :func:`apply_sweep` (K3): (N, 2) positions, (N, C) raw columns (a
-  row-strided view is read in place) and an earlier graph's (N,) degrees
-  -> (N, C) degree-normalised neighbour sums over that graph.
+* :func:`apply_sweep` (K3): (N, 2) positions, (N, C) raw columns and an
+  earlier graph's (N,) degrees -> (N, C) degree-normalised neighbour sums
+  over that graph.
+
+K2 and K3 read row-strided column views in place. Each column's sum is
+independent of the others, so on the card a column block wider than the
+built widths (``APPLY_COLS``) is launched in chunks (:func:`apply_chunks`),
+one launch each, as the JAX package's ``max_cols`` chunks its columns.
 
 The plain versions gather each agent's 9·cap candidates: O(N · 9 · cap)
 memory, fine on the card at N = 32,768, never an (N, N) array.
@@ -47,8 +53,10 @@ from multiagent_gnn_policies_tpu_torch.ops.precision import (
 )
 
 # column counts the apply kernels are built for (cells.cu): K2's (K-1)·F
-# and K3's F at K = 3, F = 6
-APPLY_COLS = (6, 12)
+# and K3's (K-1-s)·F up to K = 4, F = 6; the delayed stack's column blocks
+# are whole slots of F columns
+APPLY_COLS = (6, 12, 18)
+SLOT_COLS = 6
 FRAME_CHANNELS = 10   # v0..v5 | degree | gx | gy | min_r2
 MIN_R2_FILL = 1e12
 # csrc/cells.cu's kThreads, kMaxTile, kRows and the ops' kChunk: threads
@@ -300,33 +308,21 @@ def frame_sweep(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
     _launch("cells_frame", x.data_ptr(), grid.kept.data_ptr(),
             grid.cell_start.data_ptr(), out.data_ptr(), n, spec.cx, spec.cy,
             _tile(spec, n, tile), r2cut, int(centralized))
-    frame_sweep.launches += 1
+    _count(frame_sweep, FRAME_CHANNELS)
     return out
 
 
-def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
-                    grid: PCellGrid, spec: PCellSpec, r2cut: float,
-                    tile: Optional[int] = None) -> torch.Tensor:
-    """K2: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``.
-    ``tile``: cells per block (default :func:`tile_cells`)."""
-    if not x.is_cuda:
-        return apply_deg_sweep_plain(x, cols, deg, grid, spec, r2cut)
-    n, c = cols.shape
-    if c not in APPLY_COLS:
-        raise ValueError(f"apply_deg_sweep takes {APPLY_COLS} columns, "
-                         f"got {c}")
-    _check("x", x, (n, 4), torch.float32, x.device, align=16)
-    # the kernel loads a row in 16-byte pieces where C allows, else 8
-    _check("cols", cols, (n, c), torch.float32, x.device,
-           align=16 if c % 4 == 0 else 8)
-    _check("deg", deg, (n,), torch.float32, x.device)
-    _check_grid(grid, spec, n, x.device)
-    out = torch.empty((n, c), dtype=x.dtype, device=x.device)
-    _launch("cells_apply_deg", x.data_ptr(), cols.data_ptr(), deg.data_ptr(),
-            grid.kept.data_ptr(), grid.cell_start.data_ptr(), out.data_ptr(),
-            n, c, spec.cx, spec.cy, _tile(spec, n, tile), r2cut)
-    apply_deg_sweep.launches += 1
-    return out
+def apply_chunks(c: int):
+    """``(first column, width)`` of each launch that covers ``c`` columns
+    on the card: chunks of the widest built width, then the rest, each a
+    width of ``APPLY_COLS``. Raises for ``c`` that is not a whole number of
+    ``SLOT_COLS``-column slots."""
+    if c <= 0 or c % SLOT_COLS:
+        raise ValueError(f"the apply kernels take whole slots of {SLOT_COLS} "
+                         f"columns on the card (launched in chunks of "
+                         f"{APPLY_COLS}), got {c} columns")
+    w = max(APPLY_COLS)
+    return [(c0, min(w, c - c0)) for c0 in range(0, c, w)]
 
 
 def _row_stride(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
@@ -346,6 +342,51 @@ def _row_stride(name: str, t: torch.Tensor, shape: Sequence[int], dtype,
     return ld
 
 
+def _count(wrapper, c: int) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_cols[c] = wrapper.launches_by_cols.get(c, 0) + 1
+
+
+def _apply_chunked(wrapper, fn_name: str, first: int, cols: torch.Tensor,
+                   ptrs: Sequence[int], tail: Sequence,
+                   device) -> torch.Tensor:
+    """Launch ``fn_name`` over the columns ``cols`` (N, C) in the chunks of
+    :func:`apply_chunks`, each read in place; its arguments are ``first``
+    (the state or positions), the chunk's columns, ``ptrs`` (degrees, kept,
+    cell starts), the chunk's output, N, the chunk's width, the row stride,
+    then ``tail``. Each launch is counted."""
+    n, c = cols.shape
+    chunks = apply_chunks(c)
+    ld = _row_stride("cols", cols, (n, c), torch.float32, device)
+    outs = []
+    for c0, w in chunks:
+        out = torch.empty((n, w), dtype=cols.dtype, device=device)
+        _launch(fn_name, first, cols.data_ptr() + cols.element_size() * c0,
+                *ptrs, out.data_ptr(), n, w, ld, *tail)
+        _count(wrapper, w)
+        outs.append(out)
+    return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
+
+
+def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
+                    grid: PCellGrid, spec: PCellSpec, r2cut: float,
+                    tile: Optional[int] = None) -> torch.Tensor:
+    """K2: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``.
+    ``cols`` may be a row-strided view (last stride 1, 8-byte aligned
+    rows); it is read in place. ``tile``: cells per block (default
+    :func:`tile_cells`)."""
+    if not x.is_cuda:
+        return apply_deg_sweep_plain(x, cols, deg, grid, spec, r2cut)
+    n = cols.shape[0]
+    _check("x", x, (n, 4), torch.float32, x.device, align=16)
+    _check("deg", deg, (n,), torch.float32, x.device)
+    _check_grid(grid, spec, n, x.device)
+    return _apply_chunked(
+        apply_deg_sweep, "cells_apply_deg", x.data_ptr(), cols,
+        (deg.data_ptr(), grid.kept.data_ptr(), grid.cell_start.data_ptr()),
+        (spec.cx, spec.cy, _tile(spec, n, tile), r2cut), x.device)
+
+
 def apply_sweep(pos: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
                 grid: PCellGrid, spec: PCellSpec, r2cut: float,
                 tile: Optional[int] = None) -> torch.Tensor:
@@ -355,19 +396,14 @@ def apply_sweep(pos: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
     place. ``tile``: cells per block (default :func:`tile_cells`)."""
     if not pos.is_cuda:
         return apply_sweep_plain(pos, cols, deg, grid, spec, r2cut)
-    n, c = cols.shape
-    if c not in APPLY_COLS:
-        raise ValueError(f"apply_sweep takes {APPLY_COLS} columns, got {c}")
+    n = cols.shape[0]
     _check("pos", pos, (n, 2), torch.float32, pos.device, align=8)
-    ld = _row_stride("cols", cols, (n, c), torch.float32, pos.device)
     _check("deg", deg, (n,), torch.float32, pos.device)
     _check_grid(grid, spec, n, pos.device)
-    out = torch.empty((n, c), dtype=pos.dtype, device=pos.device)
-    _launch("cells_apply", pos.data_ptr(), cols.data_ptr(), deg.data_ptr(),
-            grid.kept.data_ptr(), grid.cell_start.data_ptr(), out.data_ptr(),
-            n, c, ld, spec.cx, spec.cy, _tile(spec, n, tile), r2cut)
-    apply_sweep.launches += 1
-    return out
+    return _apply_chunked(
+        apply_sweep, "cells_apply", pos.data_ptr(), cols,
+        (deg.data_ptr(), grid.kept.data_ptr(), grid.cell_start.data_ptr()),
+        (spec.cx, spec.cy, _tile(spec, n, tile), r2cut), pos.device)
 
 
 KERNEL_WRAPPERS = (frame_sweep, apply_deg_sweep, apply_sweep)
@@ -376,10 +412,18 @@ KERNEL_WRAPPERS = (frame_sweep, apply_deg_sweep, apply_sweep)
 def reset_launch_counts() -> None:
     for fn in KERNEL_WRAPPERS:
         fn.launches = 0
+        fn.launches_by_cols = {}
 
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+def launch_counts_by_cols() -> dict:
+    """``{wrapper name: {output columns: launches}}`` (K1's are its 10
+    frame channels)."""
+    return {fn.__name__: dict(sorted(fn.launches_by_cols.items()))
+            for fn in KERNEL_WRAPPERS}
 
 
 reset_launch_counts()

@@ -96,7 +96,7 @@ def main(argv=None) -> None:
         "K2 apply_deg_kernel<12>": lambda: lib.cells_apply_deg(
             x.data_ptr(), cols.data_ptr(), deg.data_ptr(),
             grid.kept.data_ptr(), grid.cell_start.data_ptr(),
-            out2.data_ptr(), args.n, 12, spec.cx, spec.cy, tile, 1.0,
+            out2.data_ptr(), args.n, 12, 12, spec.cx, spec.cy, tile, 1.0,
             stream),
         "K3 apply_kernel<6>": lambda: lib.cells_apply(
             pos.data_ptr(), cols3.data_ptr(), deg.data_ptr(),

@@ -6,22 +6,27 @@ The counterpart of the JAX package's ``parallel/large_n.py`` for the
 policy runs
 
 1. ``ystack_pre``: the historical graphs' applies of the delayed stack,
-   s = 1 .. K-2, through K3 (the s = 0 apply was done the step before);
+   s = 1 .. K-2, through K3 on (K-1-s)·F columns (the s = 0 apply was done
+   the step before);
 2. the actor on the stack and the double-integrator step;
 3. the new frame: a grid build, K1, and K2 pre-applying the NEXT step's
-   s = 0 columns over the new graph (``frame_apply``, the fused path);
+   s = 0 columns, (K-1)·F of them, over the new graph (``frame_apply``,
+   the fused path);
 4. the delay-carry update; the grids of the K-2 historical graphs are
    carried, not rebuilt.
 
-An expert-mode step rolls the analytic controller instead of a policy:
-the double-integrator step on the frame's expert, then the new frame
-alone (a grid build and K1). It carries no delayed stack, so it runs no
-K2 and no K3.
+A K = 1 policy reads the current features alone: its step is the actor,
+the double-integrator step and the new frame (a grid build and K1), as
+the JAX package's unfused path runs it (``_use_fused`` is False below
+K = 2). An expert-mode step rolls the analytic controller instead of a
+policy: the double-integrator step on the frame's expert, then the new
+frame alone. Neither runs K2 or K3.
 
-A K = 3 episode of T steps launches K1 T+1 times (reset + T) and K2 and
-K3 T times each; an expert-mode episode launches K1 T+1 times and K2 and
-K3 never. The per-episode max grid overflow is returned: 0 means every
-step's sweep was exact.
+An episode of T steps launches K1 T+1 times (reset + T), K2 T times for
+K >= 2 and K3 (K-2)·T times for K >= 3 (one launch per historical graph
+and step while its columns fit one kernel width); an expert-mode or
+K = 1 episode launches K1 alone. The per-episode max grid overflow is
+returned: 0 means every step's sweep was exact.
 """
 
 from __future__ import annotations
@@ -64,7 +69,8 @@ class LargeNConfig(NamedTuple):
 class EpisodeState(NamedTuple):
     """What one step carries to the next (the JAX scan carry). Expert mode
     carries no delayed stack: ``carry`` and ``s0`` are None, ``grid_hist``
-    is empty."""
+    is empty. A K = 1 policy carries its history but no ``s0`` and no
+    historical grid."""
 
     x: torch.Tensor                  # (N, 4) state
     carry: Optional[DelayCarry]
@@ -122,7 +128,8 @@ def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
                   gen: Optional[torch.Generator], device,
                   x0: Optional[torch.Tensor] = None) -> EpisodeState:
     """Reset (or the injected ``x0``) and the initial episode state; with
-    ``acfg`` None (expert mode) no delayed stack."""
+    ``acfg`` None (expert mode) no delayed stack, at K = 1 no pre-applied
+    columns."""
     p = cfg.params
     if x0 is None:
         x, fq, grid = _reset(cfg, gen, device)
@@ -136,8 +143,10 @@ def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
     # the K-2 historical graphs start as the reset frame's grid: their
     # history slots are zero until step >= k, so this is exact
     grid_hist = tuple(grid for _ in range(max(k - 2, 0)))
-    s0 = torch.zeros((p.n_agents, (k - 1) * carry.history.shape[-1]),
-                     dtype=x.dtype, device=x.device)
+    s0 = None
+    if k >= 2:
+        s0 = torch.zeros((p.n_agents, (k - 1) * carry.history.shape[-1]),
+                         dtype=x.dtype, device=x.device)
     return EpisodeState(x, carry, fq, grid, grid_hist, s0, grid.overflow)
 
 
@@ -150,15 +159,20 @@ def _ystack(cfg: LargeNConfig, state: EpisodeState) -> torch.Tensor:
 def _advance(cfg: LargeNConfig, state: EpisodeState, act: torch.Tensor,
              gen: Optional[torch.Generator] = None):
     """The env step under ``act`` (N, 2), the new frame and, unless in
-    expert mode, the delayed stack's update; returns ``(state', reward)``."""
-    x, carry, fq, grid, grid_hist, _, ovf = state
+    expert mode, the delayed stack's update; returns ``(state', reward)``.
+    The new frame pre-applies the next step's s = 0 columns (K2) only
+    when the state carries them (K >= 2)."""
+    x, carry, fq, grid, grid_hist, s0, ovf = state
     x2 = _dynamics(x, act, cfg.params, gen)
     if carry is None:
         fq2, grid2 = _frame(cfg, x2)
         state2 = state._replace(x=x2, fq=fq2, grid=grid2,
                                 overflow=torch.maximum(ovf, grid2.overflow))
         return state2, _reward(x2)
-    fq2, grid2, s02 = _frame(cfg, x2, apply_cols=_s0_cols(carry))
+    if s0 is None:
+        (fq2, grid2), s02 = _frame(cfg, x2), None
+    else:
+        fq2, grid2, s02 = _frame(cfg, x2, apply_cols=_s0_cols(carry))
     carry2 = delay_carry_update(
         carry, fq2.values, x[:, :2],
         deg_prev=fq.degree if carry.deg_hist.shape[0] else None)
@@ -176,15 +190,33 @@ def _step(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
     return _advance(cfg, state, act, gen)
 
 
+def traj_subset_indices(n_agents: int, traj_agents: int,
+                        device=None) -> torch.Tensor:
+    """``traj_agents`` evenly spaced agent indices spanning [0, n_agents):
+    a rounded linspace (the lattice reset orders agents radially, so the
+    subset covers the whole disc), taken in float64."""
+    return torch.linspace(0, n_agents - 1, traj_agents, dtype=torch.float64,
+                          device=device).round().to(torch.int64)
+
+
 def _scan_steps(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
                 state: EpisodeState, n_steps: int,
-                gen: Optional[torch.Generator] = None):
+                gen: Optional[torch.Generator] = None,
+                traj_agents: int = 0):
     """``n_steps`` env steps from ``state`` (of the expert with ``actor``
-    None): ``(state', rewards (T,))``."""
-    rewards = []
+    None): ``(state', rewards (T,))``, and with ``traj_agents`` = M > 0 the
+    states of :func:`traj_subset_indices`' M agents after each step,
+    ``(state', rewards, traj (T, M, 4))``."""
+    rewards, traj = [], []
+    idx = (traj_subset_indices(cfg.params.n_agents, traj_agents,
+                               state.x.device) if traj_agents else None)
     for _ in range(n_steps):
         state, r = _step(cfg, actor, state, gen)
         rewards.append(r)
+        if traj_agents:
+            traj.append(state.x[idx])
+    if traj_agents:
+        return state, torch.stack(rewards), torch.stack(traj)
     return state, torch.stack(rewards)
 
 
@@ -195,18 +227,18 @@ def rollout_large(actor: Optional[torch.nn.Module],
                   cell_margin: float = 1.3, cell_edge_mult: float = 1.0,
                   return_overflow: bool = False,
                   x0: Optional[torch.Tensor] = None, device="cuda",
-                  expert_mode: bool = False):
+                  expert_mode: bool = False, traj_agents: int = 0):
     """One episode of ``p.episode_steps`` steps through the cell sweeps (the
     JAX package's "pcells" path): greedy, or the analytic expert with
     ``expert_mode``. Returns ``(rewards (T,), final_x)``, plus the max
     per-step grid overflow with ``return_overflow`` (0 means every step was
-    exact).
+    exact), plus with ``traj_agents`` = M > 0 the (T, M, 4) states of
+    :func:`traj_subset_indices`' agents after each step:
+    ``(rewards, final_x[, overflow][, traj])``.
 
     Args:
-      actor / acfg: the policy (``ind_agg`` must be 0, ``acfg.k >= 2``; on
-        the card ``acfg.k`` is 2 or 3 with F = 6, the column counts the
-        apply kernels are built for); ignored (may be None) with
-        ``expert_mode``.
+      actor / acfg: the policy (``ind_agg`` must be 0; any K >= 1);
+        ignored (may be None) with ``expert_mode``.
       gen: the generator of the reset (and of the stochastic variant's
         noise); may be None when ``x0`` is given and the env is noiseless.
       centralized_expert: the expert's kind (expert mode reads it; K1's
@@ -216,11 +248,12 @@ def rollout_large(actor: Optional[torch.nn.Module],
       device: "cuda" (default) or "cpu"; nothing falls back to the CPU.
       expert_mode: roll the analytic controller instead of the policy (the
         large-N expert baseline): a grid build and K1 per step.
+      traj_agents: record this many agents' states per step (0: none).
     """
     if expert_mode:
         actor = acfg = None
-    elif acfg is None or acfg.ind_agg != 0 or acfg.k < 2:
-        raise ValueError("the fused pcells path needs ind_agg == 0, k >= 2")
+    elif acfg is None or acfg.ind_agg != 0:
+        raise ValueError("the large-N path requires ind_agg == 0 actors")
     strict_fp32()
     device = torch.device(device)
     cfg = LargeNConfig(
@@ -232,7 +265,7 @@ def rollout_large(actor: Optional[torch.nn.Module],
     )
     with torch.no_grad():
         state = _episode_init(cfg, acfg, gen, device, x0)
-        state, rewards = _scan_steps(cfg, actor, state, p.episode_steps, gen)
-    if return_overflow:
-        return rewards, state.x, state.overflow
-    return rewards, state.x
+        state, rewards, *traj = _scan_steps(cfg, actor, state,
+                                            p.episode_steps, gen, traj_agents)
+    out = (rewards, state.x) + ((state.overflow,) if return_overflow else ())
+    return out + tuple(traj)

@@ -1,7 +1,8 @@
 """The port's cell sweeps (multiagent_gnn_policies_tpu_torch/ops/cells_cuda.py)
 against the JAX package's (ops/pallas_cells.py, Pallas kernels in interpret
 mode on the CPU): the grid build and its overflow count, frame, frame_apply,
-apply_adjT and ystack_pre, on the same numpy inputs. On the CPU every port
+apply_adjT, ystack_pre and the O(N²) delayed_ystack, on the same numpy
+inputs. On the CPU every port
 wrapper takes its kernel's plain PyTorch version; the kernels themselves are
 held against those plain versions on the card by tests/test_torch_gpu.py
 and chip_smoke.py.
@@ -136,12 +137,14 @@ def test_frame_matches_jax(centralized):
     assert float(got.min_r2) == float(want.min_r2)
 
 
-def test_frame_apply_matches_jax_on_overflowing_swarm():
+@pytest.mark.parametrize("c", [12, 18])
+def test_frame_apply_matches_jax_on_overflowing_swarm(c):
     """Dropped agents (over cap) are nobody's neighbour and get zeros, on
-    both sides; the fused apply normalises by the new graph's degrees."""
+    both sides; the fused apply normalises by the new graph's degrees. 12
+    columns are K = 3's s = 0 block, 18 K = 4's."""
     seed, n, spread, cap = DENSE
     x = _swarm(seed, n, spread)
-    cols = np.random.default_rng(1).normal(size=(n, 12)).astype(np.float32)
+    cols = np.random.default_rng(1).normal(size=(n, c)).astype(np.float32)
     jp, tp, js, ts = _specs(n, cap)
     jg, tg = _grids(x, js, ts)
     assert int(tg.overflow) == int(jg.overflow) > 0
@@ -157,8 +160,10 @@ def test_frame_apply_matches_jax_on_overflowing_swarm():
     _close(ta, ja, what="applied")
 
 
-@pytest.mark.parametrize("c", [1, 6])
+@pytest.mark.parametrize("c", [1, 6, 18, 24])
 def test_apply_adjT_matches_jax(c):
+    """Any column count: 18 is K = 4's widest block; 24 (K = 5) is wider
+    than any kernel width and goes in chunks on the card."""
     seed, n, spread, cap = SPARSE
     x = _swarm(seed + 3, n, spread)
     rng = np.random.default_rng(4)
@@ -197,6 +202,46 @@ def test_ystack_pre_matches_jax():
                          grid_hist=(tg,))
     assert got.shape == (k, n, 6)
     _close(got.reshape(-1, 6), np.asarray(want).reshape(-1, 6))
+
+
+@pytest.mark.parametrize("k", [1, 4])
+def test_delayed_ystack_matches_jax(k):
+    """The O(N²) oracle of the delayed stack at K = 1 (the history slot
+    alone) and K = 4 (three applies over the current and two historical
+    graphs); at K = 4 the cell path's ystack_pre, given the s = 0 apply
+    over the current graph, builds the same stack."""
+    n, f = 48, 6
+    rng = np.random.default_rng(10 + k)
+    jp, tp, _, ts = _specs(n)
+    hist = rng.normal(size=(k, n, f)).astype(np.float32)
+    x_now = _swarm(20, n, 3.0)
+    pos_hist = np.zeros((max(k - 2, 0), n, 2), np.float32)
+    deg_hist = torch.zeros((max(k - 2, 0), n))
+    for s in range(k - 2):
+        x_s = _swarm(21 + s, n, 3.0)
+        pos_hist[s] = x_s[:, :2]
+        deg_hist[s] = tbl.blocked_frame(torch.from_numpy(x_s), tp,
+                                        block=n).degree
+    t_pos_hist = torch.from_numpy(pos_hist)
+    deg_now = tbl.blocked_frame(torch.from_numpy(x_now), tp, block=n).degree
+    jcarry = jbl.DelayCarry(jnp.asarray(hist), jnp.asarray(pos_hist),
+                            jnp.asarray(deg_hist.numpy()))
+    tcarry = tbl.DelayCarry(torch.from_numpy(hist), t_pos_hist, deg_hist)
+    want = jbl.delayed_ystack(jcarry, jnp.asarray(x_now[:, :2]), jp, n,
+                              deg_now=jnp.asarray(deg_now.numpy()))
+    got = tbl.delayed_ystack(tcarry, torch.from_numpy(x_now[:, :2]), tp, n,
+                             deg_now=deg_now)
+    assert got.shape == (k, n, f)
+    _close(got.reshape(-1, f), np.asarray(want).reshape(-1, f))
+    if k == 1:
+        return
+    x_t = torch.from_numpy(x_now)
+    grid = tcc.build_pcell_grid(x_t[:, :2], ts)
+    s0_cols = tcarry.history[1:].transpose(0, 1).reshape(n, (k - 1) * f)
+    _, s0 = tcc.frame_apply(x_t, s0_cols, grid, ts, tp)
+    grid_hist = tuple(tcc.build_pcell_grid(ph, ts) for ph in t_pos_hist)
+    pre = tcc.ystack_pre(tcarry, s0, ts, tp, grid_hist=grid_hist)
+    _close(pre.reshape(-1, f), got.reshape(-1, f), rel=1e-4)
 
 
 @pytest.mark.parametrize("centralized", [True, False])
@@ -483,6 +528,24 @@ def test_tile_cells_at_the_main_paths_density():
     assert tcc.tile_cells(tcc.PCellSpec(3, 3, 16, 1.0), 1) == 3
     for n in (1, 100, 10 ** 6):
         assert 1 <= tcc.tile_cells(spec, n) <= tcc.MAX_TILE
+
+
+def test_apply_chunks_cover_whole_slots():
+    """On the card a column block is launched in chunks of the built
+    widths: one launch up to 18 columns (K <= 4), then chunks of 18 and
+    the rest; a count that is not whole 6-column slots raises."""
+    assert tcc.APPLY_COLS == (6, 12, 18)
+    assert tcc.apply_chunks(18) == [(0, 18)]
+    assert tcc.apply_chunks(24) == [(0, 18), (18, 6)]
+    assert tcc.apply_chunks(30) == [(0, 18), (18, 12)]
+    for c in range(6, 121, 6):
+        chunks = tcc.apply_chunks(c)
+        assert all(w in tcc.APPLY_COLS for _, w in chunks)
+        assert [c0 for c0, _ in chunks] == list(range(0, c, 18))
+        assert sum(w for _, w in chunks) == c
+    for c in (0, 1, 7, 20):
+        with pytest.raises(ValueError, match="columns"):
+            tcc.apply_chunks(c)
 
 
 def test_cpu_wrappers_take_plain_versions_uncounted():

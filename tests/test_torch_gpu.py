@@ -86,7 +86,7 @@ def test_wrappers_raise_on_bad_cuda_input_and_count_launches():
         tcc.apply_sweep(x[:, :2].contiguous(),
                         torch.ones((n, 7), device=dev), ones,
                         grid, ts, 1.0)
-    cols = torch.ones((n * 12 + 2,), device=dev)[2:].view(n, 12)
+    cols = torch.ones((n * 12 + 1,), device=dev)[1:].view(n, 12)
     with pytest.raises(ValueError, match="aligned"):
         tcc.apply_deg_sweep(x, cols, torch.ones(n, device=dev), grid, ts,
                             1.0)
@@ -280,3 +280,88 @@ def test_tile_timeline_reads_every_phase(capsys):
     out = capsys.readouterr().out
     for label, _, _ in tile_timeline.PHASES:
         assert out.count(label) == 3, label
+
+
+def _transfer_case(dev):
+    """K2's and K3's inputs at K = 4 as the delayed stack hands them over:
+    the new frame's degrees and (N, 18) s = 0 columns; an earlier frame's
+    positions, grid and degrees with the (N, 12) row-strided view of the
+    pre-applied (N, 18) output, 24 bytes in."""
+    n = 4096
+    tp = FlockingParams(n_agents=n)
+    ts = tcc.make_pcell_spec(tp)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _init_candidate(gen, tp, dev)
+    grid = tcc.build_pcell_grid(x[:, :2], ts)
+    deg = tcc.frame_sweep(x, grid, ts, 1.0, True)[:, 6].contiguous()
+    cols = torch.randn((n, 18), generator=gen, device=dev)
+    view = cols.reshape(n, 3, 6)[:, 1:].reshape(n, 12)
+    assert view.stride() == (18, 1)
+    return x, cols, view, deg, grid, ts
+
+
+@pytest.mark.gpu
+def test_new_widths_match_plain_versions():
+    """K2 at 18 columns (8-byte row loads) and K3 at 12 on the row-strided
+    view, each one launch, against the plain versions; K2 at 12 on a view
+    (8-byte loads) equals K2 at 12 on a contiguous copy (16-byte loads) bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU "
+                    "mode; the CPU tests cover their plain versions)")
+    dev = torch.device("cuda")
+    x, cols, view, deg, grid, ts = _transfer_case(dev)
+    pos = x[:, :2].contiguous()
+    tcc.reset_launch_counts()
+    k2 = tcc.apply_deg_sweep(x, cols, deg, grid, ts, 1.0)
+    k3 = tcc.apply_sweep(pos, view, deg, grid, ts, 1.0)
+    k2v = tcc.apply_deg_sweep(x, view, deg, grid, ts, 1.0)
+    k2c = tcc.apply_deg_sweep(x, view.contiguous(), deg, grid, ts, 1.0)
+    torch.cuda.synchronize()
+    assert tcc.launch_counts_by_cols()["apply_deg_sweep"] == {12: 2, 18: 1}
+    assert tcc.launch_counts_by_cols()["apply_sweep"] == {12: 1}
+    _close(k2, tcc.apply_deg_sweep_plain(x, cols, deg, grid, ts, 1.0),
+           "K2 C=18")
+    _close(k3, tcc.apply_sweep_plain(pos, view.contiguous(), deg, grid, ts,
+                                     1.0), "K3 C=12")
+    assert torch.equal(k2v, k2c)
+
+
+@pytest.mark.gpu
+def test_wide_columns_launch_in_counted_chunks():
+    """24 columns go as chunks of 18 and 6, two launches counted, each
+    chunk read in place; the result equals the plain version's and the
+    chunks launched alone. A column count that is not whole 6-column
+    slots raises before any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    dev = torch.device("cuda")
+    x, _, _, deg, grid, ts = _transfer_case(dev)
+    n = x.shape[0]
+    pos = x[:, :2].contiguous()
+    cols = torch.randn((n, 30), generator=torch.Generator(
+        device=dev).manual_seed(12), device=dev)[:, 6:]     # (N, 24), view
+    tcc.reset_launch_counts()
+    k2 = tcc.apply_deg_sweep(x, cols, deg, grid, ts, 1.0)
+    k3 = tcc.apply_sweep(pos, cols, deg, grid, ts, 1.0)
+    torch.cuda.synchronize()
+    assert tcc.launch_counts() == {"frame_sweep": 0, "apply_deg_sweep": 2,
+                                   "apply_sweep": 2}
+    assert tcc.launch_counts_by_cols()["apply_sweep"] == {6: 1, 18: 1}
+    _close(k2, tcc.apply_deg_sweep_plain(x, cols, deg, grid, ts, 1.0),
+           "K2 C=24")
+    _close(k3, tcc.apply_sweep_plain(pos, cols, deg, grid, ts, 1.0),
+           "K3 C=24")
+    assert torch.equal(k2[:, 18:], tcc.apply_deg_sweep(
+        x, cols[:, 18:], deg, grid, ts, 1.0))
+    assert torch.equal(k3[:, :18], tcc.apply_sweep(
+        pos, cols[:, :18].contiguous(), deg, grid, ts, 1.0))
+    tcc.reset_launch_counts()
+    for c in (7, 20, 3):
+        with pytest.raises(ValueError, match="columns"):
+            tcc.apply_deg_sweep(x, torch.ones((n, c), device=dev), deg,
+                                grid, ts, 1.0)
+        with pytest.raises(ValueError, match="columns"):
+            tcc.apply_sweep(pos, torch.ones((n, c), device=dev), deg, grid,
+                            ts, 1.0)
+    assert set(tcc.launch_counts().values()) == {0}

@@ -1,9 +1,9 @@
 """Whole greedy pcells episodes of the port
 (multiagent_gnn_policies_tpu_torch/parallel/large_n.py) against the JAX
 package's ``rollout_large(..., path="pcells")`` (Pallas kernels in interpret
-mode): K = 3 and K = 2, FlockingRelative and the leader, drag and two-flock
-variants; and the port's evaluate CLI on the CPU (checkpoints, the expert,
-the grid overrides).
+mode): K = 1 to 4 on FlockingRelative, K = 3 on the leader, drag and
+two-flock variants; and the port's evaluate CLI on the CPU (checkpoints,
+the expert, the grid overrides) on its large-N route (``--n-agents``).
 
 jax.random and torch generators give different numbers, so the port is
 handed the JAX reset's initial state (``x0``). Tolerance: 1e-4 of the
@@ -68,6 +68,8 @@ def _port_actor(params, tcfg):
 @pytest.mark.parametrize("env,k,weights", [
     ("FlockingRelative-v0", 3, "n32k"),
     ("FlockingRelative-v0", 2, "init"),
+    ("FlockingRelative-v0", 4, "init"),
+    ("FlockingRelative-v0", 1, "init"),
     ("FlockingLeader-v0", 3, "init"),
     ("FlockingAirsimAccel-v0", 3, "init"),
     ("FlockingTwoFlocks-v0", 3, "init"),
@@ -75,9 +77,11 @@ def _port_actor(params, tcfg):
 def test_pcells_episode_matches_jax(env, k, weights):
     """The n32k checkpoint on FlockingRelative at K = 3; and an actor drawn
     by the JAX package's ``init_actor`` from a fixed key at K = 2 (no
-    historical apply: K3 never runs) and on the leader, drag and two-flock
-    variants at K = 3. FlockingStochastic draws its noise from each
-    package's own generator, so it cannot be compared step by step."""
+    historical apply: K3 never runs), K = 4 (K2 on 18 columns, K3 on 12
+    and 6), K = 1 (no delayed stack: K1 alone, the JAX package's unfused
+    path) and on the leader, drag and two-flock variants at K = 3.
+    FlockingStochastic draws its noise from each package's own generator,
+    so it cannot be compared step by step."""
     n, steps = 48, 12
     jp = jfl.ENV_REGISTRY[env](jfl.FlockingParams(n_agents=n,
                                                   episode_steps=steps))
@@ -103,10 +107,13 @@ def test_pcells_episode_matches_jax(env, k, weights):
     _close(tx, jx)
 
 
-def test_episode_runs_each_sweep_as_the_main_path_counts_it(monkeypatch):
-    """A K = 3 episode of T steps calls K1 T+1 times (reset + T) and K2
-    and K3 T times each; on the CPU the wrappers route to the plain
-    versions, counted here (the kernel counters count CUDA launches only)."""
+@pytest.mark.parametrize("k", [3, 4, 2, 1])
+def test_episode_runs_each_sweep_as_the_main_path_counts_it(monkeypatch, k):
+    """An episode of T steps calls K1 T+1 times (reset + T), K2 T times
+    for K >= 2 and K3 (K-2)·T times for K >= 3 (one per historical graph
+    and step): at K = 3 T and T, at K = 4 T and 2T, at K = 1 neither. On
+    the CPU the wrappers route to the plain versions, counted here (the
+    kernel counters count CUDA launches only)."""
     calls = {"frame": 0, "apply_deg": 0, "apply": 0}
     for name in calls:
         plain = getattr(tcc, f"{name}_sweep_plain")
@@ -119,13 +126,15 @@ def test_episode_runs_each_sweep_as_the_main_path_counts_it(monkeypatch):
     tcc.reset_launch_counts()
     steps = 5
     tp = tfl.FlockingParams(n_agents=600, episode_steps=steps)
-    tcfg = tac.ActorConfig(**ACFG)
+    tcfg = tac.ActorConfig(**dict(ACFG, k=k))
+    actor = (tev.load_actor(N32K, tcfg, "cpu") if k == 3
+             else tac.Actor(tcfg).eval())
     r, x, ovf = tln.rollout_large(
-        tev.load_actor(N32K, tcfg, "cpu"), tcfg,
-        torch.Generator().manual_seed(0), tp, return_overflow=True,
-        device="cpu")
+        actor, tcfg, torch.Generator().manual_seed(0), tp,
+        return_overflow=True, device="cpu")
     assert int(ovf) == 0 and torch.isfinite(r).all() and x.shape == (600, 4)
-    assert calls == {"frame": steps + 1, "apply_deg": steps, "apply": steps}
+    assert calls == {"frame": steps + 1, "apply_deg": steps * (k >= 2),
+                     "apply": steps * max(k - 2, 0)}
     assert set(tcc.launch_counts().values()) == {0}
 
 
@@ -159,7 +168,7 @@ def _cfg(tmp_path):
 
 def test_evaluate_cli_on_cpu(tmp_path, capsys):
     tev.main([_cfg(tmp_path), "--actor-path", N32K, "--device", "cpu",
-              "--per-episode"])
+              "--per-episode", "--n-agents", "600"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0] == "reward"
     name, mean, std = lines[-1].split(", ")
@@ -195,7 +204,7 @@ def test_evaluate_cli_cell_overrides(tmp_path, capsys):
     same rewards to float32 summation order, 1e-5 relative); ``--cell-cap
     1`` overflows and exits 3."""
     args = [_cfg(tmp_path), "--actor-path", N32K, "--device", "cpu",
-            "--episodes", "1"]
+            "--episodes", "1", "--n-agents", "600"]
     tev.main(args)
     tev.main(args + ["--cell-edge-mult", "2.0", "--cell-cap", "64"])
     rows = [l for l in capsys.readouterr().out.splitlines()
@@ -212,15 +221,16 @@ def test_evaluate_cli_needs_a_checkpoint_or_the_expert(tmp_path, capsys):
     with pytest.raises(SystemExit) as e:
         tev.main([_cfg(tmp_path), "--device", "cpu"])
     assert e.value.code == 2
-    assert "--actor-path is required (or pass --expert)" in (
-        capsys.readouterr().err)
+    assert ("exactly one of --actor-path / --actor-base is required (or "
+            "pass --expert)") in capsys.readouterr().err
 
 
 def test_evaluate_cli_exits_3_on_overflow(tmp_path, capsys):
     """A grid too small for the swarm drops agents: no result, status 3."""
     with pytest.raises(SystemExit) as e:
         tev.main([_cfg(tmp_path), "--actor-path", N32K, "--device", "cpu",
-                  "--cell-margin", "0.3", "--episodes", "1"])
+                  "--cell-margin", "0.3", "--episodes", "1",
+                  "--n-agents", "600"])
     assert e.value.code == 3
     out = capsys.readouterr()
     assert "overflow=" in out.err
