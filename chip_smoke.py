@@ -113,7 +113,33 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     episodes per section, each mean within the JAX package's mean +- std
     (-39.44 +- 4.33, -39.75 +- 4.38, -40.79 +- 4.81, -44.29 +- 5.95), no
     cell kernel launched, one ``--save-trajectory`` file checked;
-14. budget: the run, build included, must finish in BUDGET_S; a watchdog
+14. ddpg (no cell kernel on its paths; the counters, zeroed before,
+    must read 0 after). (a) The in-repo DDPG checkpoints through the
+    evaluate CLI's DDPG route, 100 greedy episodes as one batch each:
+    ``ddpg_toy_k2`` under ``cfg/ddpg_toy.cfg [test]`` within -23.45 +-
+    6.4, ``ddpg_k2`` under ``cfg/ddpg.cfg [test]`` within -1302.7 +- 39.0
+    and ``ddpg_unbounded_k2`` under ``[test_unbounded]`` within -1302.3 +-
+    38.3 (the JAX package's 200-episode means on a CPU, bands 3 std /
+    sqrt(100)); then the CLI's ``main`` on ``cfg/ddpg.cfg`` with its own
+    10 episodes: finite rows. (b) One gradient step from the in-repo actor
+    and critic (targets their copies) on a numpy-drawn batch, on the card
+    and on the CPU, for the dense learner under ``ddpg_toy.cfg`` (toy
+    files) and ``ddpg.cfg`` (``ddpg_k2`` files, GroupNorm) and the
+    positions-record learner under ``ddpg_n4k.cfg`` cut to N = 1,024 (toy
+    files): both losses and every updated tensor within 1e-4 of its
+    largest magnitude (GroupNorm-cancelled critic biases within two of
+    Adam's largest steps);
+    the same step with TF32 allowed printed beside it. (c) Training at
+    full width through the learner's ``train``, routed as the train CLI
+    routes: ``ddpg_toy.cfg [test]`` 6 episodes (gradient steps from
+    episode 3), ``ddpg.cfg [test]`` 2, ``ddpg_n4k.cfg [n4k]`` 3 (N =
+    4,096, positions record); finite rewards, losses and evals, ms per env
+    step with its gradient step; for toy and n4k a run stopped one
+    episode early with its state saved to a temporary directory and
+    resumed by a fresh learner must equal the uninterrupted run's training
+    state bit for bit; then one more episode under torch.profiler, read
+    as phase 8 reads its round;
+15. budget: the run, build included, must finish in BUDGET_S; a watchdog
     ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
@@ -200,6 +226,24 @@ TRANSFER_LARGE_BANDS = {4: (-25.05, 1.5), 3: (-25.71, 1.5),
                         2: (-26.55, 1.5), 1: (-28.62, 1.5)}
 TRANSFER_DENSE_BANDS = {4: (-39.44, 4.33), 3: (-39.75, 4.38),
                         2: (-40.79, 4.81), 1: (-44.29, 5.95)}
+DDPG_CONFIGS = {name: os.path.join(ROOT, "cfg", f"{name}.cfg")
+                for name in ("ddpg_toy", "ddpg", "ddpg_n4k")}
+# the in-repo DDPG checkpoints under their sections: the JAX package's
+# 200-episode eval on a CPU (`DDPG._eval` of `cfg/<config>.cfg
+# [section]` with the file's actor), mean and band 3 * std / sqrt(100)
+DDPG_EVALS = (("ddpg_toy", "test", "ddpg_toy_k2", (-23.45, 6.4)),
+              ("ddpg", "test", "ddpg_k2", (-1302.7, 39.0)),
+              ("ddpg", "test_unbounded", "ddpg_unbounded_k2",
+               (-1302.3, 38.3)))
+DDPG_EVAL_EPISODES = 100
+# (config, section, training episodes, resume checked)
+DDPG_TRAIN = (("ddpg_toy", "test", 6, True), ("ddpg", "test", 2, False),
+              ("ddpg_n4k", "n4k", 3, True))
+DDPG_PARITY_N = 1024           # the large step's depth cut (its CPU side)
+REL_STEP = 1e-4
+# Adam's largest step, in units of lr: |m_hat| / sqrt(v_hat) is at most
+# (1 - beta1) / sqrt(1 - beta2) with torch's default betas
+ADAM_STEP_MAX = (1 - 0.9) / math.sqrt(1 - 0.999)
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -1162,6 +1206,344 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
     return timing, err, total, means, ms, parity_err, dense
 
 
+def _ddpg_file(name):
+    return os.path.join(ROOT, "models", f"actor_FlockingRelative-v0_{name}")
+
+
+def ddpg_eval_phase(torch, ev, load_ini):
+    """Phase 14 (a): each in-repo DDPG checkpoint under its section, 100
+    greedy episodes as one batch through the evaluate CLI's DDPG route,
+    each mean within its band; then the CLI's ``main`` on ``cfg/ddpg.cfg``
+    with its own 10 episodes per section: finite rows."""
+    import contextlib
+    import io
+
+    out = {}
+    for config, name, ckpt, band in DDPG_EVALS:
+        section = load_ini(DDPG_CONFIGS[config])[name]
+        section["n_test_episodes"] = str(DDPG_EVAL_EPISODES)
+        t = time.perf_counter()
+        stats = ev.evaluate_section(section, _ddpg_file(ckpt) + ".npz",
+                                    device=DEVICE)
+        wall = time.perf_counter() - t
+        print(f"#   ddpg eval: {ckpt} under {config}.cfg [{name}], "
+              f"{DDPG_EVAL_EPISODES} episodes: {stats['mean']} +- "
+              f"{stats['std']} (band {band[0]} +- {band[1]}), {wall:.3f} s",
+              flush=True)
+        _in_band(f"{ckpt} eval mean", stats["mean"], band)
+        out[ckpt] = stats["mean"]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ev.main([DDPG_CONFIGS["ddpg"], "--actor-path",
+                 _ddpg_file("ddpg_k2") + ".npz"])
+    rows = [line.split(",") for line in buf.getvalue().splitlines()]
+    print(f"#   ddpg eval: evaluate cfg/ddpg.cfg --actor-path ddpg_k2.npz "
+          f"printed {rows}", flush=True)
+    if rows[0] != ["reward"] or [r[0] for r in rows[1:]] != [
+            "test", "test_unbounded"] or not all(
+            math.isfinite(float(v)) for r in rows[1:] for v in r[1:]):
+        raise AssertionError(f"evaluate CLI rows {rows}")
+    return out
+
+
+def _ddpg_batch(torch, tfl, dcfg, large, seed):
+    """A gradient step's batch of ``batch_size`` records drawn with numpy:
+    K states per record (uniform disc positions, uniform velocities) give
+    the feature history and the delayed graphs through the dense observe,
+    the newest one an action drawn in [-1, 1] and the next state, its
+    features, graph and reward; on the CPU."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    p, k = dcfg.env, dcfg.actor.k
+    b, n = dcfg.batch_size, p.n_agents
+    radius = math.sqrt(p.arena_r2_per_agent * n)
+
+    def draw():
+        rad = radius * np.sqrt(rng.uniform(size=(b, n)))
+        ang = rng.uniform(0, 2 * math.pi, size=(b, n))
+        vel = rng.uniform(-p.v_max, p.v_max, size=(b, n, 2))
+        return torch.from_numpy(np.concatenate(
+            [np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1), vel],
+            -1).astype(np.float32))
+
+    xs = [draw() for _ in range(k)]                # newest first
+    obs = [tfl.observe(x, p) for x in xs]
+    action = torch.from_numpy(rng.uniform(-1, 1, (b, n, 2)).astype(
+        np.float32))
+    x_next = tfl.dynamics(xs[0], action, p)
+    nxt = tfl.observe(x_next, p)
+    batch = {"next_values": nxt.values, "action": action,
+             "reward": tfl.reward(x_next),
+             "notdone": torch.from_numpy((rng.uniform(size=b) < 0.9).astype(
+                 np.float32))}
+    hist = torch.stack([o.values for o in obs], 1)
+    if large:
+        batch["notdone"] = torch.ones(b)
+        return {**batch, "hist": hist, "next_pos": x_next[..., :2],
+                "pos": torch.stack([x[..., :2] for x in xs[:max(k - 1, 1)]],
+                                   1)}
+    gso = [torch.eye(n).expand(b, n, n)]
+    for j in range(k - 1):
+        gso.append(gso[-1] @ obs[j].network)
+    return {**batch, "delay_state": hist, "delay_gso": torch.stack(gso, 1),
+            "network": obs[0].network, "next_network": nxt.network}
+
+
+def _ddpg_step_tensors(learner):
+    """Every tensor a gradient step updates: the four networks and both
+    Adam states, by name."""
+    out = {}
+    for name, m in learner._modules().items():
+        out.update({f"{name}.{k}": v for k, v in m.state_dict().items()})
+    for name, tree in learner._opt_trees().items():
+        for i, st in tree.items():
+            out.update({f"{name}.{i}.{k}": v for k, v in st.items()
+                        if k != "step"})
+    return out
+
+
+def _gn_cancelled(learner):
+    """Names of the tensors whose gradient is zero up to rounding: with
+    GroupNorm a hidden critic layer's bias shifts every agent alike and
+    the normalisation subtracts it again; Adam scales the rounding noise
+    to a step of up to ADAM_STEP_MAX · lr, so these are held to twice
+    that, their Adam moments not at all."""
+    cfg = learner.cfg.critic
+    if not cfg.use_groupnorm:
+        return set(), set()
+    names = [n for n, _ in learner.critic.named_parameters()]
+    biases = {f"layers.{i}.bias" for i in range(cfg.n_layers - 1)}
+    held = {f"{m}.{b}" for m in ("critic", "critic_target") for b in biases}
+    moments = {f"critic_opt.{i}.{k}" for i, n in enumerate(names)
+               if n in biases for k in ("exp_avg", "exp_avg_sq")}
+    return held, moments
+
+
+def ddpg_step_parity(torch, dd, dl, tfl, tti, load_actor_npz,
+                     load_critic_npz, ExperimentConfig, load_ini, config,
+                     section, files, large):
+    """Phase 14 (b): one gradient step from the in-repo actor and critic
+    ``files`` (targets their copies) on one numpy-drawn batch, on the card
+    and on the CPU: both losses (the actor's, a mean of Q values of both
+    signs, to 1e-4 of the largest Q) and every updated tensor within
+    REL_STEP of its largest magnitude. The same step with TF32 allowed is
+    printed beside it."""
+    xcfg = ExperimentConfig.from_section(load_ini(DDPG_CONFIGS[config])[
+        section])
+    dcfg = dd.DDPGConfig.from_experiment(xcfg)
+    if large:
+        dcfg = dataclasses.replace(dcfg, env=dataclasses.replace(
+            dcfg.env, n_agents=DDPG_PARITY_N))
+    dcfg = dataclasses.replace(dcfg, buffer_size=dcfg.batch_size + 1)
+    cls = dl.DDPGLarge if large else dd.DDPG
+    actor = tti.actor_params_from_numpy(load_actor_npz(files + ".npz",
+                                                       dcfg.actor))
+    critic = tti.critic_params_from_numpy(load_critic_npz(
+        files + "_critic.npz", dcfg.critic))
+    batch = _ddpg_batch(torch, tfl, dcfg, large, SEED + 2)
+
+    def step(device, tf32=False):
+        lrn = cls(dcfg, device=device)       # sets strict fp32
+        for name, sd in (("actor", actor), ("actor_target", actor),
+                         ("critic", critic), ("critic_target", critic)):
+            getattr(lrn, name).load_state_dict(sd)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        b = {k: v.to(device) for k, v in batch.items()}
+        c, a = lrn.gradient_step(b)
+        (hist, ga, gc), _ = lrn._graphs(b)
+        with torch.no_grad():
+            q_max = float(lrn._q(lrn.critic, hist[:, 0],
+                                 lrn._pi(lrn.actor, hist, ga),
+                                 gc).abs().max())
+        return lrn, float(c), float(a), q_max
+
+    want, c_want, a_want, q_max = step("cpu")
+    got, c_got, a_got, _ = step(DEVICE)
+    held, skipped = _gn_cancelled(want)
+    w_t, g_t = _ddpg_step_tensors(want), _ddpg_step_tensors(got)
+
+    def worst(g_tensors):
+        rel = 0.0
+        for k, w in w_t.items():
+            if k in held or k in skipped:
+                continue
+            err = float((g_tensors[k].cpu().double() - w.double()).abs()
+                        .max())
+            rel = max(rel, err / max(float(w.abs().max()), 1e-30))
+        return rel
+
+    rel = worst(g_t)
+    lr_bound = 2 * ADAM_STEP_MAX * dcfg.critic_lr
+    lr_err = max((float((g_t[k].cpu() - w_t[k]).abs().max())
+                  for k in held), default=0.0)
+    what = (f"{'DDPGLarge' if large else 'DDPG'} step, {config}.cfg "
+            f"[{section}] at N = {dcfg.env.n_agents}, B = {dcfg.batch_size}")
+    print(f"#   {what}: card vs CPU, losses {c_got} / {c_want} (critic), "
+          f"{a_got} / {a_want} (actor); every updated tensor within "
+          f"{rel:.3g} of its largest magnitude (tolerance {REL_STEP}); "
+          f"{len(held)} GroupNorm-cancelled biases within {lr_err:.3g} "
+          f"(bound {lr_bound:.3g})", flush=True)
+    if (abs(c_got - c_want) > REL_STEP * abs(c_want)
+            or abs(a_got - a_want) > REL_STEP * q_max or rel > REL_STEP
+            or lr_err > lr_bound):
+        raise AssertionError(f"{what}: card and CPU differ")
+    try:
+        tf32 = step(DEVICE, tf32=True)[0]
+        print(f"#   {what} with TF32 allowed (not checked): max rel error "
+              f"against the CPU {worst(_ddpg_step_tensors(tf32)):.3g}",
+              flush=True)
+    finally:
+        tfl.strict_fp32()
+    return rel
+
+
+def _same_training_state(torch, a, b):
+    """Whether two learners' training states are equal bit for bit."""
+    import numpy as np
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}{k}/")
+            else:
+                yield prefix + k, v
+
+    fa, fb = dict(flat(a.training_state())), dict(flat(b.training_state()))
+    if sorted(fa) != sorted(fb):
+        return False
+    return all(torch.equal(fa[k], fb[k]) if isinstance(fa[k], torch.Tensor)
+               else np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
+                     section, episodes, resume):
+    """Phase 14 (c): ``episodes`` training episodes of ``config`` at full
+    width through the learner's ``train`` (routed as the train CLI
+    routes), finite rewards and losses per episode and a finite eval; ms
+    per env step with its gradient steps; with ``resume``, a run stopped
+    after ``episodes - 1`` episodes with its state saved to a temporary
+    directory, resumed by a fresh learner: its training state (networks,
+    targets, Adam, buffer, generator) equals the uninterrupted run's bit
+    for bit; then one more episode under torch.profiler."""
+    xcfg = ExperimentConfig.from_section(load_ini(DDPG_CONFIGS[config])[
+        section])
+    dcfg = dd.DDPGConfig.from_experiment(xcfg)
+    large = xcfg.trainer == "large" or (xcfg.trainer == "auto"
+                                        and xcfg.n_agents > 1024)
+    cls = dl.DDPGLarge if large else dd.DDPG
+    log = _Events()
+    full = cls(dcfg, log, device=DEVICE)
+    per = []
+    for e in range(1, episodes + 1):
+        s0, n0 = full.timing["s"], full.timing["steps"]
+        full.train(stop_after=e)
+        ep = {k: float(v) for k, v in full.last_episode.items()}
+        ep["ms_per_step"] = 1e3 * (full.timing["s"] - s0) / (
+            full.timing["steps"] - n0)
+        per.append(ep)
+    same = None
+    if resume:
+        with tempfile.TemporaryDirectory() as tmp:
+            state = os.path.join(tmp, "state.npz")
+            part = cls(dcfg, device=DEVICE)
+            if not part.train(state_path=state,
+                              stop_after=episodes - 1)["interrupted"]:
+                raise AssertionError("the stopped run did not stop")
+            state_mb = os.path.getsize(state) / 2**20
+            del part
+            rest = cls(dcfg, device=DEVICE)
+            rest.train(state_path=state, stop_after=episodes)
+            same = _same_training_state(torch, rest, full)
+            print(f"#   ddpg train: {config}: resumed episode {episodes} "
+                  f"against the uninterrupted run: training state bit for "
+                  f"bit {same} (state file {state_mb:.1f} MiB)", flush=True)
+            if not same:
+                raise AssertionError(f"{config}: the resumed run differs")
+            del rest
+    # an eval draws from the generator: after the resume check
+    mean, std = full.evaluate()
+    evals = [f for ev_, f in log.events if ev_ == "eval"]
+    steps = dcfg.env.episode_steps
+    print(f"#   ddpg train: {config}.cfg [{section}] ({cls.__name__}, "
+          f"N = {dcfg.env.n_agents}, batch {dcfg.batch_size}, buffer "
+          f"{dcfg.buffer_size}), {episodes} episodes of {steps} steps, "
+          f"{full.timing['updates']} gradient steps; eval at episode 0 "
+          f"{evals[0]['reward_mean']}, after {episodes}: {mean} +- {std}",
+          flush=True)
+    for i, ep in enumerate(per):
+        print(f"#   ddpg train: episode {i}: reward {ep['reward']:.4f}, "
+              f"critic loss sum {ep['critic_loss']:.6g}, actor loss sum "
+              f"{ep['actor_loss']:.6g}, {ep['ms_per_step']:.4f} ms per env "
+              f"step", flush=True)
+    if not all(math.isfinite(v) for ep in per for v in ep.values()) or not (
+            math.isfinite(mean) and math.isfinite(evals[0]["reward_mean"])):
+        raise AssertionError(f"{config}: non-finite episode or eval {per}")
+    if per[-1]["critic_loss"] == 0.0:
+        raise AssertionError(f"{config}: no gradient step in the last "
+                             f"episode")
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    mod = dl if large else dd
+    targets = [(dd.DDPG, "gradient_step", "gradient step"),
+               (mod, "ou_step", "OU noise"),
+               (type(full.buffer), "insert", "replay insert")]
+    if large:
+        targets += [(dl, "dense_adj_from_pos", "adjacency from positions"),
+                    (dl, "actor_forward_adj", "actor"),
+                    (dl, "dynamics", "dynamics"),
+                    (dl, "blocked_frame", "frame (blocked)")]
+    else:
+        targets += [(tfl.FlockingEnv, "step", "env step"),
+                    (dd, "update_graph_state", "graph state")]
+    with _Annotated(record_function, targets), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        full.train(stop_after=episodes + 1)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    print(f"#   ddpg trace: {config}.cfg, one episode, per env step with its "
+          f"gradient step", flush=True)
+    summarize_trace(prof.events(), steps, per[-1]["ms_per_step"],
+                    prof_wall_ms)
+    return per[-1]["ms_per_step"], same
+
+
+def ddpg_phase(torch, ev, cc, ExperimentConfig, load_ini):
+    """Phase 14: DDPG on the card. (a) the in-repo checkpoints, (b) one
+    gradient step card vs CPU for each learner and critic kind, (c)
+    training at full width with resumes and a profiled episode. The cell
+    kernels' counters, zeroed before, must read 0 after."""
+    from multiagent_gnn_policies_tpu_torch.algos import ddpg as dd
+    from multiagent_gnn_policies_tpu_torch.algos import ddpg_large as dl
+    from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
+    from multiagent_gnn_policies_tpu_torch.models import torch_import as tti
+    from multiagent_gnn_policies_tpu_torch.utils.checkpoint import (
+        load_actor_npz, load_critic_npz)
+
+    cc.reset_launch_counts()
+    means = ddpg_eval_phase(torch, ev, load_ini)
+    parity = max(
+        ddpg_step_parity(torch, dd, dl, tfl, tti, load_actor_npz,
+                         load_critic_npz, ExperimentConfig, load_ini,
+                         config, section, _ddpg_file(files), large)
+        for config, section, files, large in (
+            ("ddpg_toy", "test", "ddpg_toy_k2", False),
+            ("ddpg", "test", "ddpg_k2", False),
+            ("ddpg_n4k", "n4k", "ddpg_toy_k2", True)))
+    speed, resumed = {}, {}
+    for config, section, episodes, resume in DDPG_TRAIN:
+        speed[config], resumed[config] = ddpg_train_phase(
+            torch, dd, dl, tfl, ExperimentConfig, load_ini, config, section,
+            episodes, resume)
+    launches = cc.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"the DDPG paths launched cell kernels: "
+                             f"{launches}")
+    return means, parity, speed, resumed
+
+
 def main():
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1418,7 +1800,17 @@ def main():
           card_vs_cpu_max_abs_err=t_parity,
           **{f"K{k}_dense": t_dense[k] for k in t_dense})
 
-    # 14. budget
+    # 14. DDPG: no cell kernel on its paths
+    t = time.perf_counter()
+    means, parity, speed, resumed = ddpg_phase(torch, ev, cc,
+                                               ExperimentConfig, load_ini)
+    phase("ddpg", t, **{f"{k}_mean": v for k, v in means.items()},
+          card_vs_cpu_max_rel_err=f"{parity:.3g}",
+          **{f"{k}_ms_per_step": f"{v:.4f}" for k, v in speed.items()},
+          resume_bit_for_bit=all(v for v in resumed.values()
+                                 if v is not None))
+
+    # 15. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:

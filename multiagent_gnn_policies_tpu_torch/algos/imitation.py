@@ -310,17 +310,7 @@ class ImitationLearner:
     # --- full training state: checkpoint and resume ---
 
     def _opt_tree(self) -> dict:
-        """Adam's per-parameter state, zeros before the first step (the
-        state Adam starts from), so the tree's structure never changes."""
-        out = {}
-        for i, p in enumerate(self.actor.parameters()):
-            st = self.opt.state.get(p, {})
-            out[str(i)] = {
-                "step": st.get("step", torch.zeros((), dtype=torch.float32)),
-                "exp_avg": st.get("exp_avg", torch.zeros_like(p)),
-                "exp_avg_sq": st.get("exp_avg_sq", torch.zeros_like(p)),
-            }
-        return out
+        return checkpoint.adam_state_tree(self.actor.parameters(), self.opt)
 
     def training_state(self) -> dict:
         """Everything a resume needs: params, Adam, the replay buffer
@@ -356,13 +346,7 @@ class ImitationLearner:
         st = checkpoint.load_tree(path, self.training_state())
         as_t = lambda tree: {k: torch.from_numpy(v) for k, v in tree.items()}
         self.actor.load_state_dict(as_t(st["params"]))
-        opt_sd = self.opt.state_dict()
-        opt_sd["state"] = {
-            int(i): {"step": torch.tensor(float(s["step"])),
-                     "exp_avg": torch.from_numpy(s["exp_avg"]),
-                     "exp_avg_sq": torch.from_numpy(s["exp_avg_sq"])}
-            for i, s in st["opt_state"].items()}
-        self.opt.load_state_dict(opt_sd)
+        checkpoint.load_adam_state_tree(self.opt, st["opt_state"])
         if self.cfg.checkpoint_buffer:
             b = st["buffer"]
             for k, d in self.buffer.data.items():

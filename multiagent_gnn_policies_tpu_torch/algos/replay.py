@@ -59,5 +59,8 @@ class ReplayBuffer:
         """``batch`` distinct filled records, uniformly, drawn from ``gen``."""
         u = torch.rand(self.capacity, generator=gen, device=gen.device)
         u[self.size:] = float("-inf")
-        idx = torch.topk(u, batch).indices
+        return self.gather(torch.topk(u, batch).indices)
+
+    def gather(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The records at slots ``idx``."""
         return {k: d.index_select(0, idx) for k, d in self.data.items()}

@@ -32,8 +32,13 @@ section's K. Output: the header line, then ``section, mean, std``;
 out.npz`` writes one greedy episode's states: on the dense path ``x (T, N,
 4)`` and ``reward (T,)``; on the large-N path episode 0's ``x (T, M, 4)``
 for M = min(2000, N) evenly spaced agents, ``reward``, ``final_x (N, 4)``
-and ``subset_indices (M,)``. ``alg = ddpg`` sections exit non-zero: the
-port has no DDPG evaluator yet.
+and ``subset_indices (M,)``.
+
+``alg = ddpg`` sections on the dense route score the DDPG policy class
+(aggregation halfway, the section's ``policy_bound``) through the dense
+DDPG learner's eval, ``n_test_episodes`` episodes as one batch drawn from
+a generator seeded with the section's seed; ``--k`` and
+``--save-trajectory`` are refused there, as the JAX CLI refuses them.
 """
 
 from __future__ import annotations
@@ -181,10 +186,8 @@ def evaluate_section(section, actor_path: str, k=None, per_episode=False,
 
     cfg = ExperimentConfig.from_section(section)
     if cfg.alg == "ddpg":
-        raise SystemExit(
-            "alg = ddpg: the port has no DDPG evaluator yet; evaluate this "
-            "section with the JAX package's evaluate.py "
-            "(multiagent_gnn_policies_tpu/algos/ddpg.py)")
+        return evaluate_ddpg(cfg, actor_path, k, per_episode, traj_path,
+                             device)
     icfg = ImitationConfig.from_experiment(cfg, mode="dagger", k=k)
     learner = ImitationLearner(icfg, device=device)
     learner.actor.load_state_dict(actor_params_from_numpy(
@@ -202,6 +205,42 @@ def evaluate_section(section, actor_path: str, k=None, per_episode=False,
         np.savez(traj_path, x=xs.cpu().numpy(), reward=rs.cpu().numpy())
         print(f"# trajectory ({xs.shape[0]} steps, N={xs.shape[1]}) -> "
               f"{traj_path}")
+    return {"mean": float(rewards.mean()), "std": float(rewards.std()),
+            "rewards": [float(r) for r in rewards]}
+
+
+def evaluate_ddpg(cfg: ExperimentConfig, actor_path: str, k=None,
+                  per_episode=False, traj_path=None, device="cuda"):
+    """A DDPG section's dense eval: the checkpoint at ``actor_path`` as the
+    DDPG policy class, ``n_test_episodes`` greedy episodes as one batch
+    from a generator seeded with the section's seed. The filter length is
+    the section's and no trajectory is written."""
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg import (
+        DDPGConfig,
+        eval_episodes,
+    )
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+        make_env,
+        strict_fp32,
+    )
+
+    if traj_path:
+        raise SystemExit(
+            "--save-trajectory is not supported for alg=ddpg sections")
+    if k is not None:
+        raise SystemExit("--k is not supported for alg=ddpg sections "
+                         "(the checkpoint's k is fixed by the cfg)")
+    strict_fp32()
+    dcfg = DDPGConfig.from_experiment(cfg)
+    actor = load_actor(actor_path, dcfg.actor, device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cfg.seed)
+    rewards = eval_episodes(actor, make_env(dcfg.env_name, dcfg.env),
+                            dcfg.actor, gen,
+                            dcfg.n_test_episodes).cpu().numpy()
+    if per_episode:
+        for r in rewards:
+            print(float(r))
     return {"mean": float(rewards.mean()), "std": float(rewards.std()),
             "rewards": [float(r) for r in rewards]}
 

@@ -1,5 +1,5 @@
-"""Convert actor weights between the JAX layout, the port's ``Actor`` and
-the reference's torch ``state_dict``.
+"""Convert actor and critic weights between the JAX layout, the port's
+``Actor`` and ``Critic`` and the reference's torch ``state_dict``.
 
 JAX layer ``i`` is ``{'w': (F_out, F_in, taps), 'b': (F_out,)}``. The
 port's first layer is an ``nn.Linear`` over the flattened (K, F) taps,
@@ -8,6 +8,11 @@ axis; later layers take ``w[:, :, 0]``. The reference's state_dict holds
 ``conv_layers.{i}.weight`` ``(F_out, F_in, taps, 1)`` and
 ``conv_layers.{i}.bias`` (the layout of the in-repo
 ``models/actor_FlockingRelative-v0_dagger_k3``).
+
+JAX critic layer ``i`` is ``{'w': (W_out, C, W_in), 'b': (W_out,)}`` plus,
+on hidden layers with GroupNorm, ``gn_scale`` and ``gn_bias`` (W_out,).
+The port's ``nn.Linear`` reads the (C, W) channels flattened c-major, so
+its weight is ``w`` reshaped to (W_out, C·W_in), with no transpose.
 """
 
 from __future__ import annotations
@@ -83,3 +88,37 @@ def actor_state_dict_from_params(layers: List[dict]) -> Dict[str, np.ndarray]:
         sd[f"conv_layers.{i}.weight"] = _to_numpy(layer["w"])[:, :, :, None]
         sd[f"conv_layers.{i}.bias"] = _to_numpy(layer["b"])
     return sd
+
+
+def critic_params_from_numpy(layers: List[dict]) -> Dict[str, torch.Tensor]:
+    """JAX critic layers as numpy arrays -> a ``state_dict`` for
+    ``models.critic.Critic`` (float32, on the CPU)."""
+    sd = {}
+    for i, layer in enumerate(layers):
+        w = _to_numpy(layer["w"])
+        if w.ndim != 3:
+            raise ValueError(f"layer {i}: w must be (W_out, C, W_in), "
+                             f"got {w.shape}")
+        sd[f"layers.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(w.reshape(w.shape[0], -1)))
+        sd[f"layers.{i}.bias"] = torch.from_numpy(_to_numpy(layer["b"]))
+        if "gn_scale" in layer:
+            sd[f"gn_scale.{i}"] = torch.from_numpy(_to_numpy(layer["gn_scale"]))
+            sd[f"gn_bias.{i}"] = torch.from_numpy(_to_numpy(layer["gn_bias"]))
+    return sd
+
+
+def critic_numpy_from_params(sd: Mapping[str, torch.Tensor],
+                             ccfg) -> List[dict]:
+    """The inverse of :func:`critic_params_from_numpy` for the architecture
+    ``ccfg`` (``models.critic.CriticConfig``)."""
+    layers = []
+    for i in range(ccfg.n_layers):
+        w = _to_numpy(sd[f"layers.{i}.weight"])
+        layer = {"w": w.reshape(w.shape[0], ccfg.in_channels(i), -1),
+                 "b": _to_numpy(sd[f"layers.{i}.bias"])}
+        if f"gn_scale.{i}" in sd:
+            layer["gn_scale"] = _to_numpy(sd[f"gn_scale.{i}"])
+            layer["gn_bias"] = _to_numpy(sd[f"gn_bias.{i}"])
+        layers.append(layer)
+    return layers

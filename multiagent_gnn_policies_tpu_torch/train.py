@@ -10,15 +10,16 @@ only when asked) and prints the same CSV as ``train.py``: the first
 section's header, then ``section, mean, std`` per section (a file with
 only ``[DEFAULT]`` prints the stats dict).
 
-Algorithms: ``dagger``, ``cloning`` and ``baseline``. DAGGER and cloning
-sections with ``trainer = large``, or ``trainer = auto`` and
-``n_agents > 1024``, train through the large-N learner
-(``algos/imitation_large.py``: cell-sweep collection, agent-subsampled
-replay), the others through the dense one. ``ddpg`` exits non-zero naming
-the JAX trainer the port lacks.
+Algorithms: ``dagger``, ``cloning``, ``ddpg`` and ``baseline``. Sections
+with ``trainer = large``, or ``trainer = auto`` and ``n_agents > 1024``,
+train through the large-N learners: DAGGER and cloning through
+``algos/imitation_large.py`` (cell-sweep collection, agent-subsampled
+replay), DDPG through ``algos/ddpg_large.py`` (the positions record); the
+others through the dense ones.
 
 Actor exports go to ``runs/torch/models/actor_{env}_{fname}[.npz]`` under
-the working directory, never over the checkpoints in ``models/``.
+the working directory, never over the checkpoints in ``models/``; DDPG
+adds the critic as ``actor_{env}_{fname}_critic.npz``.
 """
 
 from __future__ import annotations
@@ -30,12 +31,6 @@ import numpy as np
 import torch
 
 MODELS_DIR = os.path.join("runs", "torch", "models")
-
-_DDPG_NOT_PORTED = (
-    "ddpg needs multiagent_gnn_policies_tpu/algos/ddpg.py (train_ddpg; "
-    "algos/ddpg_large.py above 1024 agents), which the port does not have "
-    "yet")
-
 
 def run_experiment(section, metrics_path=None, state_dir=None,
                    checkpoint_every=0, device="cuda"):
@@ -70,7 +65,17 @@ def run_experiment(section, metrics_path=None, state_dir=None,
         trainers["dagger"] = train_dagger_large
         trainers["cloning"] = train_cloning_large
     if cfg.alg == "ddpg":
-        raise SystemExit(f"section {section.name}: {_DDPG_NOT_PORTED}")
+        if use_large:
+            # the dense record holds (K, N, N) graphs: positions instead
+            from multiagent_gnn_policies_tpu_torch.algos.ddpg_large import (
+                train_ddpg_large,
+            )
+            trainers["ddpg"] = train_ddpg_large
+        else:
+            from multiagent_gnn_policies_tpu_torch.algos.ddpg import (
+                train_ddpg,
+            )
+            trainers["ddpg"] = train_ddpg
     if cfg.alg not in trainers:
         raise SystemExit(f"Invalid algorithm/mode name: {cfg.alg!r}")
 
@@ -78,7 +83,7 @@ def run_experiment(section, metrics_path=None, state_dir=None,
     if cfg.fname:
         save_path = os.path.join(MODELS_DIR, f"actor_{cfg.env}_{cfg.fname}")
     extra = {}
-    if state_dir and cfg.alg in ("dagger", "cloning"):
+    if state_dir and cfg.alg in ("dagger", "cloning", "ddpg"):
         os.makedirs(state_dir, exist_ok=True)
         extra = {"state_path": os.path.join(
                      state_dir, f"{section.name or 'DEFAULT'}_state.npz"),
@@ -100,7 +105,8 @@ def main(argv=None):
                     help="directory of training-state checkpoints; a state "
                          "file there resumes its section")
     ap.add_argument("--checkpoint-every", type=int, default=10,
-                    help="rounds between state checkpoints (with --state-dir)")
+                    help="rounds (DDPG: episodes) between state checkpoints "
+                         "(with --state-dir)")
     ap.add_argument("--profile", default=None,
                     help="write a torch.profiler Chrome trace of the whole "
                          "run into this directory")

@@ -4,9 +4,10 @@ The JAX package saves a pytree as ``leaf_0 .. leaf_{L-1}`` (the leaves in
 ``jax.tree_util`` flatten order) plus ``__treedef__``, the JSON-encoded
 string of the tree's structure (its ``utils/checkpoint.py:save``). An actor
 is a list of ``{'b', 'w'}`` layer dicts, and dict keys flatten sorted, so
-layer ``i`` holds ``leaf_{2i}`` (bias) and ``leaf_{2i+1}`` (weight). The
-port reads and writes actor files in exactly that form, so either package
-loads the other's. A training state is a nested dict; the port writes it
+layer ``i`` holds ``leaf_{2i}`` (bias) and ``leaf_{2i+1}`` (weight). A
+critic's hidden layers with GroupNorm flatten ``b, gn_bias, gn_scale, w``.
+The port reads and writes actor and critic files in exactly that form, so
+either package loads the other's. A training state is a nested dict; the port writes it
 with its own structure string (:func:`tree_structure`), which only the port
 reads, and checks it at load.
 
@@ -49,16 +50,50 @@ def load_leaves(path: str) -> Tuple[List[np.ndarray], str]:
     return leaves, treedef
 
 
+def layers_treedef(layers: List[dict]) -> str:
+    """The treedef string the JAX package stores for a list of layer dicts
+    (an actor's or a critic's): each dict's keys, sorted."""
+    return "PyTreeDef([" + ", ".join(
+        "{" + ", ".join(f"'{k}': *" for k in sorted(layer)) + "}"
+        for layer in layers) + "])"
+
+
 def actor_treedef(n_layers: int) -> str:
     """The treedef string the JAX package stores for an ``n_layers`` actor."""
-    return "PyTreeDef([" + ", ".join(["{'b': *, 'w': *}"] * n_layers) + "])"
+    return layers_treedef([{"b": None, "w": None}] * n_layers)
+
+
+def save_layers_npz(path: str, layers: List[dict]) -> None:
+    """Export JAX-layout layers (an actor's or a critic's,
+    ``models.torch_import``) as the JAX package writes them, so its
+    ``checkpoint.load`` reads the file."""
+    leaves = [layer[k] for layer in layers for k in sorted(layer)]
+    save(path, leaves, layers_treedef(layers))
+
+
+def _load_layers(path: str, want: List[Dict[str, tuple]]) -> List[dict]:
+    """Float32 layers of the checkpoint at ``path``, checked against
+    ``want`` (per layer, each key's shape): another structure or shape
+    raises ``ValueError`` instead of loading mis-shaped weights."""
+    leaves, treedef = load_leaves(path)
+    if treedef != layers_treedef(want):
+        raise ValueError(
+            f"{path}: checkpoint structure mismatch:\n saved: {treedef}\n"
+            f" want: {layers_treedef(want)}")
+    layers, it = [], iter(leaves)
+    for i, shapes in enumerate(want):
+        layer = {k: next(it).astype(np.float32) for k in sorted(shapes)}
+        got = {k: v.shape for k, v in layer.items()}
+        if got != shapes:
+            raise ValueError(f"{path}: layer {i} has shapes {got}; the config "
+                             f"implies {shapes}")
+        layers.append(layer)
+    return layers
 
 
 def save_actor_npz(path: str, layers: List[dict]) -> None:
-    """Export JAX-layout actor layers (``models.torch_import``) as the JAX
-    package writes them, so its ``checkpoint.load`` reads the file."""
-    leaves = [a for layer in layers for a in (layer["b"], layer["w"])]
-    save(path, leaves, actor_treedef(len(layers)))
+    """Export JAX-layout actor layers; see :func:`save_layers_npz`."""
+    save_layers_npz(path, layers)
 
 
 def load_actor_npz(path: str, acfg) -> List[dict]:
@@ -66,23 +101,25 @@ def load_actor_npz(path: str, acfg) -> List[dict]:
     float32 numpy arrays, checked against the architecture ``acfg``
     (``models.actor.ActorConfig``): a checkpoint of another depth, width or
     K raises ``ValueError`` instead of loading mis-shaped weights."""
-    leaves, treedef = load_leaves(path)
-    want = actor_treedef(acfg.n_layers)
-    if treedef != want:
-        raise ValueError(
-            f"{path}: checkpoint structure mismatch:\n saved: {treedef}\n"
-            f" want: {want}")
-    widths = acfg.widths
-    layers = []
-    for i in range(acfg.n_layers):
-        b, w = leaves[2 * i], leaves[2 * i + 1]
-        w_shape = (widths[i + 1], widths[i], acfg.taps(i))
-        if w.shape != w_shape or b.shape != (widths[i + 1],):
-            raise ValueError(
-                f"{path}: layer {i} has w {w.shape}, b {b.shape}; the config "
-                f"implies w {w_shape}, b {(widths[i + 1],)}")
-        layers.append({"w": w.astype(np.float32), "b": b.astype(np.float32)})
-    return layers
+    w = acfg.widths
+    return _load_layers(path, [
+        {"b": (w[i + 1],), "w": (w[i + 1], w[i], acfg.taps(i))}
+        for i in range(acfg.n_layers)])
+
+
+def load_critic_npz(path: str, ccfg) -> List[dict]:
+    """Critic layers (``w`` (W_out, C, W_in), ``b``, and ``gn_scale`` and
+    ``gn_bias`` on hidden layers with GroupNorm) as float32 numpy arrays,
+    checked against the architecture ``ccfg``
+    (``models.critic.CriticConfig``)."""
+    w, want = ccfg.widths, []
+    for i in range(ccfg.n_layers):
+        shapes = {"b": (w[i + 1],),
+                  "w": (w[i + 1], ccfg.in_channels(i), w[i])}
+        if ccfg.use_groupnorm and i < ccfg.n_layers - 1:
+            shapes.update(gn_bias=(w[i + 1],), gn_scale=(w[i + 1],))
+        want.append(shapes)
+    return _load_layers(path, want)
 
 
 def save_actor_torch_format(path: str, layers: List[dict]) -> None:
@@ -94,6 +131,33 @@ def save_actor_torch_format(path: str, layers: List[dict]) -> None:
     tmp = path + ".tmp"
     torch.save(sd, tmp)
     os.replace(tmp, path)
+
+
+def adam_state_tree(params, opt: torch.optim.Optimizer) -> dict:
+    """``opt``'s per-parameter Adam state for the parameters ``params``, in
+    their order, zeros before the first step (the state Adam starts from),
+    so the tree's structure never changes."""
+    out = {}
+    for i, p in enumerate(params):
+        st = opt.state.get(p, {})
+        out[str(i)] = {
+            "step": st.get("step", torch.zeros((), dtype=torch.float32)),
+            "exp_avg": st.get("exp_avg", torch.zeros_like(p)),
+            "exp_avg_sq": st.get("exp_avg_sq", torch.zeros_like(p)),
+        }
+    return out
+
+
+def load_adam_state_tree(opt: torch.optim.Optimizer, tree: dict) -> None:
+    """Load a tree of :func:`adam_state_tree` (as numpy arrays) into
+    ``opt``, whose one parameter group holds the same parameters."""
+    sd = opt.state_dict()
+    sd["state"] = {
+        int(i): {"step": torch.tensor(float(s["step"])),
+                 "exp_avg": torch.from_numpy(s["exp_avg"]),
+                 "exp_avg_sq": torch.from_numpy(s["exp_avg_sq"])}
+        for i, s in tree.items()}
+    opt.load_state_dict(sd)
 
 
 def _flatten(tree: Any, prefix: str = ""):

@@ -72,8 +72,12 @@ def test_actor_forward_batched_matches_unbatched():
 
 
 def test_actor_rejects_ind_agg_and_bad_bound():
+    """Pre-aggregated input (no ``delay_gso``) needs ``ind_agg == 0``, as
+    the JAX ``actor_forward`` says; an ``ind_agg = 1`` actor takes the
+    delayed GSO (tests/test_torch_critic.py)."""
+    actor = tac.Actor(tac.ActorConfig(6, 2, (8,), 3, ind_agg=1))
     with pytest.raises(ValueError, match="ind_agg"):
-        tac.Actor(tac.ActorConfig(6, 2, (8,), 3, ind_agg=1))
+        actor(torch.zeros(3, 5, 6))
     with pytest.raises(ValueError, match="bound"):
         tac.ActorConfig(6, 2, (8,), 3, bound="relu")
 

@@ -365,3 +365,95 @@ def test_wide_columns_launch_in_counted_chunks():
             tcc.apply_sweep(pos, torch.ones((n, c), device=dev), deg, grid,
                             ts, 1.0)
     assert set(tcc.launch_counts().values()) == {0}
+
+
+def _ddpg_cfg(gn, n):
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg import DDPGConfig
+    from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+    from multiagent_gnn_policies_tpu_torch.models.critic import CriticConfig
+
+    hidden = (16, 16)
+    return DDPGConfig(
+        actor=ActorConfig(6, 2, hidden, 2, ind_agg=1, bound="tanh"),
+        critic=CriticConfig(6, 2, hidden, 2, use_groupnorm=gn,
+                            input_transform="identity" if gn else "asinh"),
+        env_name="FlockingRelative-v0",
+        env=FlockingParams(n_agents=n, episode_steps=20),
+        batch_size=8, buffer_size=64, actor_lr=1e-4, critic_lr=1e-3,
+        tau=0.1, seed=0)
+
+
+def _ddpg_batch(large, n, b=8, k=2):
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg_large import (
+        dense_adj_from_pos,
+    )
+
+    gen = torch.Generator().manual_seed(1)
+    pos = 2.0 * torch.rand(b, k, n, 2, generator=gen) - 1.0
+    nxt = 2.0 * torch.rand(b, n, 2, generator=gen) - 1.0
+    batch = {"next_values": torch.randn(b, n, 6, generator=gen),
+             "action": 2.0 * torch.rand(b, n, 2, generator=gen) - 1.0,
+             "reward": -5.0 + torch.randn(b, generator=gen),
+             "notdone": torch.ones(b)}
+    hist = torch.randn(b, k, n, 6, generator=gen)
+    if large:
+        return {**batch, "hist": hist, "pos": pos[:, :k - 1],
+                "next_pos": nxt}
+    adj = dense_adj_from_pos(pos, 1.0)
+    gso = torch.stack([torch.eye(n).expand(b, n, n), adj[:, 0]], 1)
+    return {**batch, "delay_state": hist, "delay_gso": gso,
+            "network": adj[:, 0], "next_network": dense_adj_from_pos(nxt, 1.0)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("large", [False, True], ids=["dense", "large"])
+def test_ddpg_gradient_step_card_vs_cpu(large):
+    """One DDPG gradient step (dense with GroupNorm; positions-record
+    without) from the same networks on the same batch, on the card and on
+    the CPU: both losses and every updated network, target and Adam
+    moment within 1e-4 of its largest magnitude. With GroupNorm a hidden
+    critic layer's bias has a zero gradient up to rounding (the
+    normalisation subtracts it) and Adam turns that noise into a step of
+    up to (1 - beta1) / sqrt(1 - beta2) · lr: such a bias is held to twice
+    that and its moments are not held."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (card against CPU)")
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg import DDPG
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg_large import DDPGLarge
+
+    n = 512 if large else 24
+    cfg = _ddpg_cfg(gn=not large, n=n)
+    cls = DDPGLarge if large else DDPG
+    cpu = cls(cfg, device="cpu")
+    card = cls(cfg, device="cuda")
+    for name, m in cpu._modules().items():
+        getattr(card, name).load_state_dict(m.state_dict())
+    batch = _ddpg_batch(large, n)
+    want = cpu.gradient_step(batch)
+    got = card.gradient_step({k: v.cuda() for k, v in batch.items()})
+    for g, w in zip(got, want):
+        assert abs(float(g) - float(w)) <= 1e-4 * max(abs(float(w)), 1.0)
+    free = {i for i, (name, _) in enumerate(cpu.critic.named_parameters())
+            if name.endswith("bias") and name.startswith("layers.")
+            and int(name.split(".")[1]) < cfg.critic.n_layers - 1
+            and cfg.critic.use_groupnorm}
+    for mod in ("actor", "actor_target", "critic", "critic_target"):
+        for i, (w, g) in enumerate(zip(getattr(cpu, mod).parameters(),
+                                       getattr(card, mod).parameters())):
+            err = float((g.detach().cpu() - w.detach()).abs().max())
+            if mod.startswith("critic") and i in free:
+                adam_step_max = (1 - 0.9) / (1 - 0.999) ** 0.5
+                assert err <= 2 * adam_step_max * cfg.critic_lr, (mod, i)
+            else:
+                assert err <= 1e-4 * float(w.detach().abs().max()), (mod, i)
+    for net in ("actor", "critic"):
+        w_st = getattr(cpu, f"{net}_opt").state
+        g_st = getattr(card, f"{net}_opt").state
+        for i, (wp, gp) in enumerate(zip(getattr(cpu, net).parameters(),
+                                         getattr(card, net).parameters())):
+            if net == "critic" and i in free:
+                continue
+            for key in ("exp_avg", "exp_avg_sq"):
+                w, g = w_st[wp][key], g_st[gp][key].cpu()
+                assert float((g - w).abs().max()) <= 1e-4 * float(
+                    w.abs().max()), (net, i, key)

@@ -2,8 +2,9 @@
 on the CPU: the same CSV as ``train.py`` for a tiny INI, its outputs under
 the working directory's ``runs/torch/`` and nowhere else, a resume from
 ``--state-dir``, the profiler trace, the ``[DEFAULT]``-only path, large-N
-sections through the large-N learner, and a clear non-zero exit for every
-section it cannot run.
+sections through the large-N learner, DDPG sections through the dense and
+the positions-record learners, and a clear non-zero exit for every section
+it cannot run.
 """
 
 import json
@@ -155,11 +156,51 @@ def test_large_sections_train_through_the_large_learner(tmp_path, change,
     assert (200, 2, store, 6) in shapes and (200, store, 2) in shapes
 
 
+@pytest.mark.parametrize("change,store", [
+    ("n_agents = 10\nepisode_steps = 20", 10),
+    ("n_agents = 1040\nepisode_steps = 6\nbatch_size = 4", 1040),
+], ids=["dense", "large"])
+def test_ddpg_sections_train(tmp_path, change, store):
+    """A DDPG section trains through the dense learner at N = 10 and, above
+    1024 agents, through the positions-record one: the CSV, the events,
+    the actor (``.npz`` and torch format) and critic exports, the state
+    file; a second call resumes the finished state and exports the same
+    networks."""
+    text = (TINY.replace("alg = dagger", "alg = ddpg")
+            .replace("updates_per_step = 10", "updates_per_step = 1")
+            + f"\n[run1]\n{change}\nn_train_episodes = 2\n"
+            "n_test_episodes = 1\nfname = ddpgtest\n")
+    args = ("--metrics", "m.jsonl", "--state-dir", "state")
+    out = run_cli(text, tmp_path, *args)
+    assert out.returncode == 0, out.stderr[-2000:]
+    rows = _rows(out.stdout)
+    assert rows[0] == ["reward"] and len(rows) == 2 and rows[1][0] == "run1"
+    assert np.isfinite([float(rows[1][1]), float(rows[1][2])]).all()
+    events = [json.loads(l)["event"]
+              for l in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert events == ["eval", "final_eval", "timing"]
+    models = tmp_path / "runs" / "torch" / "models"
+    base = "actor_FlockingRelative-v0_ddpgtest"
+    assert sorted(p.name for p in models.iterdir()) == [
+        base, base + ".npz", base + "_critic.npz"]
+    with np.load(tmp_path / "state" / "run1_state.npz") as z:
+        shapes = {z[k].shape for k in z.files}
+    assert (200, 2, store, 6) in shapes
+    assert ((200, 2, store, store) in shapes) == (store == 10)
+    first = {n: (models / n).read_bytes()
+             for n in (base + ".npz", base + "_critic.npz")}
+    again = run_cli(text, tmp_path, *args)
+    assert again.returncode == 0, again.stderr[-2000:]
+    events = [json.loads(l)["event"]
+              for l in (tmp_path / "m.jsonl").read_text().splitlines()]
+    assert events[3:] == ["resume", "final_eval", "timing"]
+    assert {n: (models / n).read_bytes() for n in first} == first
+
+
 @pytest.mark.parametrize("change,device,message", [
     ("alg = nonsense", "cpu", "Invalid algorithm/mode name: 'nonsense'"),
-    ("alg = ddpg", "cpu", "algos/ddpg.py"),
     ("alg = dagger", "cuda", "no CUDA device"),
-], ids=["invalid-alg", "ddpg", "no-card"])
+], ids=["invalid-alg", "no-card"])
 def test_sections_it_cannot_run_exit_non_zero(tmp_path, change, device,
                                               message):
     """Each exits non-zero with a message naming what is missing, prints no

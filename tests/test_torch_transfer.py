@@ -290,10 +290,40 @@ def test_large_n_subset_spans_the_swarm_as_jax():
         assert (np.abs(exact[off] % 1 - 0.5) < 1e-3 * n / m).all()
 
 
-def test_ddpg_section_exits_non_zero(tmp_path):
-    """A DDPG section names the JAX evaluator the port lacks."""
-    cfg = _cfg(tmp_path, CFG.replace("alg = dagger", "alg = ddpg"))
-    with pytest.raises(SystemExit) as e:
-        tev.main([cfg, "--actor-base", BASE, "--device", "cpu"])
-    assert e.value.code not in (0, None)
-    assert "ddpg" in str(e.value) and "evaluate.py" in str(e.value)
+DDPG_TOY = str(ROOT / "models" / "actor_FlockingRelative-v0_ddpg_toy_k2.npz")
+
+
+def test_ddpg_section_evaluates(tmp_path, capsys):
+    """A DDPG section on the dense route scores the DDPG policy class (the
+    toy checkpoint under ``cfg/ddpg_toy.cfg``, here with 8 episodes): the
+    header, one finite row and one reward per episode; no cell kernel is
+    needed."""
+    text = (ROOT / "cfg" / "ddpg_toy.cfg").read_text().replace(
+        "n_test_episodes = 10", "n_test_episodes = 8")
+    cfg = _cfg(tmp_path, text)
+    tev.main([cfg, "--actor-path", DDPG_TOY, "--per-episode", "--device",
+              "cpu"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == "reward" and len(out) == 1 + 8 + 1
+    name, mean, std = [v.strip() for v in out[-1].split(",")]
+    assert name == "test" and np.isfinite([float(mean), float(std)]).all()
+    assert float(mean) == pytest.approx(np.mean([float(v) for v in out[1:9]]),
+                                        rel=1e-6)
+
+
+@pytest.mark.parametrize("args,message", [
+    (["--k", "2"], "--k is not supported for alg=ddpg sections"),
+    (["--save-trajectory", "t.npz"],
+     "--save-trajectory is not supported for alg=ddpg sections"),
+], ids=["k", "save-trajectory"])
+def test_ddpg_section_refuses_as_the_jax_cli(tmp_path, args, message):
+    """``--k`` and ``--save-trajectory`` on a DDPG section exit non-zero in
+    both CLIs with the same message, and write no file."""
+    cfg = _cfg(tmp_path, (ROOT / "cfg" / "ddpg_toy.cfg").read_text())
+    args = [a if a != "t.npz" else str(tmp_path / a) for a in args]
+    for main, extra in ((tev.main, ["--device", "cpu"]),
+                        (_jax_cli().main, [])):
+        with pytest.raises(SystemExit) as e:
+            main([cfg, "--actor-path", DDPG_TOY, *args, *extra])
+        assert str(e.value).startswith(message), str(e.value)
+    assert not (tmp_path / "t.npz").exists()
