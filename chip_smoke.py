@@ -86,7 +86,14 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     under its ``cfg/dagger_variants_n32k.cfg`` section at N = 32,768:
     overflow 0, 201/200/200 launches, the first three within +-15 of
     RESULTS.md section 8 (-458.5, -521.4, -391.4), TwoFlocks (cell_margin
-    1.6, cell_cap 32) finite with its reward printed;
+    1.6, cell_cap 32) finite with its reward printed. Then the TwoFlocks
+    gate: TWOFLOCKS_PAIRS episodes of that policy and of the centralized
+    expert on the same draws (the evaluate entry point's
+    ``episode_generator(seed, episode)``), each policy reward within +-10
+    of 1.503 x its expert's + 210.3 (RESULTS.md section 8b's per-draw fit
+    of this checkpoint over 24 paired JAX episodes, residual std 1.8; the
+    band is over 5 stds), overflow 0, launches 201/200/200 per policy and
+    201/0/0 per expert episode;
 13. transfer, this slice's main path: the in-repo
     ``models/actor_FlockingStochastic-v0_transfer2_stoch{1..4}`` policies
     of ``cfg/transfer_stoch.cfg`` (hidden 32x2, K = 4, 3, 2, 1).
@@ -131,7 +138,7 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     Adam's largest steps);
     the same step with TF32 allowed printed beside it. (c) Training at
     full width through the learner's ``train``, routed as the train CLI
-    routes: ``ddpg_toy.cfg [test]`` 6 episodes (gradient steps from
+    routes: ``ddpg_toy.cfg [test]`` 4 episodes (gradient steps from
     episode 3), ``ddpg.cfg [test]`` 2, ``ddpg_n4k.cfg [n4k]`` 3 (N =
     4,096, positions record); finite rewards, losses and evals, ms per env
     step with its gradient step; for toy and n4k a run stopped one
@@ -139,7 +146,24 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     resumed by a fresh learner must equal the uninterrupted run's training
     state bit for bit; then one more episode under torch.profiler, read
     as phase 8 reads its round;
-15. budget: the run, build included, must finish in BUDGET_S; a watchdog
+15. tools: each measurement tool's ``main(argv)`` in-process on the
+    card, its output printed indented; a non-zero exit, a ``[FAIL]`` or a
+    SUSPECT line fails the phase. Cut in depth: ``bench --reps 1 --chains
+    1 --no-large-n`` (one timed call of the single-env and 128-env
+    figures and one sustained chain of 8 batches, not 5, 5 and 2; no
+    large-N detail; the one-thread baseline in its subprocess as always;
+    its JSON line must parse with the four keys); ``smoke_env --episodes
+    1`` (all five envs, 1 episode each, not 2); ``bench_large_n --n 10000
+    --paths blocked pcells --steps 25`` and ``--n 1000000 --paths pcells
+    --steps 25 --edge-mult 2 --cap 32``, both with ``--repeats 2 --episodes
+    1`` (25-step episodes: a first one, 2 timed chains of 1, not 3 of 2,
+    and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
+    the 1M geometry kept); ``run_1m`` at its full N = 1,000,000, T = 200,
+    edge_mult 2, cap 32 (two episodes; it exits 1 unless overflow 0,
+    finite rewards and launches 201/200/200 per episode); and
+    ``profile_large_n --n 100000 --steps 10`` (not 25), its trace in a
+    temporary directory;
+16. budget: the run, build included, must finish in BUDGET_S; a watchdog
     ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
@@ -155,7 +179,6 @@ uncaught exception and a non-zero exit, as is a run outside a checkout of
 the repository.
 """
 
-import bisect
 import copy
 import dataclasses
 import faulthandler
@@ -171,13 +194,18 @@ import time
 sys.dont_write_bytecode = True   # write nothing outside the build directory
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+from multiagent_gnn_policies_tpu_torch.scripts.verify_cells import (  # noqa
+    apply_work, frame_work, neighbour_bytes, pair_counts)
+from multiagent_gnn_policies_tpu_torch.utils.profiling import (  # noqa: E402
+    bound_ms, device_ms, summarize_trace)
+
 BUDGET_S = 300.0
 WATCHDOG_S = 480
 SEED = 20261017
 DEVICE = "cuda"
 N = 32768
 N_ORACLE = 4096
-REPS = 50
 TILES = (8, 12, 16, 24, 32)    # tile widths timed beside the default
 TRACE_STEPS = 20
 REL_PLAIN = 1e-5
@@ -191,8 +219,6 @@ DENSE_ROUNDS = 3
 DENSE_PARITY_ENVS = 4          # the card-vs-CPU dense episode: envs, steps
 DENSE_PARITY_STEPS = 50
 REL_EPISODE = 1e-4
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
 CHECKPOINT = os.path.join(ROOT, "models",
                           "actor_FlockingRelative-v0_dagger_n32k.npz")
 CONFIG = os.path.join(ROOT, "cfg", "dagger_n32k.cfg")
@@ -207,6 +233,14 @@ VARIANTS_CONFIG = os.path.join(ROOT, "cfg", "dagger_variants_n32k.cfg")
 EXPERT_BANDS = {True: (-443.4, 15.0), False: (-849.6, 25.0)}
 VARIANT_BANDS = {"leader": (-458.5, 15.0), "stoch": (-521.4, 15.0),
                  "airsim": (-391.4, 15.0), "twoflocks": None}
+# RESULTS.md section 8b: on the same draw, the in-repo TwoFlocks n32k
+# policy scores 1.503 x the centralized expert + 210.3, residual std 1.8
+# (24 paired JAX episodes at N = 32,768). The band is 10, over 5 residual
+# stds: the fit is per draw, so it needs no shared random stream, and the
+# port's float32 sums differ from the JAX package's only in order
+TWOFLOCKS_FIT = (1.503, 210.3)
+TWOFLOCKS_BAND = 10.0
+TWOFLOCKS_PAIRS = 3
 LARGE_ROUNDS = 3
 LARGE_BUFFER = 600             # records: 3 rounds of 200 steps
 TRANSFER_CONFIG = os.path.join(ROOT, "cfg", "transfer_stoch.cfg")
@@ -237,7 +271,7 @@ DDPG_EVALS = (("ddpg_toy", "test", "ddpg_toy_k2", (-23.45, 6.4)),
                (-1302.3, 38.3)))
 DDPG_EVAL_EPISODES = 100
 # (config, section, training episodes, resume checked)
-DDPG_TRAIN = (("ddpg_toy", "test", 6, True), ("ddpg", "test", 2, False),
+DDPG_TRAIN = (("ddpg_toy", "test", 4, True), ("ddpg", "test", 2, False),
               ("ddpg_n4k", "n4k", 3, True))
 DDPG_PARITY_N = 1024           # the large step's depth cut (its CPU side)
 REL_STEP = 1e-4
@@ -286,67 +320,6 @@ def check_close(what, got, want, rel, exact_channels=()):
         if float(err[q]) != 0.0:
             raise AssertionError(f"{what}: channel {q} differs by {err[q]}")
     return float(err.max())
-
-
-def device_ms(fn, reps=REPS):
-    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after a warm-up. The card first waits in a sleep kernel while
-    the host queues all calls, so host overhead stays out of the window."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(100_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound_ms(n_bytes, n_ops):
-    t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_ops / FP32_FLOPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def pair_counts(cc, x_pos, grid, spec, r2cut=1.0):
-    """(candidate pairs, radius-neighbour pairs) that this input's sweep
-    visits: what the data needs, not the cap's worst case."""
-    valid, _, _, _, r2 = cc._pair_geometry(x_pos, cc._candidates(grid, spec))
-    return int(valid.sum()), int((valid & (r2 < r2cut)).sum())
-
-
-def apply_work(n, c, cand, nbr, nb, historical):
-    """(bytes moved, operations) that one K2 (``historical`` False) or K3
-    sweep over ``c`` columns needs on this input: positions (K2 reads
-    them from the (N, 4) state), degrees and raw columns read once, the
-    neighbour structure, the output written once; 6 operations per
-    candidate pair's r^2 test and, per radius-neighbour pair, K2's
-    weight product and sum (2 + 2C), K3's sums (C) after a clamp and C
-    divisions per agent."""
-    n_bytes = n * 8 + n * 4 + n * 4 * c + nb + n * 4 * c
-    if historical:
-        return n_bytes, (1 + c) * n + 6 * cand + c * nbr
-    return n_bytes, 6 * cand + (2 + 2 * c) * nbr
-
-
-def neighbour_bytes(grid, spec):
-    """Bytes of the least neighbour structure a sweep over ``grid`` needs:
-    the cell-sorted agent order (int32 per agent) and an int32 start and
-    count for each cell the sweep touches (the 3x3 cells around every
-    occupied cell, inside the grid), not the cap-wide padded table."""
-    import torch
-
-    s = grid.slot[grid.slot >= 0].long()
-    occ = torch.zeros((1, 1, spec.cx, spec.cy), device=s.device)
-    occ[0, 0, s // (spec.cap * spec.cy), s % spec.cy] = 1.0
-    touched = torch.nn.functional.max_pool2d(occ, 3, stride=1, padding=1)
-    return 4 * grid.slot.shape[0] + 8 * int(touched.sum())
 
 
 def ptxas_summary(lines):
@@ -440,79 +413,6 @@ class _Annotated:
     def __exit__(self, *exc):
         for module, attr, fn in reversed(self.saved):
             setattr(module, attr, fn)
-
-
-def summarize_trace(events, steps, wall_ms, prof_wall_ms):
-    """Prints device busy and idle share per step, device ops per step, the
-    top 10 device ops and each annotated layer's host and device time,
-    from a torch.profiler event list (kernels, memcpys and memsets are its
-    device events; the layer ranges appear on both sides)."""
-    from torch.autograd import DeviceType
-
-    host = {}                       # layer -> host us (CPU-side ranges)
-    spans, kernels = [], []         # device-side layer ranges; device ops
-    shadows = 0
-    for e in events:
-        if e.device_type == DeviceType.CUDA:
-            # a record_function range (a layer's, Optimizer.step's) has a
-            # device-side copy, a user annotation: not device work
-            if e.is_user_annotation:
-                if e.name.startswith("layer: "):
-                    spans.append(e)
-                else:
-                    shadows += 1
-            else:
-                kernels.append(e)
-        elif e.name.startswith("layer: "):
-            host[e.name[7:]] = host.get(e.name[7:], 0.0) + (
-                e.time_range.elapsed_us())
-    print(f"#   trace: {steps} steps, wall {wall_ms:.4f} ms/step "
-          f"({prof_wall_ms:.4f} under the profiler); {len(spans)} layer and "
-          f"{shadows} other annotation ranges on the device side set aside",
-          flush=True)
-    if not kernels:
-        print("#   trace: device time not measured (the profiler recorded no "
-              "device activity)", flush=True)
-        return
-    kernels.sort(key=lambda e: e.time_range.start)
-    starts = [e.time_range.start for e in kernels]
-    busy_us, end = 0.0, float("-inf")
-    for e in kernels:
-        s0, s1 = e.time_range.start, e.time_range.end   # union of intervals
-        if s1 > end:
-            busy_us += s1 - max(s0, end)
-            end = s1
-    busy_ms = busy_us / 1e3 / steps
-    print(f"#   trace: device busy {busy_ms:.4f} ms/step, idle share "
-          f"{1 - busy_ms / wall_ms:.4f} of the unprofiled wall "
-          f"({1 - busy_ms / prof_wall_ms:.4f} under the profiler), "
-          f"{len(kernels) / steps:.2f} device ops per step", flush=True)
-    by_name = {}
-    for e in kernels:
-        tot, cnt = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), cnt + 1)
-    for name, (tot, cnt) in sorted(by_name.items(),
-                                   key=lambda kv: -kv[1][0])[:10]:
-        print(f"#   trace top: {tot / 1e3 / steps:.4f} ms/step, "
-              f"{cnt / steps:.2f}/step  {name[:100]}", flush=True)
-    # a device op belongs to the layer whose device-side range holds it
-    layer_dev = {}
-    for sp in spans:
-        inside = kernels[bisect.bisect_left(starts, sp.time_range.start):
-                         bisect.bisect_left(starts, sp.time_range.end)]
-        us, n = layer_dev.get(sp.name[7:], (0.0, 0))
-        layer_dev[sp.name[7:]] = (
-            us + sum(e.time_range.elapsed_us() for e in inside),
-            n + len(inside))
-    in_layers = sum(n for _, n in layer_dev.values())
-    for name in sorted(host, key=lambda k: -layer_dev.get(k, (0, 0))[0]):
-        us, n = layer_dev.get(name, (0.0, 0))
-        print(f"#   trace layer: {name:<22} host {host[name] / 1e3 / steps:.4f}"
-              f" ms/step (profiled), device {us / 1e3 / steps:.4f} ms/step, "
-              f"{n / steps:.2f} device ops/step", flush=True)
-    print(f"#   trace layer: {'(outside the layers)':<22} "
-          f"{(len(kernels) - in_layers) / steps:.2f} device ops/step",
-          flush=True)
 
 
 def trace_steps(torch, ln, cc, cfg, actor, state, gen, steps):
@@ -889,6 +789,100 @@ def variants_phase(ev, cc, load_ini, n_agents):
     return out
 
 
+def twoflocks_gate(ev, cc, load_ini, n_agents):
+    """Phase 12's TwoFlocks gate: TWOFLOCKS_PAIRS episodes of the in-repo
+    ``dagger_twoflocks_n32k`` policy and of the centralized expert on the
+    same draws (``episode_generator(seed, episode)`` of the evaluate entry
+    point), under its ``[twoflocks]`` section at ``n_agents``: each policy
+    reward within TWOFLOCKS_BAND of RESULTS.md section 8b's fit of the
+    expert's, overflow 0, launches 201/200/200 per policy episode and 201
+    per expert episode. Returns the largest residual."""
+    section = load_ini(VARIANTS_CONFIG)["twoflocks"]
+    section["centralized"] = "True"
+    path = os.path.join(ROOT, "models", f"actor_{section['env']}_"
+                        f"{section['fname']}.npz")
+    run = lambda **kw: _counted(cc, lambda: ev.evaluate_blocked(
+        section, path, n_agents=n_agents, n_episodes=TWOFLOCKS_PAIRS,
+        device=DEVICE, **kw))
+    (pol, lp), (exp, le) = run(), run(expert=True)
+    if (lp != _launches(TWOFLOCKS_PAIRS)
+            or le != _launches(TWOFLOCKS_PAIRS, policy=False)):
+        raise AssertionError(f"twoflocks launches {lp}, {le}")
+    slope, icpt = TWOFLOCKS_FIT
+    worst = 0.0
+    for ep, (r_p, r_e) in enumerate(zip(pol["rewards"], exp["rewards"])):
+        resid = r_p - (slope * r_e + icpt)
+        print(f"#   twoflocks pair {ep}: policy {r_p}, expert {r_e}, "
+              f"policy - ({slope} x expert + {icpt}) = {resid:.4f} (band "
+              f"+-{TWOFLOCKS_BAND})", flush=True)
+        if not math.isfinite(resid) or abs(resid) > TWOFLOCKS_BAND:
+            raise AssertionError(f"twoflocks pair {ep}: residual {resid}")
+        worst = max(worst, abs(resid))
+    return worst
+
+
+def _tool(main, argv):
+    """A tool's ``main(argv)`` in-process, its standard output captured
+    and printed indented: ``(stdout text, seconds)``. A non-zero exit, or
+    any exception, propagates."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    wall = time.perf_counter() - t
+    text = buf.getvalue()
+    for line in text.splitlines():
+        print(f"#     {line}", flush=True)
+    name = main.__module__.rsplit(".", 1)[-1]
+    print(f"#   tool {name} {' '.join(argv)}: rc {rc}, {wall:.2f} s",
+          flush=True)
+    if rc:
+        raise AssertionError(f"{name} {argv} exited {rc}")
+    return text, wall
+
+
+def tools_phase(cc):
+    """Phase 15: the measurement tools' ``main`` in-process, on the card,
+    each at the depth the module docstring's phase 15 states."""
+    from multiagent_gnn_policies_tpu_torch import bench
+    from multiagent_gnn_policies_tpu_torch.scripts import (
+        bench_large_n, profile_large_n, run_1m, smoke_env, verify_cells)
+
+    out = {}
+    text, out["bench_s"] = _tool(bench.main, ["--reps", "1", "--chains", "1",
+                                              "--no-large-n"])
+    line = json.loads(text.strip())
+    if (set(line) != {"metric", "value", "unit", "vs_baseline"}
+            or line["metric"] != "rollout_steps_per_s"
+            or not line["value"] > 0):
+        raise AssertionError(f"bench line {line}")
+    out["bench_steps_per_s"] = line["value"]
+    text, out["smoke_env_s"] = _tool(smoke_env.main, ["--episodes", "1"])
+    if "SUSPECT" in text or text.count(" ok\n") != 5:
+        raise AssertionError("smoke_env: a SUSPECT or missing episode")
+    cut = ["--steps", "25", "--repeats", "2", "--episodes", "1"]
+    _, out["bench_large_n_s"] = _tool(bench_large_n.main, [
+        "--n", "10000", "--paths", "blocked", "pcells", *cut])
+    _, s = _tool(bench_large_n.main, [
+        "--n", "1000000", "--paths", "pcells", "--edge-mult", "2", "--cap",
+        "32", *cut])
+    out["bench_large_n_s"] += s
+    text, out["verify_cells_s"] = _tool(verify_cells.main, ["--quick"])
+    if "[FAIL]" in text or "ALL PASSED" not in text:
+        raise AssertionError("verify_cells --quick failed")
+    text, out["run_1m_s"] = _tool(run_1m.main, [])
+    out["run_1m_ms_per_step"] = float(
+        re.search(r"steady: ([0-9.]+) ms/step", text).group(1))
+    with tempfile.TemporaryDirectory() as tmp:
+        _, out["profile_large_n_s"] = _tool(profile_large_n.main, [
+            "--n", "100000", "--steps", "10", "--out", tmp])
+    cc.reset_launch_counts()
+    return out
+
+
 def _transfer_section(load_ini, k, noiseless=False):
     """The ``cfg/transfer_stoch.cfg`` section of filter length ``k``;
     with ``noiseless`` its env is FlockingRelative (the same swarm and
@@ -1015,8 +1009,8 @@ def transfer_kernels(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
                 y.transpose(0, 1).reshape(N_ORACLE, -1),
                 ref.transpose(0, 1).reshape(N_ORACLE, -1), REL_ORACLE)
     # times beside the plain versions and the bound of this input
-    cand, nbr = pair_counts(cc, x[:, :2], grid, spec, r2cut)
-    cand_h, nbr_h = pair_counts(cc, pos_h, grid_h, spec, r2cut)
+    cand, nbr = pair_counts(x[:, :2], grid, spec, r2cut)
+    cand_h, nbr_h = pair_counts(pos_h, grid_h, spec, r2cut)
     nb, nb_h = neighbour_bytes(grid, spec), neighbour_bytes(grid_h, spec)
     work = {"K2 C=18": apply_work(N, 18, cand, nbr, nb, False),
             "K2 C=6": apply_work(N, 6, cand, nbr, nb, False),
@@ -1554,7 +1548,6 @@ def main():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from multiagent_gnn_policies_tpu_torch import evaluate as ev
     from multiagent_gnn_policies_tpu_torch.envs.flocking import (
         FlockingParams, _init_candidate, strict_fp32)
@@ -1664,19 +1657,13 @@ def main():
             torch.cuda.set_sync_debug_mode("default")
 
         # time each kernel and its plain version at this slice's shapes
-        cand1, nbr1 = pair_counts(cc, x[:, :2], grid, spec)
-        cand3, nbr3 = pair_counts(cc, pos_h, grid_h, spec)
+        cand1, nbr1 = pair_counts(x[:, :2], grid, spec)
+        cand3, nbr3 = pair_counts(pos_h, grid_h, spec)
         nb1, nb3 = neighbour_bytes(grid, spec), neighbour_bytes(grid_h, spec)
-        work = {   # (bytes moved, operations) that this input needs: each
-            # per-agent input read once (positions alone where only they
-            # are used), each output written once
-            "K1": (N * 16 + nb1 + N * 40, 11 * cand1 + 25 * nbr1),
-            "K2": (N * 8 + N * 48 + N * 4 + nb1 + N * 48,
-                   6 * cand1 + (2 + 2 * 12) * nbr1),
-            # K3: positions, degrees and raw columns in; a clamp and 6
-            # divisions per agent
-            "K3": (N * 8 + N * 4 + N * 24 + nb3 + N * 24,
-                   7 * N + 6 * cand3 + 6 * nbr3),
+        work = {   # (bytes moved, operations) that this input needs
+            "K1": frame_work(N, cand1, nbr1, nb1),
+            "K2": apply_work(N, 12, cand1, nbr1, nb1, False),
+            "K3": apply_work(N, 6, cand3, nbr3, nb3, True),
         }
         timing = {}
         for name, fn, plain in (("K1", k1, k1_plain), ("K2", k2, k2_plain),
@@ -1787,7 +1774,9 @@ def main():
           launches=json.dumps(l_launches, separators=(",", ":")))
     t = time.perf_counter()
     variants = variants_phase(ev, cc, load_ini, N)
-    phase("variants", t, **variants)
+    twoflocks_resid = twoflocks_gate(ev, cc, load_ini, N)
+    phase("variants", t, **variants,
+          twoflocks_max_residual=f"{twoflocks_resid:.4f}")
 
     # 13. transfer: every K of the in-repo transfer policies, this slice's
     # main path
@@ -1810,7 +1799,13 @@ def main():
           resume_bit_for_bit=all(v for v in resumed.values()
                                  if v is not None))
 
-    # 15. budget
+    # 15. the measurement tools, at cut depth
+    t = time.perf_counter()
+    tools = tools_phase(cc)
+    phase("tools", t, **{k: (f"{v:.2f}" if isinstance(v, float) else v)
+                         for k, v in tools.items()})
+
+    # 16. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:

@@ -110,7 +110,9 @@ class DDPGConfig:
     def from_experiment(cls, x: ExperimentConfig) -> "DDPGConfig":
         """From an INI-backed :class:`ExperimentConfig`. The env takes five
         fields of it (n_agents, comm_radius, dt, v_max, episode_steps);
-        every other ``FlockingParams`` field keeps its default."""
+        every other ``FlockingParams`` field keeps its default. The
+        section's ``test_interval`` is not read: DDPG evaluates every 10
+        episodes, as the JAX package's and the reference's DDPG do."""
         hidden = x.hidden
         actor = ActorConfig(n_s=x.n_states, n_a=x.n_actions, hidden=hidden,
                             k=x.k, ind_agg=len(hidden) // 2,
@@ -129,7 +131,6 @@ class DDPGConfig:
             critic_lr=x.ddpg_critic_lr or cls.critic_lr,
             reward_scale=x.reward_scale,
             n_train_episodes=x.n_train_episodes,
-            test_interval=x.test_interval,
             n_test_episodes=x.n_test_episodes, seed=x.seed,
         )
 

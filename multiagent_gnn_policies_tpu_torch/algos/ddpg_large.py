@@ -59,6 +59,7 @@ from multiagent_gnn_policies_tpu_torch.models.critic import Critic
 from multiagent_gnn_policies_tpu_torch.ops.blocked import (
     FrameQuantities,
     blocked_frame,
+    pick_block,
 )
 from multiagent_gnn_policies_tpu_torch.ops.graph import normalized_adjacency
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
@@ -70,7 +71,7 @@ FRAME_BLOCK = 1024
 
 def frame_block(n: int) -> int:
     """Largest divisor of ``n`` that is <= ``FRAME_BLOCK``."""
-    return next(b for b in range(min(FRAME_BLOCK, n), 0, -1) if n % b == 0)
+    return pick_block(n, FRAME_BLOCK)
 
 
 def dense_adj_from_pos(pos: torch.Tensor, comm_radius: float) -> torch.Tensor:

@@ -6,7 +6,8 @@ The counterpart of the JAX package's ``ops/blocked.py``:
   quantities and the degree-normalised adjacency transpose-apply over the
   radius graph with peak memory O(block · N): never an (N, N) array. They
   are the oracle of the cell sweeps (``ops/cells_cuda.py``) in the tests
-  and in ``chip_smoke.py``.
+  and in ``chip_smoke.py``, and the large-N rollout's "blocked" path;
+  :func:`pick_block` chooses a block that divides N.
 * :class:`DelayCarry`, :func:`delay_carry_init` and
   :func:`delay_carry_update` hold the feature history and the historical
   graphs' positions and degrees that the delayed y-stack reads;
@@ -41,6 +42,13 @@ class FrameQuantities(NamedTuple):
     degree: torch.Tensor
     expert: Optional[torch.Tensor]
     min_r2: torch.Tensor
+
+
+def pick_block(rows: int, preferred: int = 128) -> int:
+    """Largest divisor of ``rows`` that is <= ``preferred`` (the JAX
+    package's ``parallel/large_n.py:pick_block``)."""
+    return next(b for b in range(min(preferred, rows), 0, -1)
+                if rows % b == 0)
 
 
 def _pair_blocks(xi, x, p: FlockingParams, rows):

@@ -30,7 +30,8 @@ built widths (``APPLY_COLS``) is launched in chunks (:func:`apply_chunks`),
 one launch each, as the JAX package's ``max_cols`` chunks its columns.
 
 The plain versions gather each agent's 9·cap candidates: O(N · 9 · cap)
-memory, fine on the card at N = 32,768, never an (N, N) array.
+memory, fine on the card at N = 32,768, never an (N, N) array; at larger
+N they take a slice of rows at a time (``rows``).
 """
 
 from __future__ import annotations
@@ -167,12 +168,13 @@ def tile_cells(spec: PCellSpec, n: int) -> int:
 _OFFSETS = [(di, dj) for di in (-1, 0, 1) for dj in (-1, 0, 1)]
 
 
-def _candidates(grid: PCellGrid, spec: PCellSpec) -> torch.Tensor:
-    """(N, 9·cap) candidate agents of every agent in the kernels' order;
-    -1 for an empty rank, a cell outside the grid, the agent itself, and
-    every candidate of a dropped agent. Built from the slots alone (a
-    cap-wide cell table scattered here), independent of the ranges the
-    kernels walk."""
+def _candidates(grid: PCellGrid, spec: PCellSpec,
+                rows: slice = slice(None)) -> torch.Tensor:
+    """(R, 9·cap) candidate agents of the agents ``rows`` (all N by
+    default) in the kernels' order; -1 for an empty rank, a cell outside
+    the grid, the agent itself, and every candidate of a dropped agent.
+    Built from the slots alone (a cap-wide cell table scattered here),
+    independent of the ranges the kernels walk."""
     n = grid.slot.shape[0]
     dev = grid.slot.device
     slot = grid.slot.to(torch.int64)
@@ -184,33 +186,38 @@ def _candidates(grid: PCellGrid, spec: PCellSpec) -> torch.Tensor:
         slot >= 0, (ci * spec.cy + cj) * spec.cap + s // spec.cy % spec.cap,
         nslot), torch.arange(n, device=dev))
     offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)
-    ni = ci[:, None] + offs[:, 0]                                 # (N, 9)
-    nj = cj[:, None] + offs[:, 1]
+    ni = ci[rows, None] + offs[:, 0]                              # (R, 9)
+    nj = cj[rows, None] + offs[:, 1]
     cell_ok = ((ni >= 0) & (ni < spec.cx) & (nj >= 0) & (nj < spec.cy)
-               & (slot >= 0)[:, None])
+               & (slot[rows] >= 0)[:, None])
     cell = ni.clamp(0, spec.cx - 1) * spec.cy + nj.clamp(0, spec.cy - 1)
-    cand = table[:-1].view(-1, spec.cap)[cell]                   # (N,9,cap)
-    cand = torch.where(cell_ok[..., None], cand, -1).reshape(n, -1)
-    me = torch.arange(n, device=dev)[:, None]
+    cand = table[:-1].view(-1, spec.cap)[cell]                   # (R,9,cap)
+    cand = torch.where(cell_ok[..., None], cand, -1).reshape(ni.shape[0], -1)
+    me = torch.arange(n, device=dev)[rows, None]
     return torch.where(cand == me, -1, cand)
 
 
-def _pair_geometry(pos: torch.Tensor, cand: torch.Tensor):
-    """Differences and squared distances to every candidate, rounded per
-    operation exactly as the kernels round them."""
+def _pair_geometry(pos: torch.Tensor, cand: torch.Tensor,
+                   rows: slice = slice(None)):
+    """Differences and squared distances from the agents ``rows`` to each
+    of their candidates, rounded per operation exactly as the kernels
+    round them."""
     valid = cand >= 0
-    pj = pos[cand.clamp_min(0)]                                   # (N, M, ·)
-    dx = pos[:, None, 0] - pj[..., 0]
-    dy = pos[:, None, 1] - pj[..., 1]
+    pj = pos[cand.clamp_min(0)]                                   # (R, M, ·)
+    dx = pos[rows, None, 0] - pj[..., 0]
+    dy = pos[rows, None, 1] - pj[..., 1]
     return valid, pj, dx, dy, dx * dx + dy * dy
 
 
 def frame_sweep_plain(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-                      r2cut: float, centralized: bool) -> torch.Tensor:
-    """K1's function in plain PyTorch: (N, 4) -> (N, 10)."""
-    valid, xj, dx, dy, r2 = _pair_geometry(x, _candidates(grid, spec))
-    dvx = x[:, None, 2] - xj[..., 2]
-    dvy = x[:, None, 3] - xj[..., 3]
+                      r2cut: float, centralized: bool,
+                      rows: slice = slice(None)) -> torch.Tensor:
+    """K1's function in plain PyTorch: (N, 4) -> (N, 10), or the rows
+    ``rows`` of it (a slice: the candidate gather is (rows, 9·cap))."""
+    valid, xj, dx, dy, r2 = _pair_geometry(
+        x, _candidates(grid, spec, rows), rows)
+    dvx = x[rows, None, 2] - xj[..., 2]
+    dvy = x[rows, None, 3] - xj[..., 3]
     r2s = torch.clamp_min(torch.where(valid, r2, 1.0), COLLISION_R2_EPS)
     inv2 = 1.0 / r2s
     inv4 = inv2 * inv2
@@ -227,10 +234,12 @@ def frame_sweep_plain(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
 
 def apply_deg_sweep_plain(x: torch.Tensor, cols: torch.Tensor,
                           deg: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-                          r2cut: float) -> torch.Tensor:
-    """K2's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1)."""
-    cand = _candidates(grid, spec)
-    valid, _, _, _, r2 = _pair_geometry(x[:, :2], cand)
+                          r2cut: float,
+                          rows: slice = slice(None)) -> torch.Tensor:
+    """K2's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1)
+    (for the agents ``rows``)."""
+    cand = _candidates(grid, spec, rows)
+    valid, _, _, _, r2 = _pair_geometry(x[:, :2], cand, rows)
     jj = cand.clamp_min(0)
     w = (valid & (r2 < r2cut)).to(cols.dtype) / deg[jj].clamp_min(1.0)
     return (w[..., None] * cols[jj]).sum(1)
@@ -238,11 +247,12 @@ def apply_deg_sweep_plain(x: torch.Tensor, cols: torch.Tensor,
 
 def apply_sweep_plain(pos: torch.Tensor, cols: torch.Tensor,
                       deg: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-                      r2cut: float) -> torch.Tensor:
+                      r2cut: float,
+                      rows: slice = slice(None)) -> torch.Tensor:
     """K3's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1),
-    the columns divided first."""
-    cand = _candidates(grid, spec)
-    valid, _, _, _, r2 = _pair_geometry(pos, cand)
+    the columns divided first (for the agents ``rows``)."""
+    cand = _candidates(grid, spec, rows)
+    valid, _, _, _, r2 = _pair_geometry(pos, cand, rows)
     m = (valid & (r2 < r2cut)).to(cols.dtype)
     wcols = cols / torch.clamp_min(deg, 1.0)[:, None]
     return (m[..., None] * wcols[cand.clamp_min(0)]).sum(1)

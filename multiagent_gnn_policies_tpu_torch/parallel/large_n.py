@@ -27,6 +27,13 @@ K >= 2 and K3 (K-2)·T times for K >= 3 (one launch per historical graph
 and step while its columns fit one kernel width); an expert-mode or
 K = 1 episode launches K1 alone. The per-episode max grid overflow is
 returned: 0 means every step's sweep was exact.
+
+The "blocked" path (``path="blocked"``, the JAX package's default below
+N = 32,768) computes the same step with the O(N²) row-blocked sweeps of
+``ops/blocked.py`` instead: ``blocked_frame`` for every frame and
+``delayed_ystack`` for the whole delayed stack, unfused. It launches no
+cell kernel and has no grid, so its overflow is always 0. Its peak memory
+is O(B·N) for blocks of B rows (:func:`block_rows`).
 """
 
 from __future__ import annotations
@@ -46,24 +53,39 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
 from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
 from multiagent_gnn_policies_tpu_torch.ops.blocked import (
     DelayCarry,
+    blocked_frame,
     delay_carry_init,
     delay_carry_update,
+    delayed_ystack,
+    pick_block,
 )
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
 
 
+PATHS = ("pcells", "blocked")
+# rows per block of the blocked path's O(N²) sweeps: about 2^25 (row,
+# agent) pairs per block, so that each of a block's ~25 (B, N) float32
+# temporaries stays near 128 MB (~3.4 GB in all at N = 32,768), and
+# between 128 rows (the JAX package's block) and 1,024
+BLOCK_PAIRS = 1 << 25
+
+
 class LargeNConfig(NamedTuple):
-    """Static setup of a single-device pcells rollout.
+    """Static setup of a single-device rollout.
 
     ``centralized`` selects every frame's expert (and K1's gradient mask);
     ``need_expert`` computes it (``fq.expert``), which only expert-mode
     rollouts and the imitation learner's collection read (the JAX
-    package's ``LargeNConfig.need_expert``)."""
+    package's ``LargeNConfig.need_expert``; the blocked frame always
+    computes it). ``path`` is "pcells" (the cell sweeps over ``cell_spec``)
+    or "blocked" (row blocks of ``block`` rows; ``cell_spec`` unused)."""
 
     params: FlockingParams
-    cell_spec: cc.PCellSpec
+    cell_spec: Optional[cc.PCellSpec]
     centralized: bool = True
     need_expert: bool = False
+    path: str = "pcells"
+    block: int = 0
 
 
 class EpisodeState(NamedTuple):
@@ -75,16 +97,25 @@ class EpisodeState(NamedTuple):
     x: torch.Tensor                  # (N, 4) state
     carry: Optional[DelayCarry]
     fq: cc.FrameQuantities           # frame of x
-    grid: cc.PCellGrid               # grid of x
+    grid: Optional[cc.PCellGrid]     # grid of x (None on the blocked path)
     grid_hist: Tuple[cc.PCellGrid, ...]  # grids of pos_hist, newest first
     s0: Optional[torch.Tensor]       # (N, (K-1)·F) pre-applied s=0 columns
     overflow: torch.Tensor           # () max overflow so far
 
 
+def block_rows(n: int) -> int:
+    """Rows per block of the blocked path at ``n`` agents: the largest
+    divisor of ``n`` up to ``BLOCK_PAIRS / n`` rows, held in [128, 1024]."""
+    return pick_block(n, min(max(BLOCK_PAIRS // max(n, 1), 128), 1024))
+
+
 def _frame(cfg: LargeNConfig, x: torch.Tensor, apply_cols=None):
     """Grid and frame of ``x``; with ``apply_cols`` also the fused K2 apply
     of those columns over the same graph. Returns ``(fq, grid[, applied])``.
-    The expert as ``cfg`` says (``centralized``, ``need_expert``)."""
+    The expert as ``cfg`` says (``centralized``, ``need_expert``). The
+    blocked path returns ``(blocked_frame, None)`` (it never fuses)."""
+    if cfg.path == "blocked":
+        return blocked_frame(x, cfg.params, cfg.centralized, cfg.block), None
     grid = cc.build_pcell_grid(x[:, :2], cfg.cell_spec)
     if apply_cols is not None:
         fq, applied = cc.frame_apply(x, apply_cols, grid, cfg.cell_spec,
@@ -124,12 +155,19 @@ def _s0_cols(carry: DelayCarry) -> torch.Tensor:
     return carry.history[:k_1].transpose(0, 1).reshape(n, k_1 * f)
 
 
+def _overflow(grid: Optional[cc.PCellGrid], x: torch.Tensor):
+    """The grid's dropped-agent count; 0 on the blocked path (no grid)."""
+    if grid is None:
+        return torch.zeros((), dtype=torch.int32, device=x.device)
+    return grid.overflow
+
+
 def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
                   gen: Optional[torch.Generator], device,
                   x0: Optional[torch.Tensor] = None) -> EpisodeState:
     """Reset (or the injected ``x0``) and the initial episode state; with
-    ``acfg`` None (expert mode) no delayed stack, at K = 1 no pre-applied
-    columns."""
+    ``acfg`` None (expert mode) no delayed stack, at K = 1 or on the
+    blocked path no pre-applied columns and no historical grids."""
     p = cfg.params
     if x0 is None:
         x, fq, grid = _reset(cfg, gen, device)
@@ -137,9 +175,11 @@ def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
         x = x0.to(device=device, dtype=torch.float32).contiguous()
         fq, grid = _frame(cfg, x)
     if acfg is None:
-        return EpisodeState(x, None, fq, grid, (), None, grid.overflow)
+        return EpisodeState(x, None, fq, grid, (), None, _overflow(grid, x))
     k = acfg.k
     carry = delay_carry_init(fq.values, p.n_agents, k)
+    if grid is None:
+        return EpisodeState(x, carry, fq, None, (), None, _overflow(grid, x))
     # the K-2 historical graphs start as the reset frame's grid: their
     # history slots are zero until step >= k, so this is exact
     grid_hist = tuple(grid for _ in range(max(k - 2, 0)))
@@ -152,6 +192,9 @@ def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
 
 def _ystack(cfg: LargeNConfig, state: EpisodeState) -> torch.Tensor:
     """The policy's (K, N, F) input: the delayed stack of ``state``."""
+    if cfg.path == "blocked":
+        return delayed_ystack(state.carry, state.x[:, :2], cfg.params,
+                              cfg.block, deg_now=state.fq.degree)
     return cc.ystack_pre(state.carry, state.s0, cfg.cell_spec, cfg.params,
                          grid_hist=state.grid_hist)
 
@@ -166,8 +209,9 @@ def _advance(cfg: LargeNConfig, state: EpisodeState, act: torch.Tensor,
     x2 = _dynamics(x, act, cfg.params, gen)
     if carry is None:
         fq2, grid2 = _frame(cfg, x2)
-        state2 = state._replace(x=x2, fq=fq2, grid=grid2,
-                                overflow=torch.maximum(ovf, grid2.overflow))
+        state2 = state._replace(
+            x=x2, fq=fq2, grid=grid2,
+            overflow=torch.maximum(ovf, _overflow(grid2, x2)))
         return state2, _reward(x2)
     if s0 is None:
         (fq2, grid2), s02 = _frame(cfg, x2), None
@@ -178,7 +222,7 @@ def _advance(cfg: LargeNConfig, state: EpisodeState, act: torch.Tensor,
         deg_prev=fq.degree if carry.deg_hist.shape[0] else None)
     grid_hist2 = ((grid,) + grid_hist[:-1]) if grid_hist else grid_hist
     state2 = EpisodeState(x2, carry2, fq2, grid2, grid_hist2, s02,
-                          torch.maximum(ovf, grid2.overflow))
+                          torch.maximum(ovf, _overflow(grid2, x2)))
     return state2, _reward(x2)
 
 
@@ -227,14 +271,17 @@ def rollout_large(actor: Optional[torch.nn.Module],
                   cell_margin: float = 1.3, cell_edge_mult: float = 1.0,
                   return_overflow: bool = False,
                   x0: Optional[torch.Tensor] = None, device="cuda",
-                  expert_mode: bool = False, traj_agents: int = 0):
+                  expert_mode: bool = False, traj_agents: int = 0,
+                  path: str = "pcells", sparse: bool = False,
+                  n_episodes: int = 1):
     """One episode of ``p.episode_steps`` steps through the cell sweeps (the
-    JAX package's "pcells" path): greedy, or the analytic expert with
+    JAX package's "pcells" path) or the row-blocked O(N²) sweeps
+    (``path="blocked"``): greedy, or the analytic expert with
     ``expert_mode``. Returns ``(rewards (T,), final_x)``, plus the max
     per-step grid overflow with ``return_overflow`` (0 means every step was
-    exact), plus with ``traj_agents`` = M > 0 the (T, M, 4) states of
-    :func:`traj_subset_indices`' agents after each step:
-    ``(rewards, final_x[, overflow][, traj])``.
+    exact; always 0 on the blocked path), plus with ``traj_agents`` = M > 0
+    the (T, M, 4) states of :func:`traj_subset_indices`' agents after each
+    step: ``(rewards, final_x[, overflow][, traj])``.
 
     Args:
       actor / acfg: the policy (``ind_agg`` must be 0; any K >= 1);
@@ -244,28 +291,58 @@ def rollout_large(actor: Optional[torch.nn.Module],
       centralized_expert: the expert's kind (expert mode reads it; K1's
         gradient mask follows it either way).
       cap / cell_margin / cell_edge_mult: the cell grid (``make_pcell_spec``).
-      x0: an (N, 4) initial state to use instead of the reset's draw.
+      x0: an (N, 4) initial state to use instead of the reset's draw (of
+        every episode, with ``n_episodes``).
       device: "cuda" (default) or "cpu"; nothing falls back to the CPU.
       expert_mode: roll the analytic controller instead of the policy (the
         large-N expert baseline): a grid build and K1 per step.
       traj_agents: record this many agents' states per step (0: none).
+      path: "pcells" (default, at every N: the port's switch-over point is
+        not set) or "blocked". The JAX package's "cells" and "binned"
+        backends, and ``sparse=True`` (its alias for "binned"), are not
+        ported yet and raise.
+      n_episodes: run this many episodes one after another from ``gen``
+        with no host synchronisation between them (the JAX package's
+        episode chain): the (E·T,) rewards, the last episode's final state
+        and the max overflow over all of them. Not with ``traj_agents``.
     """
+    if sparse or path in ("cells", "binned"):
+        raise ValueError(
+            f"the {'binned' if sparse else path!r} graph backend is not "
+            f"ported (ROADMAP.md queue 1 item 3); use path 'pcells' or "
+            f"'blocked'")
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; known: {PATHS}")
+    if n_episodes < 1:
+        raise ValueError(f"n_episodes must be >= 1, got {n_episodes}")
+    if n_episodes > 1 and traj_agents:
+        raise ValueError("n_episodes > 1 is timing-oriented; trajectory "
+                         "dumps need per-episode calls")
     if expert_mode:
         actor = acfg = None
     elif acfg is None or acfg.ind_agg != 0:
         raise ValueError("the large-N path requires ind_agg == 0 actors")
     strict_fp32()
     device = torch.device(device)
+    blocked = path == "blocked"
     cfg = LargeNConfig(
         params=p,
-        cell_spec=cc.make_pcell_spec(p, cap=cap or 16, margin=cell_margin,
-                                     edge_mult=cell_edge_mult),
+        cell_spec=None if blocked else cc.make_pcell_spec(
+            p, cap=cap or 16, margin=cell_margin, edge_mult=cell_edge_mult),
         centralized=centralized_expert,
         need_expert=expert_mode,
+        path=path,
+        block=block_rows(p.n_agents) if blocked else 0,
     )
+    rewards, overflow = [], None
     with torch.no_grad():
-        state = _episode_init(cfg, acfg, gen, device, x0)
-        state, rewards, *traj = _scan_steps(cfg, actor, state,
-                                            p.episode_steps, gen, traj_agents)
-    out = (rewards, state.x) + ((state.overflow,) if return_overflow else ())
+        for _ in range(n_episodes):
+            state = _episode_init(cfg, acfg, gen, device, x0)
+            state, r, *traj = _scan_steps(cfg, actor, state, p.episode_steps,
+                                          gen, traj_agents)
+            rewards.append(r)
+            overflow = (state.overflow if overflow is None
+                        else torch.maximum(overflow, state.overflow))
+    rewards = rewards[0] if n_episodes == 1 else torch.cat(rewards)
+    out = (rewards, state.x) + ((overflow,) if return_overflow else ())
     return out + tuple(traj)

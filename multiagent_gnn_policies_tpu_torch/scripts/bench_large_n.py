@@ -1,0 +1,168 @@
+"""Large-N steps per second on the card, per N and graph path: the
+counterpart of the JAX package's ``scripts/bench_large_n.py``.
+
+For each N and path (``pcells``, the O(N) cell sweeps; ``blocked``, the
+O(N²) row-blocked sweeps, run only up to N = 32,768: at 100,000 its frame
+is ~10^10 pairs per step) a greedy K = 3 policy (hidden 32x2, seeded
+random weights) runs:
+
+* a first episode, timed alone (the kernels' build, at the first pcells
+  run of the process, is in it);
+* ``--repeats`` chains of ``--episodes`` episodes each
+  (``rollout_large(n_episodes=...)``), each chain synchronised once at its
+  end: ms per step and steps per second by the host clock, their median
+  and spread (min..max) over the chains; edges per second (K times the
+  final frame's directed radius edges per step); the max overflow and the
+  non-finite episodes (a chain with either withholds its rate);
+* one episode under ``torch.profiler``: device-busy ms per step, the idle
+  share against the median's wall ms per step, device operations per step.
+
+    python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n
+    python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n \\
+        --n 10000 --paths blocked pcells --steps 25 [--device cpu]
+
+Default sizes 10,000, 32,768, 100,000 and 1,000,000, edge_mult 1, cap 16.
+"""
+
+from __future__ import annotations
+
+import argparse
+import statistics
+import sys
+import time
+
+import torch
+
+from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+    FlockingParams,
+    strict_fp32,
+)
+from multiagent_gnn_policies_tpu_torch.ops import blocked as bl
+from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
+from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
+from multiagent_gnn_policies_tpu_torch.scripts._common import (
+    add_device_arg,
+    device_line,
+    device_of,
+    seeded_actor,
+    sync,
+    timed,
+)
+from multiagent_gnn_policies_tpu_torch.utils.profiling import summarize_trace
+
+SIZES = (10_000, 32_768, 100_000, 1_000_000)
+BLOCKED_MAX_N = 32_768
+TOP = 5              # device operations listed per profiled episode
+
+
+def _edges(x, p, path, spec, block):
+    """Directed radius edges of the frame of ``x``."""
+    if path == "blocked":
+        return float(bl.blocked_frame(x, p, True, block).degree.sum())
+    grid = cc.build_pcell_grid(x[:, :2], spec)
+    return float(cc.frame(x, grid, spec, p).degree.sum())
+
+
+def bench_one(n, path, args, actor, acfg, device):
+    """One (N, path) row: returns a dict of its numbers (rates None when
+    withheld)."""
+    p = FlockingParams(n_agents=n, episode_steps=args.steps, max_resets=2)
+    kw = dict(return_overflow=True, cap=args.cap,
+              cell_edge_mult=args.edge_mult, device=device, path=path)
+    spec = (None if path == "blocked" else
+            cc.make_pcell_spec(p, cap=args.cap or 16,
+                               edge_mult=args.edge_mult))
+
+    def chain(seed, episodes):
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return ln.rollout_large(actor, acfg, gen, p, n_episodes=episodes,
+                                **kw)
+
+    (r, x, ovf), first_s = timed(lambda: chain(3, 1), device)
+    max_ovf, bad, ms = int(ovf), int(not bool(torch.isfinite(r.sum()))), []
+    for rep in range(args.repeats):
+        (r, x, ovf), s = timed(lambda: chain(4 + rep, args.episodes), device)
+        ms.append(1e3 * s / (args.episodes * args.steps))
+        max_ovf = max(max_ovf, int(ovf))
+        bad += int((~torch.isfinite(r.reshape(args.episodes, -1).sum(1)))
+                   .sum())
+    edges = args.k * _edges(x, p, path, spec, ln.block_rows(n))
+    med = statistics.median(ms)
+    row = {"n": n, "path": path, "first_s": first_s, "ms": ms,
+           "median_ms": med, "overflow": max_ovf, "nonfinite": bad,
+           "busy_ms": None, "idle": None, "ops": None}
+    valid = max_ovf == 0 and bad == 0
+    print(f"N={n:>8} {path:>8}: first episode {first_s:8.2f} s | "
+          + (f"{1e3 / med:9.1f} steps/s | {1e3 / med * edges:.3e} edges/s | "
+             f"{med:9.4f} ms/step (median of {args.repeats}, "
+             f"{min(ms):.4f}..{max(ms):.4f}) | " if valid else
+             "INVALID: rates withheld | ")
+          + f"overflow={max_ovf} nonfinite_eps={bad}", flush=True)
+    if valid:
+        from torch.profiler import ProfilerActivity, profile
+
+        # the device's activity alone on the card: host operations would
+        # add events that no number here reads
+        acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
+                else [ProfilerActivity.CPU])
+        with profile(activities=acts) as prof:
+            _, s = timed(lambda: chain(99, 1), device)
+        summary = summarize_trace(prof.events(), args.steps, med,
+                                  1e3 * s / args.steps, top=TOP)
+        if summary:
+            row.update(busy_ms=summary["busy_ms"], idle=summary["idle"],
+                       ops=summary["ops_per_step"])
+    row.update(steps_per_s=1e3 / med if valid else None,
+               edges_per_s=1e3 / med * edges if valid else None)
+    return row
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(
+        description="Large-N steps per second per N and path, repeated, "
+                    "with one profiled episode each.")
+    ap.add_argument("--n", type=int, nargs="+", default=list(SIZES))
+    ap.add_argument("--paths", nargs="+", default=["pcells", "blocked"],
+                    choices=ln.PATHS)
+    ap.add_argument("--steps", type=int, default=25)
+    ap.add_argument("--episodes", type=int, default=2,
+                    help="episodes per timed chain (one sync per chain)")
+    ap.add_argument("--repeats", type=int, default=3,
+                    help="timed chains per configuration")
+    ap.add_argument("--edge-mult", type=float, default=1.0,
+                    help="pcells cell-edge multiple (make_pcell_spec)")
+    ap.add_argument("--cap", type=int, default=None,
+                    help="cell slot capacity (default 16)")
+    ap.add_argument("--k", type=int, default=3, help="the policy's K")
+    add_device_arg(ap)
+    args = ap.parse_args(argv)
+    device = device_of(args.device)
+    strict_fp32()
+    print(device_line(device), flush=True)
+    acfg, actor = seeded_actor(args.k, 0, device)
+    rows = []
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for n in args.n:
+            for path in args.paths:
+                if path == "blocked" and n > BLOCKED_MAX_N:
+                    print(f"N={n:>8} {path:>8}: skipped (O(N^2) frame above "
+                          f"N = {BLOCKED_MAX_N})", flush=True)
+                    continue
+                rows.append(bench_one(n, path, args, actor, acfg, device))
+    sync(device)
+    print(f"# summary ({time.perf_counter() - t0:.1f} s): N, path, median "
+          f"ms/step, spread, steps/s, busy ms/step, idle share, device "
+          f"ops/step", flush=True)
+    fmt = lambda v, f: "not measured" if v is None else format(v, f)
+    for r in rows:
+        print(f"#   {r['n']:>8} {r['path']:>8} {r['median_ms']:.4f} "
+              f"{min(r['ms']):.4f}..{max(r['ms']):.4f} "
+              f"{fmt(r['steps_per_s'], '.1f')} {fmt(r['busy_ms'], '.4f')} "
+              f"{fmt(r['idle'], '.4f')} {fmt(r['ops'], '.2f')}", flush=True)
+    bad = [r for r in rows if r["overflow"] or r["nonfinite"]]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -224,9 +224,20 @@ def test_soft_update_polyak():
 
 @pytest.mark.parametrize("path,section", [
     ("cfg/ddpg.cfg", "test"), ("cfg/ddpg.cfg", "test_unbounded"),
-    ("cfg/ddpg_toy.cfg", "test"), ("cfg/ddpg_n4k.cfg", "n4k")])
-def test_config_from_experiment_matches_jax(path, section):
-    """Every field, the env built from its five fields only."""
+    ("cfg/ddpg_toy.cfg", "test"), ("cfg/ddpg_n4k.cfg", "n4k"),
+    ("tmp", "test_interval = 40"), ("tmp", "no test_interval")])
+def test_config_from_experiment_matches_jax(path, section, tmp_path):
+    """Every field, the env built from its five fields only. The "tmp"
+    cases are ``cfg/ddpg_toy.cfg [test]`` written with another
+    ``test_interval`` and without the key: the JAX DDPG reads neither
+    (it evaluates every 10 episodes), so the port must not either."""
+    if path == "tmp":
+        text = (ROOT / "cfg" / "ddpg_toy.cfg").read_text()
+        assert "test_interval = 10" in text
+        text = text.replace("test_interval = 10", (
+            section if section.startswith("test_interval") else ""))
+        path, section = tmp_path / "ddpg.cfg", "test"
+        path.write_text(text)
     want = jdd.DDPGConfig.from_experiment(jconf.ExperimentConfig.from_section(
         jconf.load_ini(str(ROOT / path))[section]))
     got = tdd.DDPGConfig.from_experiment(ExperimentConfig.from_section(

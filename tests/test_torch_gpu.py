@@ -457,3 +457,49 @@ def test_ddpg_gradient_step_card_vs_cpu(large):
                 w, g = w_st[wp][key], g_st[gp][key].cpu()
                 assert float((g - w).abs().max()) <= 1e-4 * float(
                     w.abs().max()), (net, i, key)
+
+
+@pytest.mark.gpu
+def test_verify_cells_quick_passes_on_gpu(capsys):
+    """The cell-sweep gate with ``--quick`` (N = 2,048 and 12,288, the 1M
+    geometry, the rollouts) prints no ``[FAIL]`` and exits 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the gate times and checks the "
+                    "kernels)")
+    from multiagent_gnn_policies_tpu_torch.scripts import verify_cells
+
+    assert verify_cells.main(["--quick"]) == 0
+    out = capsys.readouterr().out
+    assert "[FAIL]" not in out and "ALL PASSED" in out
+
+
+@pytest.mark.gpu
+def test_blocked_path_launches_no_cell_kernel():
+    """A blocked-path episode on the card launches none of K1-K3 and
+    reports overflow 0; the same episode on the pcells path launches
+    K1 T+1 times and K2 and K3 T times, and the two agree within 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (kernel launch counters)")
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    steps = 10
+    p = FlockingParams(n_agents=2048, episode_steps=steps)
+    acfg, actor = seeded_actor(3, 0, dev)
+    x0 = _init_candidate(torch.Generator(device=dev).manual_seed(2), p, dev)
+    out = {}
+    for path in ("blocked", "pcells"):
+        tcc.reset_launch_counts()
+        with torch.no_grad():
+            r, _, ovf = tln.rollout_large(actor, acfg, None, p, x0=x0,
+                                          return_overflow=True, path=path)
+        out[path] = (r, int(ovf), tcc.launch_counts())
+    assert out["blocked"][1:] == (0, {"frame_sweep": 0, "apply_deg_sweep": 0,
+                                      "apply_sweep": 0})
+    assert out["pcells"][1:] == (0, {"frame_sweep": steps + 1,
+                                     "apply_deg_sweep": steps,
+                                     "apply_sweep": steps})
+    rb, rp = out["blocked"][0].double(), out["pcells"][0].double()
+    assert float((rb - rp).abs().max()) <= 1e-4 * float(rp.abs().max())
