@@ -163,7 +163,24 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     finite rewards and launches 201/200/200 per episode); and
     ``profile_large_n --n 100000 --steps 10`` (not 25), its trace in a
     temporary directory;
-16. budget: the run, build included, must finish in BUDGET_S; a watchdog
+16. mesh, the agent-sharded path (every rank sweeps its band of grid
+    rows and a collective completes the tables; the card is one, so D
+    ranks' bands run one after another). (a) A perturbed lattice at N =
+    100,000 (edge 1, cap 16, ``make_pcell_spec(n_dev=4)``): for D = 2 and
+    4, each of the D bands of K1, K2 at 12 columns and K3 at 6 (the
+    row-strided view) against its plain band version (phase 3's
+    tolerance, degrees and min r^2 exact), and the D bands' sum equal to
+    the full launch bit for bit. (b) A one-rank NCCL process group
+    (``tcp://127.0.0.1:<free port>``) and ``make_mesh(1, 1)``: phase 4's
+    episode through the evaluate entry point with that mesh (the sharded
+    grid build, the all_reduce completions, the sharded actor and its
+    all_gather): the counters zeroed before must read 201/200/200 after,
+    overflow 0, and the reward equal phase 4's bit for bit. (c) On that
+    mesh, ``rollout_large(force_n_dev=4)`` at N = 100,000 for 25 steps
+    (and the real one-rank mesh beside it): ms per step and device-busy
+    ms per step printed, not gated; the emulated run's results are not
+    valid by design. The group is destroyed after; any failure raises;
+17. budget: the run, build included, must finish in BUDGET_S; a watchdog
     ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
@@ -186,6 +203,7 @@ import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -278,6 +296,10 @@ REL_STEP = 1e-4
 # Adam's largest step, in units of lr: |m_hat| / sqrt(v_hat) is at most
 # (1 - beta1) / sqrt(1 - beta2) with torch's default betas
 ADAM_STEP_MAX = (1 - 0.9) / math.sqrt(1 - 0.999)
+MESH_N = 100_000              # phase 16: bands, and force_n_dev timing
+MESH_DEVS = (2, 4)
+MESH_FORCE = 4
+MESH_STEPS = 25
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -879,6 +901,130 @@ def tools_phase(cc):
     with tempfile.TemporaryDirectory() as tmp:
         _, out["profile_large_n_s"] = _tool(profile_large_n.main, [
             "--n", "100000", "--steps", "10", "--out", tmp])
+    cc.reset_launch_counts()
+    return out
+
+
+def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
+               _init_candidate, load_ini, reward):
+    """Phase 16: the agent-sharded path on the card (module docstring):
+    (a) the bands of K1-K3 against the full launches and their plain band
+    versions at N = MESH_N, (b) a one-rank NCCL mesh through the evaluate
+    entry point against phase 4's reward, (c) force_n_dev band timing.
+    Returns what the phase line prints."""
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(DEVICE)
+    out = {}
+    # (a) D bands of the grid rows sum to the whole grid bit for bit
+    p = FlockingParams(n_agents=MESH_N)
+    spec = cc.make_pcell_spec(p, n_dev=max(MESH_DEVS))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    x = _init_candidate(gen, p, dev)
+    x[:, :2] += 0.05 * torch.randn((MESH_N, 2), generator=gen, device=dev)
+    grid = cc.build_pcell_grid(x[:, :2], spec)
+    if int(grid.overflow):
+        raise AssertionError(f"overflow at N={MESH_N}")
+    deg = cc.frame_sweep(x, grid, spec, 1.0, True)[:, 6].contiguous()
+    cols = torch.randn((MESH_N, 12), generator=gen, device=dev)
+    pos = x[:, :2].contiguous()
+    sweeps = {
+        "K1": (lambda b: cc.frame_sweep(x, grid, spec, 1.0, True, band=b),
+               lambda b: cc.frame_sweep_plain(x, grid, spec, 1.0, True,
+                                              band=b), (6, 9)),
+        "K2 C=12": (lambda b: cc.apply_deg_sweep(x, cols, deg, grid, spec,
+                                                 1.0, band=b),
+                    lambda b: cc.apply_deg_sweep_plain(
+                        x, cols, deg, grid, spec, 1.0, band=b), ()),
+        "K3 C=6": (lambda b: cc.apply_sweep(pos, cols[:, 6:], deg, grid,
+                                            spec, 1.0, band=b),
+                   lambda b: cc.apply_sweep_plain(pos, cols[:, 6:], deg,
+                                                  grid, spec, 1.0, band=b),
+                   ()),
+    }
+    band_err = 0.0
+    for name, (kernel, plain, exact) in sweeps.items():
+        full = kernel(None)
+        for d in MESH_DEVS:
+            total = torch.zeros_like(full)
+            for r in range(d):
+                band = cc.row_band(spec, d, r)
+                got = kernel(band)
+                band_err = max(band_err, check_close(
+                    f"{name} band {band} of D={d} vs plain", got,
+                    plain(band), REL_PLAIN, exact_channels=exact))
+                total += got
+            torch.cuda.synchronize()
+            if not torch.equal(total, full):
+                raise AssertionError(f"{name}: the {d} bands do not sum to "
+                                     f"the full launch")
+            print(f"#   {name}: {d} bands sum to the full launch bit for "
+                  f"bit", flush=True)
+    out["band_max_abs_err"] = band_err
+
+    # (b) a one-rank NCCL mesh through the evaluate entry point
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = pm.make_mesh(1, 1)
+        section = load_ini(CONFIG)["n32k"]
+        cc.reset_launch_counts()
+        t = time.perf_counter()
+        stats = ev.evaluate_blocked(section, CHECKPOINT, n_agents=N,
+                                    n_episodes=1, device=DEVICE, mesh=mesh)
+        torch.cuda.synchronize()
+        episode_s = time.perf_counter() - t
+        launches = cc.launch_counts()
+        want = {"frame_sweep": 201, "apply_deg_sweep": 200,
+                "apply_sweep": 200}
+        if launches != want or stats["overflow"] != 0:
+            raise AssertionError(f"mesh episode: launches {launches}, "
+                                 f"overflow {stats['overflow']}")
+        if stats["mean"] != reward:
+            raise AssertionError(f"mesh episode reward {stats['mean']!r} != "
+                                 f"the single-device {reward!r}")
+        out.update(mesh_reward=repr(stats["mean"]),
+                   mesh_ms_per_step=f"{episode_s / 200 * 1e3:.3f}",
+                   mesh_launches=json.dumps(launches, separators=(",", ":")))
+
+        # (c) force_n_dev: one rank's program of a MESH_FORCE-rank mesh
+        acfg = ActorConfig(n_s=6, n_a=2, hidden=(32, 32), k=3)
+        actor = ev.load_actor(CHECKPOINT, acfg, dev)
+        p100 = FlockingParams(n_agents=MESH_N, episode_steps=MESH_STEPS)
+        for d in (1, MESH_FORCE):
+            def run():
+                g = torch.Generator(device=dev).manual_seed(SEED)
+                return ln.rollout_large(actor, acfg, g, p100, device=dev,
+                                        mesh=mesh, force_n_dev=d)
+            run()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t) / MESH_STEPS
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+            summary = summarize_trace(
+                prof.events(), MESH_STEPS, ms,
+                1e3 * (time.perf_counter() - t) / MESH_STEPS, top=3)
+            busy = ("not measured" if summary is None
+                    else f"{summary['busy_ms']:.4f}")
+            note = ("the real one-rank mesh" if d == 1 else
+                    "emulated rank 0 of 4, collectives replaced by local "
+                    "operations: its rewards are not valid by design")
+            print(f"#   force_n_dev={d} at N={MESH_N}, {MESH_STEPS} steps: "
+                  f"{ms:.4f} ms/step, busy {busy} ms/step ({note}; not "
+                  f"gated)", flush=True)
+            out[f"D{d}_ms_per_step"] = f"{ms:.4f}"
+    finally:
+        torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out
 
@@ -1805,7 +1951,13 @@ def main():
     phase("tools", t, **{k: (f"{v:.2f}" if isinstance(v, float) else v)
                          for k, v in tools.items()})
 
-    # 16. budget
+    # 16. the agent-sharded path: bands, a one-rank NCCL mesh, force_n_dev
+    t = time.perf_counter()
+    mesh = mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
+                      _init_candidate, load_ini, reward)
+    phase("mesh", t, **mesh)
+
+    # 17. budget
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:

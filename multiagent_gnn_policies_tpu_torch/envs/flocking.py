@@ -293,12 +293,21 @@ def reset(gen: torch.Generator, p: FlockingParams,
 
 
 def dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
-             gen: Optional[torch.Generator] = None) -> torch.Tensor:
+             gen: Optional[torch.Generator] = None,
+             global_start: Optional[int] = None) -> torch.Tensor:
     """Double-integrator step of ``(..., N, 4)`` states: clip, gain,
-    leaders, drag, velocity noise (drawn from ``gen``)."""
+    leaders, drag, velocity noise (drawn from ``gen``).
+
+    ``global_start``: ``x`` is the slice of the swarm's agents from this
+    global index on (an agent-sharded step; None: ``x`` is the whole
+    swarm). The leader mask then tests global indices, and the noise is
+    drawn for the whole ``(p.n_agents, 2)`` swarm and sliced, so that every
+    rank consumes the single-process stream (the JAX package's
+    ``parallel/large_n.py:_dynamics``)."""
     u = torch.clamp(action, -p.max_accel, p.max_accel) * p.gain
+    first, local = global_start or 0, x.shape[-2]
     if p.n_leaders > 0:
-        is_leader = (torch.arange(x.shape[-2], device=x.device)
+        is_leader = (torch.arange(first, first + local, device=x.device)
                      < p.n_leaders)[:, None]
         u = torch.where(is_leader, 0.0, u)
     pos = x[..., 0:2] + x[..., 2:4] * p.dt + 0.5 * u * p.dt * p.dt
@@ -306,8 +315,12 @@ def dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
     if p.drag > 0.0:
         vel = vel * (1.0 - p.drag * p.dt)
     if p.dynamics_noise > 0.0:
-        noise = torch.randn(vel.shape, generator=gen, device=x.device,
+        shape = vel.shape if global_start is None else (
+            *vel.shape[:-2], p.n_agents, 2)
+        noise = torch.randn(shape, generator=gen, device=x.device,
                             dtype=vel.dtype)
+        if global_start is not None:
+            noise = noise[..., first:first + local, :]
         vel = vel + p.dynamics_noise * noise
     return torch.cat([pos, vel], -1)
 

@@ -34,6 +34,19 @@ out.npz`` writes one greedy episode's states: on the dense path ``x (T, N,
 for M = min(2000, N) evenly spaced agents, ``reward``, ``final_x (N, 4)``
 and ``subset_indices (M,)``.
 
+``--mesh D`` shares the large-N route's sweeps over the ``agents`` axis of
+D processes, one per device (``parallel/large_n.py``), and implies that
+route, as in the JAX CLI. Launch one process per card:
+
+    MAGNN_AUTO_DISTRIBUTED=1 torchrun --nproc-per-node D \
+        -m multiagent_gnn_policies_tpu_torch.evaluate cfg/dagger_n32k.cfg \
+        --actor-path models/actor_FlockingRelative-v0_dagger_n32k.npz \
+        --n-agents 32768 --mesh D
+
+(or set MAGNN_COORDINATOR, MAGNN_NUM_PROCESSES and MAGNN_PROCESS_ID per
+process; ``--device cpu`` takes gloo on the CPU). Every rank rolls the same
+episodes and rank 0 prints. A world size other than D exits non-zero.
+
 ``alg = ddpg`` sections on the dense route score the DDPG policy class
 (aggregation halfway, the section's ``policy_bound``) through the dense
 DDPG learner's eval, ``n_test_episodes`` episodes as one batch drawn from
@@ -60,6 +73,7 @@ from multiagent_gnn_policies_tpu_torch.models.torch_import import (
     actor_params_from_numpy,
     actor_params_from_state_dict,
 )
+from multiagent_gnn_policies_tpu_torch.parallel import distributed
 from multiagent_gnn_policies_tpu_torch.parallel.large_n import (
     rollout_large,
     traj_subset_indices,
@@ -118,12 +132,15 @@ def episode_generator(seed: int, episode: int, device) -> torch.Generator:
 def evaluate_blocked(section, actor_path: Optional[str], k=None,
                      n_agents=None, n_episodes=None, per_episode=False,
                      cell_margin=None, expert=False, cell_cap=None,
-                     cell_edge_mult=None, traj_path=None, device="cuda"):
+                     cell_edge_mult=None, traj_path=None, device="cuda",
+                     mesh=None):
     """Large-N evaluation under ``section``'s env: greedy episodes of the
     checkpoint at ``actor_path`` with filter length ``k`` (the section's
     when None), or of the analytic expert with ``expert`` (``actor_path``
     unused). ``cell_margin``, ``cell_cap`` and ``cell_edge_mult`` override
     the section's grid; ``traj_path`` receives episode 0's trajectory.
+    ``mesh``: a ``DeviceMesh`` whose ``agents`` axis shares the sweeps;
+    every rank calls this alike and only rank 0 prints and writes.
 
     Returns ``{"mean", "std", "rewards", "overflow"}``; exits with status 3
     when any step's cell grid overflowed."""
@@ -139,6 +156,7 @@ def evaluate_blocked(section, actor_path: Optional[str], k=None,
                            hidden=cfg.hidden, k=k or cfg.k, ind_agg=0)
         actor = load_actor(actor_path, acfg, device)
     traj_agents = min(TRAJ_AGENTS, p.n_agents) if traj_path else 0
+    lead = distributed.process_info()[0] == 0
     rewards, max_overflow = [], 0
     for ep in range(n_episodes or cfg.n_test_episodes):
         out = rollout_large(
@@ -148,9 +166,9 @@ def evaluate_blocked(section, actor_path: Optional[str], k=None,
             cap=cell_cap or cfg.cell_cap or None,
             cell_edge_mult=cell_edge_mult or cfg.cell_edge_mult,
             device=device, expert_mode=expert,
-            traj_agents=traj_agents if ep == 0 else 0)
+            traj_agents=traj_agents if ep == 0 else 0, mesh=mesh)
         r, final_x, ovf = out[:3]
-        if ep == 0 and traj_path:
+        if ep == 0 and traj_path and lead:
             np.savez(traj_path, x=out[3].cpu().numpy(), reward=r.cpu().numpy(),
                      final_x=final_x.cpu().numpy(),
                      subset_indices=traj_subset_indices(
@@ -159,10 +177,12 @@ def evaluate_blocked(section, actor_path: Optional[str], k=None,
                   f"{traj_agents}/{p.n_agents} agents) -> {traj_path}")
         total, ovf = float(r.sum()), int(ovf)
         max_overflow = max(max_overflow, ovf)
-        if per_episode:
+        if per_episode and lead:
             print(total if ovf == 0 else f"{total}  # OVERFLOW={ovf}")
         rewards.append(total)
     if max_overflow:
+        if not lead:
+            raise SystemExit(3)
         print(f"ERROR: neighbor-structure overflow={max_overflow} (max over "
               f"episodes/steps) — results are invalid; raise --cell-margin "
               f"or --cell-cap", file=sys.stderr)
@@ -276,6 +296,10 @@ def main(argv=None):
                     help="swarm-size override (takes the large-N path)")
     ap.add_argument("--episodes", type=int, default=None,
                     help="override n_test_episodes (large-N path)")
+    ap.add_argument("--mesh", type=int, default=0, metavar="D",
+                    help="share the large-N path's sweeps over D processes "
+                         "(the agents axis; one process per device, e.g. "
+                         "under torchrun); implies the large-N path")
     ap.add_argument("--per-episode", action="store_true",
                     help="print every episode reward")
     ap.add_argument("--save-trajectory", default=None,
@@ -296,26 +320,57 @@ def main(argv=None):
         ap.error("exactly one of --actor-path / --actor-base is required "
                  "(or pass --expert)")
 
+    mesh, device = None, args.device
+    if args.mesh:
+        mesh, device = mesh_from_environment(args.mesh, args.device)
+    lead = distributed.process_info()[0] == 0
     config = load_ini(args.config)
     sections = config.sections() or [config.default_section]
-    print(config[sections[0]].get("header"))
+    if lead:
+        print(config[sections[0]].get("header"))
     for name in sections:
         section = config[name]
         k, path = section_checkpoint(section, args.actor_path,
                                      args.actor_base, args.k)
-        if args.n_agents or args.expert:
+        if args.n_agents or args.expert or mesh is not None:
             stats = evaluate_blocked(
                 section, path, k=k, n_agents=args.n_agents,
                 n_episodes=args.episodes, per_episode=args.per_episode,
                 cell_margin=args.cell_margin, expert=args.expert,
                 cell_cap=args.cell_cap, cell_edge_mult=args.cell_edge_mult,
-                traj_path=args.save_trajectory, device=args.device)
+                traj_path=args.save_trajectory, device=device, mesh=mesh)
         else:
             stats = evaluate_section(section, path, k=k,
                                      per_episode=args.per_episode,
                                      traj_path=args.save_trajectory,
                                      device=args.device)
-        print(f"{name}, {stats['mean']}, {stats['std']}")
+        if lead:
+            print(f"{name}, {stats['mean']}, {stats['std']}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_from_environment(n_dev: int, device: str):
+    """``(mesh, this rank's device)`` for ``--mesh n_dev``: the process
+    group from the environment (``parallel.distributed``; gloo for
+    ``device`` "cpu") must hold exactly ``n_dev`` ranks, else this exits
+    non-zero naming what it needs."""
+    platform = "cpu" if device == "cpu" else None
+    if not distributed.maybe_initialize_distributed(platform):
+        raise SystemExit(
+            f"--mesh {n_dev} needs {n_dev} processes, one per device: run "
+            f"under `torchrun --nproc-per-node {n_dev}` with "
+            f"MAGNN_AUTO_DISTRIBUTED=1, or set MAGNN_COORDINATOR, "
+            f"MAGNN_NUM_PROCESSES={n_dev} and MAGNN_PROCESS_ID in each; this "
+            f"is one process with no process group")
+    world = distributed.process_info()[1]
+    if world != n_dev:
+        raise SystemExit(f"--mesh {n_dev} needs a world of {n_dev} "
+                         f"processes, one per device; this one has {world}")
+    from multiagent_gnn_policies_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, n_dev, device_type=device)
+    return mesh, distributed.local_device(platform)
 
 
 if __name__ == "__main__":

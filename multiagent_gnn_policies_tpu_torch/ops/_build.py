@@ -25,18 +25,20 @@ BUILD_DIR = _PKG / "_build"
 NVCC_TIMEOUT_S = 240
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# C signatures of the launchers in csrc/cells.cu
+# C signatures of the launchers in csrc/cells.cu; (row0, rows) is the band
+# of grid rows a launch sweeps, (0, cx) for the whole grid
 SIGNATURES = {
-    # x, kept, cell_start, out, n, cx, cy, tile, r2cut, centralized, stream
-    "cells_frame": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _P],
-    # x, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, tile, r2cut,
-    # stream
+    # x, kept, cell_start, out, n, cx, cy, row0, rows, tile, r2cut,
+    # centralized, stream
+    "cells_frame": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P],
+    # x, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, row0, rows,
+    # tile, r2cut, stream
     "cells_apply_deg": [_P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _F, _P],
-    # pos, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, tile, r2cut,
-    # stream
+                        _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    # pos, cols, deg, kept, cell_start, out, n, c, ld, cx, cy, row0, rows,
+    # tile, r2cut, stream
     "cells_apply": [_P, _P, _P, _P, _P, _P,
-                    _I, _I, _I, _I, _I, _I, _F, _P],
+                    _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 

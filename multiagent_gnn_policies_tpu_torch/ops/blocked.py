@@ -12,11 +12,23 @@ The counterpart of the JAX package's ``ops/blocked.py``:
   :func:`delay_carry_update` hold the feature history and the historical
   graphs' positions and degrees that the delayed y-stack reads;
   :func:`delayed_ystack` is the stack's O(N²) oracle at any K.
+
+``row_range = (start, length)`` sweeps only those agent rows, the share of
+one rank of a mesh's ``agents`` axis (the JAX package's ``row_range``):
+``blocked_frame`` returns the rows' quantities (the caller gathers them)
+and ``blocked_apply_adjT`` the rows' outputs with zeros elsewhere, which
+one ``all_reduce(SUM)`` completes (``delayed_ystack`` with ``axis``). The
+transpose-apply is taken per output row, ``out_j = sum_i adj[j, i] /
+deg_i · cols_i`` (the radius graph is symmetric bit for bit:
+``x_j - x_i = -(x_i - x_j)`` in IEEE arithmetic), where the JAX package
+sums partial columns ``adj[i, :]`` over the source rows: so each output
+row is one product over all N sources on every rank count, and the
+completed stack does not depend on how the rows are split.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,6 +36,8 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     COLLISION_R2_EPS,
     FlockingParams,
 )
+
+RowRange = Optional[Tuple[int, int]]
 
 
 class FrameQuantities(NamedTuple):
@@ -63,15 +77,23 @@ def _pair_blocks(xi, x, p: FlockingParams, rows):
     return dx, dy, r2, adj, self_mask
 
 
+def _rows(n: int, block: int, row_range: RowRange) -> range:
+    """The first row of each block of ``row_range`` (all N rows by
+    default)."""
+    start, length = (0, n) if row_range is None else row_range
+    if length % block:
+        raise ValueError(f"row count {length} not divisible by block {block}")
+    return range(start, start + length, block)
+
+
 def blocked_frame(x: torch.Tensor, p: FlockingParams, centralized: bool = True,
-                  block: int = 128) -> FrameQuantities:
-    """Observation features, degrees, expert and min r² of ``x`` (N, 4)."""
-    n = x.shape[0]
-    if n % block:
-        raise ValueError(f"row count {n} not divisible by block {block}")
+                  block: int = 128,
+                  row_range: RowRange = None) -> FrameQuantities:
+    """Observation features, degrees, expert and min r² of ``x`` (N, 4);
+    with ``row_range`` those of its rows only (min r² over them)."""
     values, degree, expert = [], [], []
     min_r2 = torch.full((), torch.inf, dtype=x.dtype, device=x.device)
-    for off in range(0, n, block):
+    for off in _rows(x.shape[0], block, row_range):
         xi = x[off:off + block]
         rows = torch.arange(off, off + block, device=x.device)
         dx, dy, r2, adj, self_mask = _pair_blocks(xi, x, p, rows)
@@ -107,25 +129,30 @@ def blocked_frame(x: torch.Tensor, p: FlockingParams, centralized: bool = True,
                            expert=torch.cat(expert), min_r2=min_r2)
 
 
+def _adj_rows(x: torch.Tensor, p: FlockingParams, off: int, block: int):
+    rows = torch.arange(off, off + block, device=x.device)
+    return _pair_blocks(x[off:off + block], x, p, rows)[3]
+
+
 def blocked_apply_adjT(pos: torch.Tensor, cols: torch.Tensor,
                        p: FlockingParams, block: int = 128,
-                       deg: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """``out[j] = sum_i adj[i, j] / deg_i · cols[i]`` without storing adj.
+                       deg: Optional[torch.Tensor] = None,
+                       row_range: RowRange = None) -> torch.Tensor:
+    """``out[j] = sum_i adj[i, j] / deg_i · cols[i]`` without storing adj,
+    one block of output rows at a time (``adj`` is symmetric).
 
-    ``deg``: the (N,) radius degrees of ``pos``'s graph, recomputed per
-    block when ``None``."""
+    ``deg``: the (N,) radius degrees of ``pos``'s graph, recomputed when
+    ``None``. ``row_range``: only those output rows, zeros elsewhere."""
     n = pos.shape[0]
-    if n % block:
-        raise ValueError(f"row count {n} not divisible by block {block}")
     x = torch.cat([pos, torch.zeros_like(pos)], -1)
-    acc = torch.zeros((n, cols.shape[1]), dtype=cols.dtype, device=cols.device)
-    for off in range(0, n, block):
-        rows = torch.arange(off, off + block, device=pos.device)
-        _, _, _, adj, _ = _pair_blocks(x[off:off + block], x, p, rows)
-        d = adj.sum(1) if deg is None else deg[off:off + block]
-        aod = adj / torch.clamp_min(d, 1.0)[:, None]
-        acc = acc + aod.T @ cols[off:off + block]
-    return acc
+    if deg is None:
+        deg = torch.cat([_adj_rows(x, p, off, block).sum(1)
+                         for off in _rows(n, block, None)])
+    inv = 1.0 / torch.clamp_min(deg, 1.0)[None, :]
+    out = torch.zeros((n, cols.shape[1]), dtype=cols.dtype, device=cols.device)
+    for off in _rows(n, block, row_range):
+        out[off:off + block] = (_adj_rows(x, p, off, block) * inv) @ cols
+    return out
 
 
 class DelayCarry(NamedTuple):
@@ -156,7 +183,8 @@ def delay_carry_init(values: torch.Tensor, n: int, k: int) -> DelayCarry:
 
 def delayed_ystack(carry: DelayCarry, pos_now: torch.Tensor,
                    p: FlockingParams, block: int = 128,
-                   deg_now: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   deg_now: Optional[torch.Tensor] = None,
+                   row_range: RowRange = None, axis=None) -> torch.Tensor:
     """The aggregated delayed stack ``y_k = G_k(t)^T x_{t-k}`` (K, N, F) by
     K-1 blocked transpose-applies over the historical graphs: ``A_t^T`` to
     every delayed slot, then ``A_{t-1}^T`` to slots >= 2, ... (newest
@@ -168,6 +196,9 @@ def delayed_ystack(carry: DelayCarry, pos_now: torch.Tensor,
         (``history[0]`` is x_t, ``pos_hist[0]`` the positions at t-1, ...).
       pos_now: (N, 2) current positions (the graph ``A_t``).
       deg_now: (N,) degrees of ``A_t``, recomputed when None.
+      row_range / axis: each rank sweeps its output rows and an
+        ``all_reduce(SUM)`` over ``axis`` (a ``parallel.distributed.
+        AxisGroup``) completes every apply.
     """
     k = carry.history.shape[0]
     n, f = carry.history.shape[1:]
@@ -179,7 +210,10 @@ def delayed_ystack(carry: DelayCarry, pos_now: torch.Tensor,
         pos_s = pos_now if s == 0 else carry.pos_hist[s - 1]
         deg_s = deg_now if s == 0 else carry.deg_hist[s - 1]
         cols = v[s:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
-        out = blocked_apply_adjT(pos_s, cols, p, block, deg=deg_s)
+        out = blocked_apply_adjT(pos_s, cols, p, block, deg=deg_s,
+                                 row_range=row_range)
+        if axis is not None:
+            axis.all_reduce(out)
         v[s:] = out.reshape(n, k - 1 - s, f).transpose(0, 1)
         y.append(v[s])
     return torch.stack(y)

@@ -29,6 +29,17 @@ independent of the others, so on the card a column block wider than the
 built widths (``APPLY_COLS``) is launched in chunks (:func:`apply_chunks`),
 one launch each, as the JAX package's ``max_cols`` chunks its columns.
 
+Each kernel and plain version takes a ``band`` ``(row0, rows)`` of grid
+rows (the whole grid by default): it writes the outputs of the kept agents
+in those rows, and, in the band that starts at row 0, of the dropped
+agents, and 0 for every other agent (:func:`band_agents`), so that the
+bands of a partition of the rows sum to the whole grid's outputs exactly.
+That is how a mesh's ``agents`` axis shares the sweeps: rank d sweeps its
+band of ``cx / D`` rows and one ``all_reduce(SUM)`` completes the (N, C)
+tables (``frame``, ``frame_apply``, ``apply_adjT`` and ``ystack_pre`` with
+``band`` and ``axis``; the JAX package's ``row_range`` and ``axis_name``);
+:func:`build_pcell_grid_sharded` shares the grid build's sort.
+
 The plain versions gather each agent's 9·cap candidates: O(N · 9 · cap)
 memory, fine on the card at N = 32,768, never an (N, N) array; at larger
 N they take a slice of rows at a time (``rows``).
@@ -37,9 +48,10 @@ N they take a slice of rows at a time (``rows``).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     COLLISION_R2_EPS,
@@ -52,6 +64,7 @@ from multiagent_gnn_policies_tpu_torch.ops.blocked import (
 from multiagent_gnn_policies_tpu_torch.ops.precision import (
     centralized_consensus,
 )
+from multiagent_gnn_policies_tpu_torch.parallel.distributed import AxisGroup
 
 # column counts the apply kernels are built for (cells.cu): K2's (K-1)·F
 # and K3's (K-1-s)·F up to K = 4, F = 6; the delayed stack's column blocks
@@ -86,14 +99,62 @@ class PCellSpec(NamedTuple):
 
 
 def make_pcell_spec(p: FlockingParams, cap: int = 16, margin: float = 1.3,
-                    edge_mult: float = 1.0) -> PCellSpec:
+                    edge_mult: float = 1.0, n_dev: int = 1) -> PCellSpec:
     """A square grid for ``p``'s initial swarm extent times ``margin``, with
     cells of ``edge_mult`` times the minimum legal edge (the sweep is exact
-    for any ``edge_mult >= 1``; the per-step overflow certifies capacity)."""
+    for any ``edge_mult >= 1``; the per-step overflow certifies capacity).
+    ``n_dev > 1`` rounds ``cx`` up to a multiple of it, so that each of
+    ``n_dev`` ranks sweeps an equal band of grid rows (:func:`row_band`)."""
     cell = max(p.comm_radius, 1.0) * edge_mult
     extent = 2.0 * math.sqrt(p.arena_r2_per_agent * p.n_agents) * margin
     need = max(3, math.ceil(extent / cell) + 2)
-    return PCellSpec(cx=need, cy=need, cap=cap, cell=cell)
+    d = max(1, n_dev)
+    return PCellSpec(cx=-(-need // d) * d, cy=need, cap=cap, cell=cell)
+
+
+def row_band(spec: PCellSpec, n_dev: int, index: int) -> Tuple[int, int]:
+    """``(row0, rows)``: the band of grid rows of rank ``index`` of
+    ``n_dev`` (``spec.cx`` a multiple of ``n_dev``; the JAX package's
+    ``_cell_row_range``)."""
+    if spec.cx % n_dev:
+        raise ValueError(f"{spec.cx} grid rows do not split into {n_dev} "
+                         f"equal bands (make_pcell_spec(n_dev={n_dev}))")
+    rows = spec.cx // n_dev
+    return index * rows, rows
+
+
+def _band(spec: PCellSpec, band: Optional[Tuple[int, int]]
+          ) -> Tuple[int, int]:
+    """``band`` checked against the grid: at least one row, inside it;
+    ``(0, cx)`` for None."""
+    if band is None:
+        return 0, spec.cx
+    row0, rows = (int(v) for v in band)
+    if row0 < 0 or rows < 1 or row0 + rows > spec.cx:
+        raise ValueError(f"band of grid rows ({row0}, {rows}) is not inside "
+                         f"the grid's {spec.cx} rows")
+    return row0, rows
+
+
+def band_agents(grid: "PCellGrid", spec: PCellSpec,
+                band: Tuple[int, int]) -> torch.Tensor:
+    """(N,) bool: the agents whose outputs a sweep over ``band`` writes:
+    the kept agents of its grid rows and, when it starts at row 0, the
+    dropped ones (each dropped agent is filled by exactly one band)."""
+    row0, rows = band
+    i = grid.slot // (spec.cap * spec.cy)
+    own = (grid.slot >= 0) & (i >= row0) & (i < row0 + rows)
+    return own | (grid.slot < 0) if row0 == 0 else own
+
+
+def _banded(out: torch.Tensor, grid: "PCellGrid", spec: PCellSpec,
+            band: Tuple[int, int], rows: slice) -> torch.Tensor:
+    """The plain versions' band: ``out`` (of the agents ``rows``) with
+    every agent outside ``band`` set to 0."""
+    if band == (0, spec.cx):
+        return out
+    own = band_agents(grid, spec, band)[rows]
+    return torch.where(own[:, None], out, 0.0)
 
 
 class PCellGrid(NamedTuple):
@@ -154,6 +215,111 @@ def build_pcell_grid(pos: torch.Tensor, spec: PCellSpec) -> PCellGrid:
                      cell_start=cell_start, overflow=n - cell_start[ncell])
 
 
+def _grid_from_slots(slot: torch.Tensor, opos: torch.Tensor,
+                     spec: PCellSpec) -> PCellGrid:
+    """The grid of the whole swarm from its (N,) slots and each agent's
+    position ``opos`` in the stable cell-id order, with no sort: ``order``
+    inverts ``opos``, ``kept`` moves the dropped agents behind the kept ones
+    in that order (a prefix count), and ``cell_start`` is the exclusive
+    prefix of the kept agents per cell (:func:`build_pcell_grid`'s tables,
+    equal to them)."""
+    n = slot.shape[0]
+    dev = slot.device
+    ncell = spec.cx * spec.cy
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    order = torch.empty_like(idx).scatter_(0, opos.long(), idx)
+    ok = slot[order.long()] >= 0
+    n_kept = torch.cumsum(ok, 0, dtype=torch.int32)
+    n_ok = n_kept[-1]
+    kpos = torch.where(ok, n_kept - 1, n_ok + idx - n_kept)
+    kept = torch.empty_like(idx).scatter_(0, kpos.long(), order)
+    s = slot.clamp_min(0)
+    cell = torch.where(slot >= 0, s // (spec.cap * spec.cy) * spec.cy
+                       + s % spec.cy, ncell)
+    count = torch.zeros(ncell + 1, dtype=torch.int32, device=dev).scatter_add_(
+        0, cell.long(), torch.ones_like(idx))
+    cell_start = torch.cat([count.new_zeros(1),
+                            torch.cumsum(count[:ncell], 0, dtype=torch.int32)])
+    return PCellGrid(slot=slot, order=order, kept=kept,
+                     cell_start=cell_start, overflow=n - cell_start[ncell])
+
+
+def build_pcell_grid_sharded(pos: torch.Tensor, spec: PCellSpec,
+                             axis: AxisGroup) -> PCellGrid:
+    """:func:`build_pcell_grid` with its sort shared over the ranks of
+    ``axis`` (the JAX package's ``build_pcell_grid_sharded``): each rank
+    sorts its own contiguous 1/D slice of the agents by cell id and ranks
+    them within their runs; the per-cell counts of all ranks
+    (``all_gather``) give each rank's offset in every cell's run (the
+    exclusive prefix over the ranks before it), so local rank plus offset
+    is the rank of the global stable sort (slices are contiguous and
+    ascending, so ties break by agent index either way). One more
+    ``all_gather`` brings every agent's slot and position in the cell-id
+    order, from which every rank builds ``kept`` and ``cell_start``
+    locally (:func:`_grid_from_slots`). Equal to the replicated build
+    field for field. The origin is the ``MIN`` over the ranks' slices.
+
+    Collective bytes per build: 4·D·cx·cy of counts and 8·N of slots and
+    positions gathered, 8 of the origin reduced.
+
+    Under ``axis.emulated`` (the force_n_dev timing mode on one device) the
+    collectives are replaced by local operations of the same shapes and
+    the grid is not this swarm's: the slice is strided (a thinned copy of
+    the whole swarm rather than a ring of the radially ordered lattice),
+    and its D copies, each offset in rank by one more slice's counts, stand
+    in for the other ranks' slots. So the cells hold about the real
+    density, every index is in range, and the result is a valid grid of
+    other agents; the rewards of such a run mean nothing. Raises when N is
+    not a multiple of D (the caller then uses the replicated build)."""
+    n = pos.shape[0]
+    d_n, d = axis.n_dev, axis.index
+    if n % d_n:
+        raise ValueError(f"the sharded grid build needs N divisible by the "
+                         f"{d_n} ranks ({n} % {d_n} = {n % d_n})")
+    local = n // d_n
+    dev = pos.device
+    ps = pos[d::d_n] if axis.emulated else pos[d * local:(d + 1) * local]
+    origin = axis.all_reduce(ps.min(0).values.contiguous(), dist.ReduceOp.MIN)
+    ij = torch.floor((ps - origin) / spec.cell).to(torch.int32)
+    in_grid = (ij[:, 0] < spec.cx) & (ij[:, 1] < spec.cy)
+    cid = (torch.clamp_max(ij[:, 0], spec.cx - 1) * spec.cy
+           + torch.clamp_max(ij[:, 1], spec.cy - 1))
+    o_loc = torch.argsort(cid, stable=True)
+    sc = cid[o_loc]
+    rank_loc = (torch.arange(local, dtype=torch.int32, device=dev)
+                - torch.searchsorted(sc, sc, out_int32=True))
+    ncell = spec.cx * spec.cy
+    counts = torch.zeros(ncell, dtype=torch.int32, device=dev).scatter_add_(
+        0, sc.long(), torch.ones_like(sc))
+    ig = in_grid[o_loc]
+
+    def slots_and_positions(base, prefix):
+        """(..., local, 2): each local agent's slot and position in the
+        cell-id order, in agent order, for offsets ``base`` (..., local)
+        in the runs of its sorted cell ids."""
+        rank = rank_loc + base
+        ok = (rank < spec.cap) & ig
+        slot_s = torch.where(
+            ok, (sc // spec.cy * spec.cap + rank) * spec.cy + sc % spec.cy, -1)
+        both = torch.stack([slot_s, prefix[sc] + rank], -1)
+        return torch.empty_like(both).index_copy_(-2, o_loc, both)
+
+    if axis.emulated:
+        # copy r of the slice sits behind r slices in every cell's run; the
+        # D copies in one batch, as many operations as a real rank's
+        prefix = (torch.cumsum(counts, 0, dtype=torch.int32) - counts) * d_n
+        r = torch.arange(d_n, dtype=torch.int32, device=dev)[:, None]
+        both = slots_and_positions(r * counts[sc], prefix)   # (D, local, 2)
+        both = both.transpose(0, 1).reshape(n, 2)
+    else:
+        counts_all = axis.all_gather(counts[None])             # (D, ncell)
+        base = torch.cumsum(counts_all, 0, dtype=torch.int32) - counts_all
+        total = counts_all.sum(0, dtype=torch.int32)
+        prefix = torch.cumsum(total, 0, dtype=torch.int32) - total
+        both = axis.all_gather(slots_and_positions(base[d][sc], prefix))
+    return _grid_from_slots(both[:, 0].contiguous(), both[:, 1], spec)
+
+
 def tile_cells(spec: PCellSpec, n: int) -> int:
     """Columns per tile (of ``TILE_ROWS`` grid rows): those that hold
     ``TILE_AGENTS`` agents at the grid's mean density. Static: from the
@@ -211,9 +377,12 @@ def _pair_geometry(pos: torch.Tensor, cand: torch.Tensor,
 
 def frame_sweep_plain(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
                       r2cut: float, centralized: bool,
-                      rows: slice = slice(None)) -> torch.Tensor:
+                      rows: slice = slice(None),
+                      band: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """K1's function in plain PyTorch: (N, 4) -> (N, 10), or the rows
-    ``rows`` of it (a slice: the candidate gather is (rows, 9·cap))."""
+    ``rows`` of it (a slice: the candidate gather is (rows, 9·cap)), over
+    the grid rows ``band`` (all by default; 0 for the agents outside)."""
     valid, xj, dx, dy, r2 = _pair_geometry(
         x, _candidates(grid, spec, rows), rows)
     dvx = x[rows, None, 2] - xj[..., 2]
@@ -229,33 +398,38 @@ def frame_sweep_plain(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
              (-2.0 * dy * inv4 + 2.0 * dy * inv2) * gmask)
     out = [t.sum(1) for t in parts]
     out.append(torch.where(valid, r2, MIN_R2_FILL).amin(1))
-    return torch.stack(out, -1)
+    return _banded(torch.stack(out, -1), grid, spec, _band(spec, band), rows)
 
 
 def apply_deg_sweep_plain(x: torch.Tensor, cols: torch.Tensor,
                           deg: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-                          r2cut: float,
-                          rows: slice = slice(None)) -> torch.Tensor:
+                          r2cut: float, rows: slice = slice(None),
+                          band: Optional[Tuple[int, int]] = None
+                          ) -> torch.Tensor:
     """K2's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1)
-    (for the agents ``rows``)."""
+    (for the agents ``rows``, over the grid rows ``band``)."""
     cand = _candidates(grid, spec, rows)
     valid, _, _, _, r2 = _pair_geometry(x[:, :2], cand, rows)
     jj = cand.clamp_min(0)
     w = (valid & (r2 < r2cut)).to(cols.dtype) / deg[jj].clamp_min(1.0)
-    return (w[..., None] * cols[jj]).sum(1)
+    return _banded((w[..., None] * cols[jj]).sum(1), grid, spec,
+                   _band(spec, band), rows)
 
 
 def apply_sweep_plain(pos: torch.Tensor, cols: torch.Tensor,
                       deg: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
-                      r2cut: float,
-                      rows: slice = slice(None)) -> torch.Tensor:
+                      r2cut: float, rows: slice = slice(None),
+                      band: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """K3's function in plain PyTorch: out_i = sum_j m·cols_j/max(deg_j, 1),
-    the columns divided first (for the agents ``rows``)."""
+    the columns divided first (for the agents ``rows``, over the grid rows
+    ``band``)."""
     cand = _candidates(grid, spec, rows)
     valid, _, _, _, r2 = _pair_geometry(pos, cand, rows)
     m = (valid & (r2 < r2cut)).to(cols.dtype)
     wcols = cols / torch.clamp_min(deg, 1.0)[:, None]
-    return (m[..., None] * wcols[cand.clamp_min(0)]).sum(1)
+    return _banded((m[..., None] * wcols[cand.clamp_min(0)]).sum(1), grid,
+                   spec, _band(spec, band), rows)
 
 
 # --- kernel wrappers ------------------------------------------------------
@@ -304,20 +478,32 @@ def _launch(fn_name: str, *args) -> None:
         raise RuntimeError(f"{fn_name} launch failed: CUDA error {rc}")
 
 
+def _output(spec: PCellSpec, band: Tuple[int, int], shape, dtype, device):
+    """A kernel's output: a partial band leaves the other agents' rows
+    unwritten, so they start at 0."""
+    new = torch.empty if band == (0, spec.cx) else torch.zeros
+    return new(shape, dtype=dtype, device=device)
+
+
 def frame_sweep(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
                 r2cut: float, centralized: bool,
-                tile: Optional[int] = None) -> torch.Tensor:
+                tile: Optional[int] = None,
+                band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """K1: the (N, 10) frame channels of ``x`` (N, 4) over ``grid``.
-    ``tile``: cells per block (default :func:`tile_cells`)."""
+    ``tile``: cells per block (default :func:`tile_cells`); ``band``:
+    ``(row0, rows)`` of grid rows swept (all by default; 0 for the agents
+    outside it, :func:`band_agents`)."""
     if not x.is_cuda:
-        return frame_sweep_plain(x, grid, spec, r2cut, centralized)
+        return frame_sweep_plain(x, grid, spec, r2cut, centralized,
+                                 band=band)
     n = x.shape[0]
+    band = _band(spec, band)
     _check("x", x, (n, 4), torch.float32, x.device, align=16)
     _check_grid(grid, spec, n, x.device)
-    out = torch.empty((n, FRAME_CHANNELS), dtype=x.dtype, device=x.device)
+    out = _output(spec, band, (n, FRAME_CHANNELS), x.dtype, x.device)
     _launch("cells_frame", x.data_ptr(), grid.kept.data_ptr(),
             grid.cell_start.data_ptr(), out.data_ptr(), n, spec.cx, spec.cy,
-            _tile(spec, n, tile), r2cut, int(centralized))
+            *band, _tile(spec, n, tile), r2cut, int(centralized))
     _count(frame_sweep, FRAME_CHANNELS)
     return out
 
@@ -358,21 +544,24 @@ def _count(wrapper, c: int) -> None:
 
 
 def _apply_chunked(wrapper, fn_name: str, first: int, cols: torch.Tensor,
-                   ptrs: Sequence[int], tail: Sequence,
+                   ptrs: Sequence[int], spec: PCellSpec,
+                   band: Tuple[int, int], tail: Sequence,
                    device) -> torch.Tensor:
     """Launch ``fn_name`` over the columns ``cols`` (N, C) in the chunks of
-    :func:`apply_chunks`, each read in place; its arguments are ``first``
-    (the state or positions), the chunk's columns, ``ptrs`` (degrees, kept,
-    cell starts), the chunk's output, N, the chunk's width, the row stride,
+    :func:`apply_chunks`, each read in place and each over the whole
+    ``band``; its arguments are ``first`` (the state or positions), the
+    chunk's columns, ``ptrs`` (degrees, kept, cell starts), the chunk's
+    output, N, the chunk's width, the row stride, the grid and the band,
     then ``tail``. Each launch is counted."""
     n, c = cols.shape
     chunks = apply_chunks(c)
     ld = _row_stride("cols", cols, (n, c), torch.float32, device)
     outs = []
     for c0, w in chunks:
-        out = torch.empty((n, w), dtype=cols.dtype, device=device)
+        out = _output(spec, band, (n, w), cols.dtype, device)
         _launch(fn_name, first, cols.data_ptr() + cols.element_size() * c0,
-                *ptrs, out.data_ptr(), n, w, ld, *tail)
+                *ptrs, out.data_ptr(), n, w, ld, spec.cx, spec.cy, *band,
+                *tail)
         _count(wrapper, w)
         outs.append(out)
     return outs[0] if len(outs) == 1 else torch.cat(outs, 1)
@@ -380,40 +569,48 @@ def _apply_chunked(wrapper, fn_name: str, first: int, cols: torch.Tensor,
 
 def apply_deg_sweep(x: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
                     grid: PCellGrid, spec: PCellSpec, r2cut: float,
-                    tile: Optional[int] = None) -> torch.Tensor:
+                    tile: Optional[int] = None,
+                    band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """K2: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``.
     ``cols`` may be a row-strided view (last stride 1, 8-byte aligned
     rows); it is read in place. ``tile``: cells per block (default
-    :func:`tile_cells`)."""
+    :func:`tile_cells`); ``band`` as :func:`frame_sweep`'s (``deg`` must
+    hold the degrees of the band's agents and of its two halo rows)."""
     if not x.is_cuda:
-        return apply_deg_sweep_plain(x, cols, deg, grid, spec, r2cut)
+        return apply_deg_sweep_plain(x, cols, deg, grid, spec, r2cut,
+                                     band=band)
     n = cols.shape[0]
+    band = _band(spec, band)
     _check("x", x, (n, 4), torch.float32, x.device, align=16)
     _check("deg", deg, (n,), torch.float32, x.device)
     _check_grid(grid, spec, n, x.device)
     return _apply_chunked(
         apply_deg_sweep, "cells_apply_deg", x.data_ptr(), cols,
         (deg.data_ptr(), grid.kept.data_ptr(), grid.cell_start.data_ptr()),
-        (spec.cx, spec.cy, _tile(spec, n, tile), r2cut), x.device)
+        spec, band, (_tile(spec, n, tile), r2cut), x.device)
 
 
 def apply_sweep(pos: torch.Tensor, cols: torch.Tensor, deg: torch.Tensor,
                 grid: PCellGrid, spec: PCellSpec, r2cut: float,
-                tile: Optional[int] = None) -> torch.Tensor:
+                tile: Optional[int] = None,
+                band: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """K3: ``out_i = sum_j m·cols_j / max(deg_j, 1)`` over ``grid``, the
     graph of ``pos`` whose degrees ``deg`` are. ``cols`` may be a
     row-strided view (last stride 1, 8-byte aligned rows); it is read in
-    place. ``tile``: cells per block (default :func:`tile_cells`)."""
+    place. ``tile``: cells per block (default :func:`tile_cells`); ``band``
+    as :func:`frame_sweep`'s."""
     if not pos.is_cuda:
-        return apply_sweep_plain(pos, cols, deg, grid, spec, r2cut)
+        return apply_sweep_plain(pos, cols, deg, grid, spec, r2cut,
+                                 band=band)
     n = cols.shape[0]
+    band = _band(spec, band)
     _check("pos", pos, (n, 2), torch.float32, pos.device, align=8)
     _check("deg", deg, (n,), torch.float32, pos.device)
     _check_grid(grid, spec, n, pos.device)
     return _apply_chunked(
         apply_sweep, "cells_apply", pos.data_ptr(), cols,
         (deg.data_ptr(), grid.kept.data_ptr(), grid.cell_start.data_ptr()),
-        (spec.cx, spec.cy, _tile(spec, n, tile), r2cut), pos.device)
+        spec, band, (_tile(spec, n, tile), r2cut), pos.device)
 
 
 KERNEL_WRAPPERS = (frame_sweep, apply_deg_sweep, apply_sweep)
@@ -439,7 +636,7 @@ def launch_counts_by_cols() -> dict:
 reset_launch_counts()
 
 
-# --- the JAX package's wrappers, on one device ----------------------------
+# --- the JAX package's wrappers, on one device or a band of a mesh -------
 
 def _expert_from(per: torch.Tensor, x: torch.Tensor,
                  centralized: bool) -> torch.Tensor:
@@ -463,53 +660,98 @@ def _frame_quantities(per: torch.Tensor, x: torch.Tensor, centralized: bool,
                            min_r2=per[:, 9].min())
 
 
+def _complete(t: torch.Tensor, axis: Optional[AxisGroup]) -> torch.Tensor:
+    """A band's (N, C) table summed over the ranks of ``axis`` (each agent
+    is written by one band, so the sum is exact); as it is without one."""
+    return t if axis is None else axis.all_reduce(t)
+
+
 def frame(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
           p: FlockingParams, centralized: bool = True,
-          need_expert: bool = False) -> FrameQuantities:
+          need_expert: bool = False,
+          band: Optional[Tuple[int, int]] = None,
+          axis: Optional[AxisGroup] = None) -> FrameQuantities:
     """Frame quantities of ``x`` (N, 4) through K1 (``blocked_frame``
     semantics; ``min_r2`` over each agent's 3x3-cell candidates). The
     expert only with ``need_expert`` (``expert`` is None otherwise: the
-    greedy policy path never reads it)."""
-    per = frame_sweep(x, grid, spec, float(p.comm_radius) ** 2, centralized)
-    return _frame_quantities(per, x, centralized, need_expert)
+    greedy policy path never reads it).
+
+    ``band`` / ``axis``: each rank sweeps its band of grid rows and one
+    ``all_reduce(SUM)`` over ``axis`` completes the (N, 10) table (the JAX
+    package's ``row_range`` / ``axis_name``)."""
+    per = frame_sweep(x, grid, spec, float(p.comm_radius) ** 2, centralized,
+                      band=band)
+    return _frame_quantities(_complete(per, axis), x, centralized,
+                             need_expert)
+
+
+def halo_band(spec: PCellSpec, band: Tuple[int, int]) -> Tuple[int, int]:
+    """``band`` with its halo rows above and below, inside the grid: the
+    rows whose degrees K2 reads for the agents of ``band``."""
+    row0, rows = band
+    lo, hi = max(row0 - 1, 0), min(row0 + rows + 1, spec.cx)
+    return lo, hi - lo
 
 
 def frame_apply(x: torch.Tensor, cols: torch.Tensor, grid: PCellGrid,
                 spec: PCellSpec, p: FlockingParams, centralized: bool = True,
-                need_expert: bool = False):
+                need_expert: bool = False,
+                band: Optional[Tuple[int, int]] = None,
+                axis: Optional[AxisGroup] = None):
     """:func:`frame`'s quantities and ``out_i = sum_{j in nbr(i)} cols_j /
     deg_j`` over the same new graph: K1, then K2 reading K1's degrees.
-    Returns ``(FrameQuantities, (N, C) applied columns)``."""
+    Returns ``(FrameQuantities, (N, C) applied columns)``.
+
+    ``band`` / ``axis`` as :func:`frame`'s; one ``all_reduce(SUM)`` of the
+    (N, 10 + C) table completes both. K2 on a band reads the degrees of
+    its two halo rows, which belong to the neighbouring ranks' bands: the
+    JAX package fetches them with a one-row ``ppermute`` each way; here K1
+    sweeps the band with its halo rows (:func:`halo_band`, two rows more
+    of the same launch, no exchange and no host-side sizes) and the halo
+    agents' channels are zeroed before the sum."""
     r2cut = float(p.comm_radius) ** 2
-    per = frame_sweep(x, grid, spec, r2cut, centralized)
+    own = _band(spec, band)
+    per = frame_sweep(x, grid, spec, r2cut, centralized,
+                      band=halo_band(spec, own))
     applied = apply_deg_sweep(x, cols.contiguous(), per[:, 6].contiguous(),
-                              grid, spec, r2cut)
+                              grid, spec, r2cut, band=own)
+    if own != (0, spec.cx):
+        per = torch.where(band_agents(grid, spec, own)[:, None], per, 0.0)
+    if axis is not None:
+        table = axis.all_reduce(torch.cat([per, applied], 1))
+        per, applied = table[:, :FRAME_CHANNELS], table[:, FRAME_CHANNELS:]
     return _frame_quantities(per, x, centralized, need_expert), applied
 
 
 def apply_adjT(pos_src: torch.Tensor, deg_src: torch.Tensor,
                cols: torch.Tensor, spec: PCellSpec, p: FlockingParams,
-               grid: Optional[PCellGrid] = None) -> torch.Tensor:
+               grid: Optional[PCellGrid] = None,
+               band: Optional[Tuple[int, int]] = None,
+               axis: Optional[AxisGroup] = None) -> torch.Tensor:
     """``out_i = sum_{j in nbr(i)} cols_j / deg_j`` over the radius graph of
     ``pos_src`` through K3 (the graph is symmetric, so the transpose-apply
-    is a neighbour sum of divided columns; K3 divides as it stages)."""
+    is a neighbour sum of divided columns; K3 divides as it stages).
+    ``band`` / ``axis`` as :func:`frame`'s."""
     pos_src = pos_src.contiguous()
     if grid is None:
         grid = build_pcell_grid(pos_src, spec)
-    return apply_sweep(pos_src, cols, deg_src, grid, spec,
-                       float(p.comm_radius) ** 2)
+    return _complete(apply_sweep(pos_src, cols, deg_src, grid, spec,
+                                 float(p.comm_radius) ** 2, band=band), axis)
 
 
 def ystack_pre(carry: DelayCarry, s0_out: torch.Tensor, spec: PCellSpec,
                p: FlockingParams,
-               grid_hist: Optional[Sequence[PCellGrid]] = None
-               ) -> torch.Tensor:
+               grid_hist: Optional[Sequence[PCellGrid]] = None,
+               band: Optional[Tuple[int, int]] = None,
+               axis: Optional[AxisGroup] = None) -> torch.Tensor:
     """The aggregated delayed stack ``y_k = G_k(t)^T x_{t-k}`` (K, N, F)
     with the s = 0 (current-graph) apply already done: ``s0_out`` is
     :func:`frame_apply`'s output of the previous step. Only the historical
     graphs' applies (s >= 1) remain, newest graph first. Each apply takes
     the slots not yet final as a row-strided view of the last output, and
-    its first slot is final: at K = 3 the step issues K3 and one stack."""
+    its first slot is final: at K = 3 the step issues K3 and one stack.
+    ``band`` / ``axis`` as :func:`frame`'s: one ``all_reduce`` per
+    historical apply."""
     k = carry.history.shape[0]
     n, f = carry.history.shape[1:]
     y = [carry.history[0]]
@@ -521,7 +763,8 @@ def ystack_pre(carry: DelayCarry, s0_out: torch.Tensor, spec: PCellSpec,
         pos_s, deg_s = carry.pos_hist[s - 1], carry.deg_hist[s - 1]
         grid_s = grid_hist[s - 1] if grid_hist else None
         cols = v[1:].transpose(0, 1).reshape(n, (k - 1 - s) * f)
-        out = apply_adjT(pos_s, deg_s, cols, spec, p, grid=grid_s)
+        out = apply_adjT(pos_s, deg_s, cols, spec, p, grid=grid_s,
+                         band=band, axis=axis)
         v = out.reshape(n, k - 1 - s, f).transpose(0, 1)      # slots s..K-2
         y.append(v[0])
     return torch.stack(y)

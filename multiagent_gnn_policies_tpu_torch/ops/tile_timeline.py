@@ -92,17 +92,18 @@ def main(argv=None) -> None:
     launches = {
         "K1 frame_kernel": lambda: lib.cells_frame(
             x.data_ptr(), grid.kept.data_ptr(), grid.cell_start.data_ptr(),
-            out1.data_ptr(), args.n, spec.cx, spec.cy, tile, 1.0, 1, stream),
+            out1.data_ptr(), args.n, spec.cx, spec.cy, 0, spec.cx, tile,
+            1.0, 1, stream),
         "K2 apply_deg_kernel<12>": lambda: lib.cells_apply_deg(
             x.data_ptr(), cols.data_ptr(), deg.data_ptr(),
             grid.kept.data_ptr(), grid.cell_start.data_ptr(),
-            out2.data_ptr(), args.n, 12, 12, spec.cx, spec.cy, tile, 1.0,
-            stream),
+            out2.data_ptr(), args.n, 12, 12, spec.cx, spec.cy, 0, spec.cx,
+            tile, 1.0, stream),
         "K3 apply_kernel<6>": lambda: lib.cells_apply(
             pos.data_ptr(), cols3.data_ptr(), deg.data_ptr(),
             grid.kept.data_ptr(), grid.cell_start.data_ptr(),
             out3.data_ptr(), args.n, 6, cols3.stride(0), spec.cx, spec.cy,
-            tile, 1.0, stream),
+            0, spec.cx, tile, 1.0, stream),
     }
     stamps = np.zeros((STAMP_BLOCKS, 8), np.int64)
     for name, launch in launches.items():

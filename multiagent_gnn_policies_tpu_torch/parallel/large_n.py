@@ -1,7 +1,8 @@
-"""Large-N rollouts on one device, through the cell sweeps.
+"""Large-N rollouts on one device or agent-sharded over a mesh, through the
+cell sweeps.
 
 The counterpart of the JAX package's ``parallel/large_n.py`` for the
-"pcells" path on one device: reset, then a Python loop of env steps
+"pcells" and "blocked" paths: reset, then a Python loop of env steps
 (the JAX package's ``lax.scan`` body, ``_scan_steps``). Each step of a K >= 2
 policy runs
 
@@ -34,6 +35,21 @@ N = 32,768) computes the same step with the O(N²) row-blocked sweeps of
 ``delayed_ystack`` for the whole delayed stack, unfused. It launches no
 cell kernel and has no grid, so its overflow is always 0. Its peak memory
 is O(B·N) for blocks of B rows (:func:`block_rows`).
+
+On a mesh (``rollout_large(mesh=...)``, one process per device, the
+``agents`` axis of D ranks) every rank holds the whole O(N) state and
+shares the sweeps: on the pcells path rank d builds the grid with a 1/D
+share of the sort (``build_pcell_grid_sharded``), sweeps its band of
+``cx / D`` grid rows through K1-K3 and completes each (N, C) table with one
+``all_reduce(SUM)`` (exact: every agent is written by one band); on the
+blocked path it sweeps its N/D agent rows and gathers the frame. The
+actor and the double-integrator step run on the rank's N/D agents and an
+``all_gather`` rebuilds the (N, 4) state (:func:`_shard_actor_dynamics`).
+So every rank returns the same rewards, and they equal the single-process
+rollout's on the same grid (``make_pcell_spec(n_dev=D)``) bit for bit.
+Collective bytes per K = 3 pcells step: 4·N·(10 + 12) of the frame_apply
+table and 4·N·6 of the historical apply reduced, 16·N of the state and
+8·N + 4·D·cx·cy of the grid build gathered.
 """
 
 from __future__ import annotations
@@ -41,6 +57,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     FlockingParams,
@@ -60,6 +77,10 @@ from multiagent_gnn_policies_tpu_torch.ops.blocked import (
     pick_block,
 )
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
+from multiagent_gnn_policies_tpu_torch.parallel.distributed import AxisGroup
+from multiagent_gnn_policies_tpu_torch.parallel.mesh import (
+    axis_group as mesh_axis_group,
+)
 
 
 PATHS = ("pcells", "blocked")
@@ -78,7 +99,12 @@ class LargeNConfig(NamedTuple):
     rollouts and the imitation learner's collection read (the JAX
     package's ``LargeNConfig.need_expert``; the blocked frame always
     computes it). ``path`` is "pcells" (the cell sweeps over ``cell_spec``)
-    or "blocked" (row blocks of ``block`` rows; ``cell_spec`` unused)."""
+    or "blocked" (row blocks of ``block`` rows; ``cell_spec`` unused).
+
+    On a mesh: ``axis`` holds the ``agents`` axis's collectives, ``n_dev``
+    its size, ``rows`` the agents per rank (N / n_dev) and ``emulated``
+    the force_n_dev timing mode (collectives replaced by local operations
+    of the same shapes; results not valid). ``axis`` None: one device."""
 
     params: FlockingParams
     cell_spec: Optional[cc.PCellSpec]
@@ -86,6 +112,10 @@ class LargeNConfig(NamedTuple):
     need_expert: bool = False
     path: str = "pcells"
     block: int = 0
+    axis: Optional[AxisGroup] = None
+    n_dev: int = 1
+    rows: int = 0
+    emulated: bool = False
 
 
 class EpisodeState(NamedTuple):
@@ -103,27 +133,76 @@ class EpisodeState(NamedTuple):
     overflow: torch.Tensor           # () max overflow so far
 
 
-def block_rows(n: int) -> int:
-    """Rows per block of the blocked path at ``n`` agents: the largest
-    divisor of ``n`` up to ``BLOCK_PAIRS / n`` rows, held in [128, 1024]."""
-    return pick_block(n, min(max(BLOCK_PAIRS // max(n, 1), 128), 1024))
+def block_rows(n: int, rows: Optional[int] = None) -> int:
+    """Rows per block of the blocked path at ``n`` agents, ``rows`` of them
+    swept on this rank (all by default): the largest divisor of ``rows``
+    up to ``BLOCK_PAIRS / n`` rows, held in [128, 1024]."""
+    return pick_block(n if rows is None else rows,
+                      min(max(BLOCK_PAIRS // max(n, 1), 128), 1024))
+
+
+def _use_sharded_actor(cfg: LargeNConfig) -> bool:
+    """The actor and dynamics on this rank's agents (the JAX package's rule
+    less its ``n_dev > 1``: a one-rank mesh takes the sharded step too, so
+    that it runs the collectives of a real mesh)."""
+    return cfg.axis is not None and cfg.params.n_agents % cfg.n_dev == 0
+
+
+def _row_range(cfg: LargeNConfig):
+    """This rank's agent rows ``(start, rows)`` (blocked path), or None."""
+    if cfg.axis is None:
+        return None
+    return cfg.axis.index * cfg.rows, cfg.rows
+
+
+def _cell_row_range(cfg: LargeNConfig):
+    """This rank's band of grid rows (pcells path), or None: the sweep is
+    per grid row, so the mesh partitions grid rows, not agent rows."""
+    if cfg.axis is None:
+        return None
+    return cc.row_band(cfg.cell_spec, cfg.n_dev, cfg.axis.index)
+
+
+def _grid(cfg: LargeNConfig, pos: torch.Tensor) -> cc.PCellGrid:
+    """The grid of ``pos``: its sort shared over the mesh when N divides
+    into the ranks, else replicated."""
+    if cfg.axis is not None and pos.shape[0] % cfg.n_dev == 0:
+        return cc.build_pcell_grid_sharded(pos, cfg.cell_spec, cfg.axis)
+    return cc.build_pcell_grid(pos, cfg.cell_spec)
+
+
+def _blocked_frame(cfg: LargeNConfig, x: torch.Tensor):
+    """The blocked frame; on a mesh of this rank's rows, gathered (one
+    ``all_gather`` of the (N/D, 9) table) with min r² reduced by MIN."""
+    fq = blocked_frame(x, cfg.params, cfg.centralized, cfg.block,
+                       row_range=_row_range(cfg))
+    if cfg.axis is None:
+        return fq
+    table = cfg.axis.all_gather(torch.cat(
+        [fq.values, fq.degree[:, None], fq.expert], 1))
+    min_r2 = cfg.axis.all_reduce(fq.min_r2.reshape(1), dist.ReduceOp.MIN)
+    return cc.FrameQuantities(values=table[:, :6], degree=table[:, 6],
+                              expert=table[:, 7:9], min_r2=min_r2[0])
 
 
 def _frame(cfg: LargeNConfig, x: torch.Tensor, apply_cols=None):
     """Grid and frame of ``x``; with ``apply_cols`` also the fused K2 apply
     of those columns over the same graph. Returns ``(fq, grid[, applied])``.
     The expert as ``cfg`` says (``centralized``, ``need_expert``). The
-    blocked path returns ``(blocked_frame, None)`` (it never fuses)."""
+    blocked path returns ``(blocked_frame, None)`` (it never fuses). On a
+    mesh every sweep is this rank's band, completed over the mesh."""
     if cfg.path == "blocked":
-        return blocked_frame(x, cfg.params, cfg.centralized, cfg.block), None
-    grid = cc.build_pcell_grid(x[:, :2], cfg.cell_spec)
+        return _blocked_frame(cfg, x), None
+    grid = _grid(cfg, x[:, :2])
+    band = _cell_row_range(cfg)
     if apply_cols is not None:
         fq, applied = cc.frame_apply(x, apply_cols, grid, cfg.cell_spec,
                                      cfg.params, cfg.centralized,
-                                     cfg.need_expert)
+                                     cfg.need_expert, band=band,
+                                     axis=cfg.axis)
         return fq, grid, applied
     fq = cc.frame(x, grid, cfg.cell_spec, cfg.params, cfg.centralized,
-                  cfg.need_expert)
+                  cfg.need_expert, band=band, axis=cfg.axis)
     return fq, grid
 
 
@@ -194,19 +273,48 @@ def _ystack(cfg: LargeNConfig, state: EpisodeState) -> torch.Tensor:
     """The policy's (K, N, F) input: the delayed stack of ``state``."""
     if cfg.path == "blocked":
         return delayed_ystack(state.carry, state.x[:, :2], cfg.params,
-                              cfg.block, deg_now=state.fq.degree)
+                              cfg.block, deg_now=state.fq.degree,
+                              row_range=_row_range(cfg), axis=cfg.axis)
     return cc.ystack_pre(state.carry, state.s0, cfg.cell_spec, cfg.params,
-                         grid_hist=state.grid_hist)
+                         grid_hist=state.grid_hist,
+                         band=_cell_row_range(cfg), axis=cfg.axis)
 
 
-def _advance(cfg: LargeNConfig, state: EpisodeState, act: torch.Tensor,
-             gen: Optional[torch.Generator] = None):
-    """The env step under ``act`` (N, 2), the new frame and, unless in
-    expert mode, the delayed stack's update; returns ``(state', reward)``.
-    The new frame pre-applies the next step's s = 0 columns (K2) only
-    when the state carries them (K >= 2)."""
+def _shard_actor_dynamics(cfg: LargeNConfig, actor: torch.nn.Module,
+                          y: torch.Tensor, x: torch.Tensor,
+                          gen: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """The policy and the double-integrator step on this rank's N/D agents
+    (its rows of the (K, N, F) stack ``y`` and of ``x``), and an
+    ``all_gather`` that rebuilds the (N, 4) state (16·N bytes). The leader
+    mask and the noise are global (``dynamics(global_start=)``), so the
+    step equals the single-process step bit for bit. Emulated, the slice
+    is written into a copy of ``x`` in place of the gather (the JAX
+    package tiles it: D coincident copies of one slice would leave the
+    next grids D times as dense as a real rank's)."""
+    d, local = cfg.axis.index, cfg.rows
+    sl = slice(d * local, (d + 1) * local)
+    x2_d = _dynamics(x[sl], actor(y[:, sl]), cfg.params, gen,
+                     global_start=d * local)
+    if cfg.emulated:
+        x2 = x.clone()
+        x2[sl] = x2_d
+        return x2
+    return cfg.axis.all_gather(x2_d)
+
+
+def _advance(cfg: LargeNConfig, state: EpisodeState,
+             act: Optional[torch.Tensor],
+             gen: Optional[torch.Generator] = None,
+             x2: Optional[torch.Tensor] = None):
+    """The env step under ``act`` (N, 2) (or, with ``x2``, its result,
+    computed by the sharded step), the new frame and, unless in expert
+    mode, the delayed stack's update; returns ``(state', reward)``. The
+    new frame pre-applies the next step's s = 0 columns (K2) only when the
+    state carries them (K >= 2)."""
     x, carry, fq, grid, grid_hist, s0, ovf = state
-    x2 = _dynamics(x, act, cfg.params, gen)
+    if x2 is None:
+        x2 = _dynamics(x, act, cfg.params, gen)
     if carry is None:
         fq2, grid2 = _frame(cfg, x2)
         state2 = state._replace(
@@ -229,9 +337,15 @@ def _advance(cfg: LargeNConfig, state: EpisodeState, act: torch.Tensor,
 def _step(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
           state: EpisodeState, gen: Optional[torch.Generator] = None):
     """One env step of the fused policy path, or of the expert with
-    ``actor`` None; returns ``(state', reward)``."""
-    act = state.fq.expert if actor is None else actor(_ystack(cfg, state))
-    return _advance(cfg, state, act, gen)
+    ``actor`` None; returns ``(state', reward)``. On a mesh the policy
+    steps this rank's agents (the expert's step is replicated)."""
+    if actor is None:
+        return _advance(cfg, state, state.fq.expert, gen)
+    y = _ystack(cfg, state)
+    if _use_sharded_actor(cfg):
+        return _advance(cfg, state, None, gen,
+                        x2=_shard_actor_dynamics(cfg, actor, y, state.x, gen))
+    return _advance(cfg, state, actor(y), gen)
 
 
 def traj_subset_indices(n_agents: int, traj_agents: int,
@@ -273,7 +387,8 @@ def rollout_large(actor: Optional[torch.nn.Module],
                   x0: Optional[torch.Tensor] = None, device="cuda",
                   expert_mode: bool = False, traj_agents: int = 0,
                   path: str = "pcells", sparse: bool = False,
-                  n_episodes: int = 1):
+                  n_episodes: int = 1, mesh=None, axis: str = "agents",
+                  force_n_dev: Optional[int] = None):
     """One episode of ``p.episode_steps`` steps through the cell sweeps (the
     JAX package's "pcells" path) or the row-blocked O(N²) sweeps
     (``path="blocked"``): greedy, or the analytic expert with
@@ -305,6 +420,19 @@ def rollout_large(actor: Optional[torch.nn.Module],
         with no host synchronisation between them (the JAX package's
         episode chain): the (E·T,) rewards, the last episode's final state
         and the max overflow over all of them. Not with ``traj_agents``.
+      mesh / axis: a ``DeviceMesh`` (``parallel.mesh.make_mesh``) whose
+        ``axis`` dimension of D ranks shares the sweeps (module docstring);
+        run by every rank of it, each on its own device with a generator
+        seeded alike, and each returns the same outputs. The grid is
+        ``make_pcell_spec(n_dev=D)``'s (``cx`` a multiple of D). A mesh
+        without an ``axis`` dimension runs the single-device program. The
+        blocked path needs D to divide N. The overflow is the maximum over
+        the ranks.
+      force_n_dev: a timing mode: run this rank's program of a
+        ``force_n_dev``-rank axis on the given mesh (one rank is fine),
+        every collective replaced by a local operation of the same shape
+        (``parallel.distributed.AxisGroup``). Its rewards, states and
+        overflow are not valid unless it equals the mesh's size.
     """
     if sparse or path in ("cells", "binned"):
         raise ValueError(
@@ -322,17 +450,31 @@ def rollout_large(actor: Optional[torch.nn.Module],
         actor = acfg = None
     elif acfg is None or acfg.ind_agg != 0:
         raise ValueError("the large-N path requires ind_agg == 0 actors")
+    if mesh is not None and axis not in (mesh.mesh_dim_names or ()):
+        mesh = None    # no agents axis to band over: one device's program
+    if force_n_dev is not None and mesh is None:
+        raise ValueError("force_n_dev needs a mesh (a one-rank mesh is "
+                         "fine)")
+    group = None if mesh is None else mesh_axis_group(mesh, axis,
+                                                      force_n_dev)
+    n, n_dev = p.n_agents, 1 if group is None else group.n_dev
+    blocked = path == "blocked"
+    if blocked and n % n_dev:
+        raise ValueError(f"n_agents={n} not divisible by mesh axis {n_dev} "
+                         f"(the blocked path splits agent rows)")
     strict_fp32()
     device = torch.device(device)
-    blocked = path == "blocked"
     cfg = LargeNConfig(
         params=p,
         cell_spec=None if blocked else cc.make_pcell_spec(
-            p, cap=cap or 16, margin=cell_margin, edge_mult=cell_edge_mult),
+            p, cap=cap or 16, margin=cell_margin, edge_mult=cell_edge_mult,
+            n_dev=n_dev),
         centralized=centralized_expert,
         need_expert=expert_mode,
         path=path,
-        block=block_rows(p.n_agents) if blocked else 0,
+        block=block_rows(n, n // n_dev) if blocked else 0,
+        axis=group, n_dev=n_dev, rows=n // n_dev,
+        emulated=group is not None and group.emulated,
     )
     rewards, overflow = [], None
     with torch.no_grad():
@@ -343,6 +485,9 @@ def rollout_large(actor: Optional[torch.nn.Module],
             rewards.append(r)
             overflow = (state.overflow if overflow is None
                         else torch.maximum(overflow, state.overflow))
+        if group is not None:
+            overflow = group.all_reduce(overflow.reshape(1),
+                                        dist.ReduceOp.MAX)[0]
     rewards = rewards[0] if n_episodes == 1 else torch.cat(rewards)
     out = (rewards, state.x) + ((overflow,) if return_overflow else ())
     return out + tuple(traj)

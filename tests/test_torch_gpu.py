@@ -503,3 +503,130 @@ def test_blocked_path_launches_no_cell_kernel():
                                      "apply_sweep": steps})
     rb, rp = out["blocked"][0].double(), out["pcells"][0].double()
     assert float((rb - rp).abs().max()) <= 1e-4 * float(rp.abs().max())
+
+
+def _band_case(dev):
+    """A perturbed lattice at N = 4,096 on a grid whose rows split into 2,
+    3 and 4 bands (``n_dev = 12``), its degrees and columns."""
+    n = 4096
+    tp = FlockingParams(n_agents=n)
+    ts = tcc.make_pcell_spec(tp, n_dev=12)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = _init_candidate(gen, tp, dev)
+    x[:, :2] += 0.05 * torch.randn((n, 2), generator=gen, device=dev)
+    grid = tcc.build_pcell_grid(x[:, :2], ts)
+    assert int(grid.overflow) == 0
+    deg = tcc.frame_sweep(x, grid, ts, 1.0, True)[:, 6].contiguous()
+    cols = torch.randn((n, 18), generator=gen, device=dev)
+    return x, ts, grid, deg, cols
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 3, 4])
+def test_bands_sum_to_the_full_launch_on_gpu(d):
+    """K1, K2 (12 and 18 columns) and K3 (6 and 12, the 12 a row-strided
+    view) over the D bands of the grid rows: each band holds against its
+    plain band version, writes 0 outside the band, and the bands' sum is
+    the full launch bit for bit. D = 3 gives bands of an odd row count,
+    whose last tile row lies past the band."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU "
+                    "mode; tests/test_torch_sharding.py covers the plain "
+                    "bands)")
+    dev = torch.device("cuda")
+    x, ts, grid, deg, cols = _band_case(dev)
+    pos = x[:, :2].contiguous()
+    sweeps = {
+        "K1": (lambda b: tcc.frame_sweep(x, grid, ts, 1.0, True, band=b),
+               lambda b: tcc.frame_sweep_plain(x, grid, ts, 1.0, True,
+                                               band=b), (6, 9)),
+        "K2 C=12": (lambda b: tcc.apply_deg_sweep(
+            x, cols[:, :12].contiguous(), deg, grid, ts, 1.0, band=b),
+            lambda b: tcc.apply_deg_sweep_plain(
+                x, cols[:, :12], deg, grid, ts, 1.0, band=b), ()),
+        "K2 C=18": (lambda b: tcc.apply_deg_sweep(x, cols, deg, grid, ts,
+                                                  1.0, band=b),
+                    lambda b: tcc.apply_deg_sweep_plain(
+                        x, cols, deg, grid, ts, 1.0, band=b), ()),
+        "K3 C=6": (lambda b: tcc.apply_sweep(
+            pos, cols[:, :6].contiguous(), deg, grid, ts, 1.0, band=b),
+            lambda b: tcc.apply_sweep_plain(
+                pos, cols[:, :6], deg, grid, ts, 1.0, band=b), ()),
+        "K3 C=12": (lambda b: tcc.apply_sweep(pos, cols[:, 6:], deg, grid,
+                                              ts, 1.0, band=b),
+                    lambda b: tcc.apply_sweep_plain(
+                        pos, cols[:, 6:].contiguous(), deg, grid, ts, 1.0,
+                        band=b), ()),
+    }
+    for name, (kernel, plain, exact) in sweeps.items():
+        full = kernel(None)
+        total = torch.zeros_like(full)
+        for r in range(d):
+            band = tcc.row_band(ts, d, r)
+            out = kernel(band)
+            own = tcc.band_agents(grid, ts, band)
+            assert not out[~own].any(), (name, band)
+            _close(out, plain(band), f"{name} band {band}", exact=exact)
+            total += out
+        torch.cuda.synchronize()
+        assert torch.equal(total, full), name
+
+
+@pytest.mark.gpu
+def test_bad_band_raises_on_gpu():
+    """A band outside the grid, or of no rows, raises in the wrapper before
+    any launch, and the C launcher refuses it too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from multiagent_gnn_policies_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    x, ts, grid, deg, cols = _band_case(dev)
+    tcc.reset_launch_counts()
+    for band in [(ts.cx - 1, 2), (-1, 3), (0, 0), (ts.cx, 1)]:
+        with pytest.raises(ValueError, match="band of grid rows"):
+            tcc.frame_sweep(x, grid, ts, 1.0, True, band=band)
+        with pytest.raises(ValueError, match="band of grid rows"):
+            tcc.apply_sweep(x[:, :2].contiguous(), cols[:, :6].contiguous(),
+                            deg, grid, ts, 1.0, band=band)
+    assert set(tcc.launch_counts().values()) == {0}
+    out = torch.zeros((x.shape[0], 10), device=dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    for row0, rows in [(ts.cx - 1, 2), (-1, 3), (0, 0)]:
+        rc = lib.cells_frame(x.data_ptr(), grid.kept.data_ptr(),
+                             grid.cell_start.data_ptr(), out.data_ptr(),
+                             x.shape[0], ts.cx, ts.cy, row0, rows, 8, 1.0, 1,
+                             stream)
+        assert rc != 0, (row0, rows)
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.gpu
+def test_world_of_one_nccl_mesh_on_gpu():
+    """The port's multihost demo as a one-rank NCCL group on the card: the
+    all_reduce, and the agent-sharded expert rollout (the sharded grid
+    build, the banded sweeps' completions) equal to the same rollout with
+    no group, bit for bit. A subprocess, so that no process group is left
+    in this one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL)")
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-m",
+         "multiagent_gnn_policies_tpu_torch.scripts.multihost_demo",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "1",
+         "--process-id", "0", "--n-agents", "32768"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "MULTIHOST_OK rank=0/1 devices=1 psum=1.0" in proc.stdout
