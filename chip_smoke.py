@@ -180,13 +180,31 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     (and the real one-rank mesh beside it): ms per step and device-busy
     ms per step printed, not gated; the emulated run's results are not
     valid by design. The group is destroyed after; any failure raises;
-17. budget: the run, build included, must finish in BUDGET_S; a watchdog
-    ends it with a non-zero exit after WATCHDOG_S.
+18. dp training, this slice's main path (data-parallel imitation
+    training) on a one-rank NCCL process group and ``make_mesh(1, 1)``, as
+    phase 16 (b) builds them. (a) ``cfg/dagger.cfg [test]`` at full width,
+    1 round through ``ShardedImitationLearner`` against the one-process
+    learner's first round from the same seed: parameters within 1e-6 (bit
+    for bit expected; the max difference printed), no cell kernel
+    launched. (b) ``cfg/dagger_n32k.cfg [n32k]`` at full width, cut in
+    depth as phase 11 is (LARGE_BUFFER records, 1 eval episode), 1 round of
+    ``LargeNImitationLearner`` on that ``("env", "agents")`` mesh, the
+    counters zeroed just before and read just after: 201/200/200 for each
+    of its collection and eval episodes, overflow 0 (the gates raise
+    otherwise), parameters and buffer equal to the no-mesh learner's first
+    round bit for bit; collection ms per env step and ms per Adam update of
+    both printed beside phase 11's. (c) The same learner with one slot per
+    cell (``cell_cap`` 1): the round's overflow gate raises on the rank
+    within DP_OVERFLOW_S, nothing stored. The group is destroyed after;
+17. budget, run last: the run, build included, must finish in BUDGET_S; a
+    watchdog ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
 ``{"kernels": [...]}``, one entry per kernel and column width the run
-launched (K1; K2 at 6, 12 and 18; K3 at 6 and 12): launches on this
-slice's main path (phase 13 (b), every K at N = 32,768), max abs error
+launched (K1; K2 at 6, 12 and 18; K3 at 6 and 12): launches on the main
+paths, each read with its counters zeroed just before it (phase 13 (b),
+every K at N = 32,768, and phase 18 (b), this slice's mesh training
+round, at K = 3's widths), max abs error
 against the plain version, ms, plain ms, the bound worked out from this
 run's bytes and operations, and the PyTorch library time, null: no
 PyTorch call computes these sweeps. K1, K2 at 12 and K3 at 6 are timed
@@ -300,6 +318,8 @@ MESH_N = 100_000              # phase 16: bands, and force_n_dev timing
 MESH_DEVS = (2, 4)
 MESH_FORCE = 4
 MESH_STEPS = 25
+DP_DENSE_TOL = 1e-6           # phase 18 (a): sharded vs one-process params
+DP_OVERFLOW_S = 60.0          # phase 18 (c): the gate raises within this
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -905,6 +925,20 @@ def tools_phase(cc):
     return out
 
 
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _param_diff(torch, a, b):
+    """Max abs difference of two learners' actor parameters, and whether
+    they are equal bit for bit."""
+    got, want = a.actor.state_dict(), b.actor.state_dict()
+    return (max(float((got[k] - want[k]).abs().max()) for k in want),
+            all(torch.equal(got[k], want[k]) for k in want))
+
+
 def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
                _init_candidate, load_ini, reward):
     """Phase 16: the agent-sharded path on the card (module docstring):
@@ -964,10 +998,7 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
     out["band_max_abs_err"] = band_err
 
     # (b) a one-rank NCCL mesh through the evaluate entry point
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     try:
         mesh = pm.make_mesh(1, 1)
         section = load_ini(CONFIG)["n32k"]
@@ -1027,6 +1058,122 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
         torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out
+
+
+def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
+             large_speed):
+    """Phase 18: data-parallel training on a one-rank NCCL mesh (module
+    docstring): (a) the dense round through ShardedImitationLearner, (b)
+    the large-N round on the ("env", "agents") mesh with its launches, (c)
+    a forced overflow. Returns what the phase line prints and (b)'s
+    launches by wrapper and width."""
+    import dataclasses as dc
+
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel import mesh as pm
+    from multiagent_gnn_policies_tpu_torch.parallel.sharded import (
+        ShardedImitationLearner)
+
+    out = {}
+    distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = pm.make_mesh(1, 1)
+        # (a) the dense round, sharded and not
+        icfg = im.ImitationConfig.from_experiment(ExperimentConfig.from_section(
+            load_ini(DAGGER_CONFIG)["test"]), mode="dagger")
+        dense = (ShardedImitationLearner(icfg, mesh, device=DEVICE),
+                 im.ImitationLearner(icfg, device=DEVICE))
+        cc.reset_launch_counts()
+        for lrn in dense:
+            lrn.train(stop_after=1)
+        torch.cuda.synchronize()
+        diff, same = _param_diff(torch, *dense)
+        speed = dense[0].timing_summary()
+        print(f"#   dp dense: cfg/dagger.cfg [test], 1 round through "
+              f"ShardedImitationLearner on a one-rank NCCL mesh against the "
+              f"one-process learner: max param difference {diff} (bit for "
+              f"bit {same}); rollout {speed['rollout_ms_per_step']:.4f} ms "
+              f"per env step, {speed['update_ms_per_update']:.4f} ms per "
+              f"Adam update", flush=True)
+        if diff > DP_DENSE_TOL:
+            raise AssertionError(f"dense sharded round differs by {diff}")
+        if any(cc.launch_counts().values()):
+            raise AssertionError(f"the dense path launched cell kernels: "
+                                 f"{cc.launch_counts()}")
+        out.update(dense_max_param_diff=diff, dense_bit_for_bit=same)
+
+        # (b) the large-N round on the mesh, against no mesh
+        canon = ExperimentConfig.from_section(load_ini(CONFIG)["n32k"])
+        lcfg = il.LargeNImitationConfig.from_experiment(dc.replace(
+            canon, n_agents=n_agents, buffer_size=LARGE_BUFFER,
+            n_test_episodes=1), mode="dagger")
+        meshed = il.LargeNImitationLearner(lcfg, device=DEVICE, mesh=mesh)
+        plain = il.LargeNImitationLearner(lcfg, device=DEVICE)
+        cc.reset_launch_counts()
+        meshed.train(stop_after=1)
+        torch.cuda.synchronize()
+        launches = cc.launch_counts()
+        by_cols = {(fn, c): v for fn, cols in cc.launch_counts_by_cols().items()
+                   for c, v in cols.items()}
+        if launches != _launches(2):
+            raise AssertionError(f"mesh round launches {launches}: not "
+                                 f"201/200/200 for each of its collection "
+                                 f"and eval episodes")
+        plain.train(stop_after=1)
+        diff, same = _param_diff(torch, meshed, plain)
+        same_buffer = all(torch.equal(meshed.buffer.data[k],
+                                      plain.buffer.data[k])
+                          for k in plain.buffer.data)
+        sm, sp = meshed.timing_summary(), plain.timing_summary()
+        print(f"#   dp large: cfg/dagger_n32k.cfg [n32k] at N = {n_agents} "
+              f"(buffer {LARGE_BUFFER} records, 1 eval episode), 1 round on "
+              f"the one-rank (env, agents) mesh: launches {launches} "
+              f"(collection + eval episode), overflow 0; against the "
+              f"no-mesh round: max param difference {diff}, params bit for "
+              f"bit {same}, buffer bit for bit {same_buffer}; collection "
+              f"{sm['rollout_ms_per_step']:.4f} ms per env step on the mesh, "
+              f"{sp['rollout_ms_per_step']:.4f} without (phase 11 "
+              f"{large_speed['rollout_ms_per_step']:.4f}); "
+              f"{sm['update_ms_per_update']:.4f} ms per Adam update on the "
+              f"mesh, {sp['update_ms_per_update']:.4f} without (phase 11 "
+              f"{large_speed['update_ms_per_update']:.4f})", flush=True)
+        if not (same and same_buffer):
+            raise AssertionError(f"the mesh round differs from the no-mesh "
+                                 f"round by {diff} (buffer equal: "
+                                 f"{same_buffer})")
+        out.update(large_launches=json.dumps(launches, separators=(",", ":")),
+                   large_bit_for_bit=same and same_buffer,
+                   mesh_collection_ms_per_step=(
+                       f"{sm['rollout_ms_per_step']:.4f}"),
+                   plain_collection_ms_per_step=(
+                       f"{sp['rollout_ms_per_step']:.4f}"),
+                   mesh_update_ms=f"{sm['update_ms_per_update']:.4f}",
+                   plain_update_ms=f"{sp['update_ms_per_update']:.4f}")
+        del meshed, plain
+
+        # (c) a forced overflow (one slot per cell) raises on the rank
+        bad = il.LargeNImitationLearner(dc.replace(lcfg, cell_cap=1),
+                                        device=DEVICE, mesh=mesh)
+        t = time.perf_counter()
+        try:
+            bad.train(stop_after=1)
+        except RuntimeError as e:
+            if "overflow=" not in str(e):
+                raise
+            message = str(e)
+        else:
+            raise AssertionError("the forced overflow did not raise")
+        raised_s = time.perf_counter() - t
+        print(f"#   dp overflow: cell_cap 1 on the mesh raised after "
+              f"{raised_s:.2f} s: {message[:72]}...", flush=True)
+        if raised_s > DP_OVERFLOW_S or bad.buffer.size:
+            raise AssertionError(f"the overflow gate took {raised_s} s or "
+                                 f"stored {bad.buffer.size} records")
+        out["overflow_raised_s"] = f"{raised_s:.2f}"
+    finally:
+        torch.distributed.destroy_process_group()
+    cc.reset_launch_counts()
+    return out, by_cols
 
 
 def _transfer_section(load_ini, k, noiseless=False):
@@ -1957,7 +2104,13 @@ def main():
                       _init_candidate, load_ini, reward)
     phase("mesh", t, **mesh)
 
-    # 17. budget
+    # 18. data-parallel training on a one-rank NCCL mesh
+    t = time.perf_counter()
+    dp, dp_launches = dp_phase(torch, im, il, cc, ExperimentConfig,
+                               load_ini, N, l_speed)
+    phase("dp training", t, **dp)
+
+    # 17. budget, last
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
     if total > BUDGET_S:
@@ -1965,7 +2118,9 @@ def main():
 
     # one entry per kernel and width this run launched: phase 3 timed K1,
     # K2 at 12 and K3 at 6 (K = 3's widths), phase 13 the others; the
-    # launches are phase 13's main path (every K at N = 32,768)
+    # launches are the main paths', each read with its counters zeroed
+    # just before: phase 13 (b) (every K at N = 32,768) and phase 18 (b)
+    # (the mesh training round, K = 3's widths)
     timing.update(t_timing)
     err.update(t_err)
     kernels = []
@@ -1980,7 +2135,8 @@ def main():
         kernels.append({
             "name": f"{name} {fn_name}", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": f"{TPU_SOURCE}:{line}",
-            "launches": t_launches.get((fn_name, c), 0),
+            "launches": (t_launches.get((fn_name, c), 0)
+                         + dp_launches.get((fn_name, c), 0)),
             "max_abs_err": err[key], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })

@@ -65,6 +65,9 @@ from multiagent_gnn_policies_tpu_torch.ops.graph import (
     initial_graph_state,
     update_graph_state,
 )
+from multiagent_gnn_policies_tpu_torch.parallel.distributed import (
+    process_info,
+)
 from multiagent_gnn_policies_tpu_torch.utils import checkpoint
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
 from multiagent_gnn_policies_tpu_torch.utils.debug import check_finite
@@ -214,7 +217,18 @@ def adam_update(actor: Actor, opt: torch.optim.Optimizer,
 
 class ImitationLearner:
     """Cloning/DAGGER trainer: owns the actor, Adam, the buffer and the
-    generator, all on ``device``."""
+    generator, all on ``device``.
+
+    On a mesh (a subclass sets ``mesh`` and ``_env_axis`` before this
+    class's ``__init__``) every rank holds the same actor, Adam state,
+    buffer and generator: it collects its slice of the round's episodes
+    (:meth:`_collect`), the records are gathered over the ``env`` axis in
+    episode order (:meth:`_gather_envs`), and each update is
+    :meth:`_update`. Only rank 0 writes files and metrics; every rank
+    reads a state file on resume, and a barrier follows each write."""
+
+    mesh = None                 # the DeviceMesh of a mesh learner
+    _env_axis = None            # the mesh's "env" AxisGroup
 
     def __init__(self, cfg: ImitationConfig,
                  logger: Optional[MetricsLogger] = None, device="cuda"):
@@ -224,7 +238,8 @@ class ImitationLearner:
         self.cfg = cfg
         self.device = torch.device(device)
         self.env = make_env(cfg.env_name, cfg.env)
-        self.logger = logger or MetricsLogger()
+        self.logger = (logger if logger and self._writes_files()
+                       else MetricsLogger())
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(cfg.seed)
         self.actor = init_actor_(Actor(cfg.actor).to(self.device), self.gen)
@@ -246,14 +261,31 @@ class ImitationLearner:
         return {"agg": torch.zeros((a.k, n, a.n_s), device=self.device),
                 "act": torch.zeros((n, a.n_a), device=self.device)}
 
+    # --- the round's hooks (the mesh learners override them) ---
+
     def _collect(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The round's ``n_rollout_envs`` episodes: their records, episode
-        by episode, and the mean episode reward on the device."""
+        """This rank's episodes of the round (all ``n_rollout_envs`` of them
+        without a mesh): their records, episode by episode, and each
+        episode's summed reward, on the device."""
         cfg = self.cfg
-        samples, rewards = rollout_episode(
+        return rollout_episode(
             self.actor, self.gen, self._beta, self.env, cfg.actor,
             mode=cfg.mode, n_envs=cfg.n_rollout_envs)
-        return samples, rewards.mean()
+
+    def _gather_envs(self, samples: Dict[str, torch.Tensor],
+                     rewards: torch.Tensor):
+        """The whole round's records and rewards from this rank's: gathered
+        over the ``env`` axis in rank order, which is episode order (the
+        identity without an ``env`` axis)."""
+        ax = self._env_axis
+        if ax is None:
+            return samples, rewards
+        return ({k: ax.all_gather(v) for k, v in samples.items()},
+                ax.all_gather(rewards))
+
+    def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """One Adam update on a replay batch; returns its loss."""
+        return adam_update(self.actor, self.opt, batch)
 
     def _round(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """One training round: collect, insert, update. Returns the mean
@@ -261,8 +293,9 @@ class ImitationLearner:
         cfg = self.cfg
         n_envs = cfg.n_rollout_envs
         t0 = time.perf_counter()
-        samples, ep_reward = self._collect()
+        samples, rewards = self._gather_envs(*self._collect())
         self.buffer.insert(samples)
+        ep_reward = rewards.mean()
         _sync(self.device)
         t1 = time.perf_counter()
         loss_sum = torch.zeros((), device=self.device)
@@ -270,8 +303,7 @@ class ImitationLearner:
         if self.buffer.size > cfg.batch_size:
             n_up = cfg.updates_per_episode * n_envs
             for _ in range(n_up):
-                loss_sum += adam_update(
-                    self.actor, self.opt,
+                loss_sum += self._update(
                     self.buffer.sample(self.gen, cfg.batch_size))
         _sync(self.device)
         t2 = time.perf_counter()
@@ -336,11 +368,22 @@ class ImitationLearner:
             "best_params": best if best is not None else params,
         }
 
+    # --- files: rank 0 writes, a barrier follows ---
+
+    def _writes_files(self) -> bool:
+        return self.mesh is None or process_info()[0] == 0
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            torch.distributed.barrier()
+
     def save_training_state(self, path: str) -> None:
         # a checkpoint holding NaN would resume into a poisoned run
         check_finite(dict(self.actor.state_dict()), "params")
         check_finite(self._opt_tree(), "opt_state")
-        checkpoint.save_tree(path, self.training_state())
+        if self._writes_files():
+            checkpoint.save_tree(path, self.training_state())
+        self._barrier()
 
     def load_training_state(self, path: str) -> None:
         st = checkpoint.load_tree(path, self.training_state())
@@ -370,11 +413,13 @@ class ImitationLearner:
         """Write the actor (or ``params``) as ``save_path + ".npz"``, which
         both packages read, and as a reference-layout torch state_dict at
         ``save_path``."""
-        layers = actor_numpy_from_params(
-            params if params is not None else self.actor.state_dict(),
-            self.cfg.actor)
-        checkpoint.save_actor_npz(save_path + ".npz", layers)
-        checkpoint.save_actor_torch_format(save_path, layers)
+        if self._writes_files():
+            layers = actor_numpy_from_params(
+                params if params is not None else self.actor.state_dict(),
+                self.cfg.actor)
+            checkpoint.save_actor_npz(save_path + ".npz", layers)
+            checkpoint.save_actor_torch_format(save_path, layers)
+        self._barrier()
 
     def train(self, save_path: Optional[str] = None,
               state_path: Optional[str] = None, checkpoint_every: int = 0,

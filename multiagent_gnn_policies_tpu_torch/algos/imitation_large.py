@@ -1,4 +1,5 @@
-"""Cloning and DAGGER at large N (N = 32,768 and up) on one device.
+"""Cloning and DAGGER at large N (N = 32,768 and up), on one device or a
+mesh.
 
 The counterpart of the JAX package's ``algos/imitation_large.py``. The
 dense learner's (K, N, N) graph state cannot hold a swarm of this size, so
@@ -26,26 +27,45 @@ a round here collects through the O(N) cell sweeps of
   updates a round once the buffer holds more than one batch.
 * **Exactness gate**: a round whose collection dropped a radius neighbour
   (grid overflow > 0) raises before anything is stored, and an eval
-  episode with overflow or a non-finite reward raises.
+  episode with overflow or a non-finite reward raises. On a mesh the
+  round's overflow (and an eval episode's fault) is reduced with MAX over
+  every rank first, so that every rank raises together rather than one
+  alone while the others wait in their next collective.
+* **Mesh modes** (``mesh``, a ``parallel.mesh.make_mesh`` of every rank,
+  each on its own device): the sweeps of every episode are banded over
+  the ``agents`` axis (``parallel/large_n.py``; a mesh of n_env = 1 is the
+  JAX package's ``('agents',)`` mesh), and the round's E =
+  ``n_rollout_envs`` episodes are split over the ``env`` axis: env group g
+  collects episodes ``[g·E/n_env, (g+1)·E/n_env)`` (n_agents = 1 is the
+  JAX ``('env',)`` mesh, both axes its ``('env', 'agents')``). The records
+  are gathered over ``env`` in episode order; the buffer insert and the
+  Adam updates run replicated on every rank, with no gradient collective.
+  Evaluation is ``rollout_large(mesh=)``. Every rank's parameters equal
+  the one-process learner's (bit for bit on the same grid:
+  ``make_pcell_spec(n_dev=)`` rounds the grid's rows to the agents axis).
 
-The port runs the "pcells" path at every N: ``graph_path`` "auto" and
-"pcells" are accepted, "blocked", "cells" and "binned" raise. The mesh
-modes are not ported.
+The port's default is the "pcells" path at every N: ``graph_path`` "auto"
+and "pcells" run it, "blocked" runs the O(N²) row-blocked sweeps of
+``ops/blocked.py`` (no cell kernel), "cells" and "binned" raise.
 
-Random draws come from the learner's one device generator: the actor's
-init, every reset, the coins, the subsample indices, the replay samples
-and the eval resets. A collection episode draws its reset, then all its
-coins, then its (T, S) indices, one call each.
+Random draws: the learner's one device generator draws the actor's init,
+the replay samples, the eval resets and, at the start of each round,
+``n_rollout_envs`` seeds in one call; episode e of the round runs on its
+own generator seeded with seed e (the JAX package's ``jax.random.split``
+of the round's key), drawing its reset, then all its coins, then its (T,
+S) indices, one call each, and the stochastic variant's noise. So a rank
+can run any episode of the round, and a resumed run continues the same
+stream.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multiagent_gnn_policies_tpu_torch.algos.imitation import (
     ImitationConfig,
@@ -53,14 +73,12 @@ from multiagent_gnn_policies_tpu_torch.algos.imitation import (
 )
 from multiagent_gnn_policies_tpu_torch.envs.flocking import ENV_REGISTRY
 from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
-from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
 from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
+from multiagent_gnn_policies_tpu_torch.parallel.mesh import axis_group
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
 
 # graph backends of the JAX learner that the port does not have
 _OTHER_PATHS = {
-    "blocked": "multiagent_gnn_policies_tpu/ops/blocked.py (delayed_ystack, "
-               "the O(N^2) blocked rollout)",
     "cells": "multiagent_gnn_policies_tpu/ops/cells.py",
     "binned": "multiagent_gnn_policies_tpu/ops/binned.py",
 }
@@ -73,7 +91,8 @@ class LargeNImitationConfig(ImitationConfig):
     Attributes:
       store_agents: agents per stored replay record (a uniform subsample
         with replacement; 0 = all agents, only sensible at small N).
-      graph_path: "auto" or "pcells" (the port's one backend).
+      graph_path: "auto" or "pcells" (the cell sweeps), or "blocked"
+        (the O(N²) row-blocked sweeps).
       cell_margin / cell_cap / cell_edge_mult: the cell grid
         (``make_pcell_spec``; ``cell_cap`` 0 = 16).
     """
@@ -148,29 +167,36 @@ def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
 
 class LargeNImitationLearner(ImitationLearner):
     """Cloning/DAGGER trainer at large N: cell-sweep collection and an
-    agent-subsampled buffer, everything else the dense learner's."""
+    agent-subsampled buffer, everything else the dense learner's. With
+    ``mesh``, the mesh modes of the module docstring: ``axis`` names the
+    mesh axis the sweeps are banded over."""
 
     def __init__(self, cfg: LargeNImitationConfig, logger=None,
-                 device="cuda"):
+                 device="cuda", mesh=None, axis: str = "agents"):
         if cfg.graph_path in _OTHER_PATHS:
             raise ValueError(
                 f"graph_path = {cfg.graph_path} needs "
                 f"{_OTHER_PATHS[cfg.graph_path]}, which the port does not "
-                f"have; it runs pcells at every N (graph_path auto or "
-                f"pcells)")
-        if cfg.graph_path not in ("auto", "pcells"):
+                f"have (graph_path auto, pcells or blocked)")
+        if cfg.graph_path not in ("auto", "pcells", "blocked"):
             raise ValueError(f"unknown graph_path {cfg.graph_path!r}")
         if cfg.actor.ind_agg != 0 or cfg.actor.k < 2:
-            raise ValueError("the fused pcells path needs ind_agg == 0, "
+            raise ValueError("the large-N learner needs ind_agg == 0, "
                              "k >= 2")
-        p = ENV_REGISTRY[cfg.env_name](cfg.env)
+        if mesh is not None:
+            self._env_axis = axis_group(mesh, "env")
+            if cfg.n_rollout_envs % self._env_axis.n_dev:
+                raise ValueError(
+                    f"n_rollout_envs={cfg.n_rollout_envs} must divide evenly "
+                    f"over the mesh env axis ({self._env_axis.n_dev})")
+        self.mesh, self.axis = mesh, axis
+        path = "blocked" if cfg.graph_path == "blocked" else "pcells"
         # collection acts on the centralized expert, as the JAX learner's
-        self._lcfg = ln.LargeNConfig(
-            params=p,
-            cell_spec=cc.make_pcell_spec(p, cap=cfg.cell_cap or 16,
-                                         margin=cfg.cell_margin,
-                                         edge_mult=cfg.cell_edge_mult),
-            centralized=True, need_expert=True)
+        self._lcfg = ln.make_config(
+            ENV_REGISTRY[cfg.env_name](cfg.env), path=path,
+            cap=cfg.cell_cap or None, cell_margin=cfg.cell_margin,
+            cell_edge_mult=cfg.cell_edge_mult, centralized=True,
+            need_expert=True, mesh=mesh, axis=axis)
         super().__init__(cfg, logger, device)
 
     @property
@@ -182,16 +208,39 @@ class LargeNImitationLearner(ImitationLearner):
         return {"agg": torch.zeros((a.k, s, a.n_s), device=self.device),
                 "act": torch.zeros((s, a.n_a), device=self.device)}
 
+    def _mesh_max(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` reduced in place with MAX over every rank of the mesh (the
+        default group: ``make_mesh`` covers every rank); ``t`` itself
+        without a mesh."""
+        if self.mesh is not None:
+            dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return t
+
+    def _episode_generators(self):
+        """The round's episode generators, this rank's slice of them: all
+        ``n_rollout_envs`` seeds are drawn from the learner's generator in
+        one call, on every rank."""
+        e = self.cfg.n_rollout_envs
+        seeds = torch.randint(0, 2**62, (e,), generator=self.gen,
+                              device=self.device).tolist()
+        if self._env_axis is not None:
+            local = e // self._env_axis.n_dev
+            start = self._env_axis.index * local
+            seeds = seeds[start:start + local]
+        return [torch.Generator(device=self.device).manual_seed(s)
+                for s in seeds]
+
     def _collect(self) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
-        """The round's ``n_rollout_envs`` episodes, one after another; raises
-        if any step's grid overflowed (the host waits here, as the JAX
-        learner's gate does)."""
+        """This rank's episodes of the round, one after another; raises on
+        every rank if any step of any rank's episodes overflowed (the host
+        waits here, as the JAX learner's gate does)."""
         cfg = self.cfg
         runs = [collect_episode(self._lcfg, self.actor, cfg.actor, cfg.mode,
-                                self.store_agents, self.gen, self._beta,
+                                self.store_agents, gen, self._beta,
                                 self.device)
-                for _ in range(cfg.n_rollout_envs)]
-        ovf = int(torch.stack([o for _, _, o in runs]).max())
+                for gen in self._episode_generators()]
+        ovf = int(self._mesh_max(
+            torch.stack([o for _, _, o in runs]).max().reshape(1)))
         if ovf:
             raise RuntimeError(
                 f"neighbor-structure overflow={ovf} during collection: the "
@@ -200,12 +249,13 @@ class LargeNImitationLearner(ImitationLearner):
                 f"Training on a truncated graph is invalid.")
         samples = {k: torch.cat([s[k] for s, _, _ in runs])
                    for k in runs[0][0]}
-        return samples, torch.stack([r for _, r, _ in runs]).mean()
+        return samples, torch.stack([r for _, r, _ in runs])
 
     def evaluate(self) -> Tuple[float, float]:
         """Mean and population std of ``n_test_episodes`` greedy episodes
-        through ``rollout_large``, one after another; raises on an episode
-        with grid overflow or a non-finite reward."""
+        through ``rollout_large`` (on the mesh, when there is one), one
+        after another; raises on an episode with grid overflow or a
+        non-finite reward."""
         cfg = self.cfg
         rewards = []
         for _ in range(cfg.n_test_episodes):
@@ -213,9 +263,13 @@ class LargeNImitationLearner(ImitationLearner):
                 self.actor, cfg.actor, self.gen, self._lcfg.params,
                 cap=cfg.cell_cap or None, cell_margin=cfg.cell_margin,
                 cell_edge_mult=cfg.cell_edge_mult, return_overflow=True,
-                device=self.device)
-            tot, ovf = float(r.sum()), int(ovf)
-            if ovf or not math.isfinite(tot):
+                device=self.device, path=self._lcfg.path, mesh=self.mesh,
+                axis=self.axis)
+            tot = r.sum()
+            bad = self._mesh_max(torch.stack([
+                ovf.to(tot.dtype), (~torch.isfinite(tot)).to(tot.dtype)]))
+            tot, ovf = float(tot), int(ovf)
+            if bool(bad.any()):
                 raise RuntimeError(f"eval episode overflow={ovf} reward="
                                    f"{tot}: invalid rollout, refusing to "
                                    f"score it")

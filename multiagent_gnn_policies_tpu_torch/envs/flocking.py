@@ -294,7 +294,8 @@ def reset(gen: torch.Generator, p: FlockingParams,
 
 def dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
              gen: Optional[torch.Generator] = None,
-             global_start: Optional[int] = None) -> torch.Tensor:
+             global_start: Optional[int] = None,
+             env_range: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """Double-integrator step of ``(..., N, 4)`` states: clip, gain,
     leaders, drag, velocity noise (drawn from ``gen``).
 
@@ -303,7 +304,12 @@ def dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
     swarm). The leader mask then tests global indices, and the noise is
     drawn for the whole ``(p.n_agents, 2)`` swarm and sliced, so that every
     rank consumes the single-process stream (the JAX package's
-    ``parallel/large_n.py:_dynamics``)."""
+    ``parallel/large_n.py:_dynamics``).
+
+    ``env_range`` ``(start, total)``: ``x`` ``(E, N, 4)`` holds envs
+    ``[start, start + E)`` of a batch of ``total`` (a data-parallel rank's
+    slice). Either way the noise is drawn for the whole batch and swarm and
+    this part of it kept."""
     u = torch.clamp(action, -p.max_accel, p.max_accel) * p.gain
     first, local = global_start or 0, x.shape[-2]
     if p.n_leaders > 0:
@@ -315,21 +321,25 @@ def dynamics(x: torch.Tensor, action: torch.Tensor, p: FlockingParams,
     if p.drag > 0.0:
         vel = vel * (1.0 - p.drag * p.dt)
     if p.dynamics_noise > 0.0:
-        shape = vel.shape if global_start is None else (
-            *vel.shape[:-2], p.n_agents, 2)
-        noise = torch.randn(shape, generator=gen, device=x.device,
-                            dtype=vel.dtype)
+        whole, part = list(vel.shape), [slice(None)] * vel.dim()
         if global_start is not None:
-            noise = noise[..., first:first + local, :]
+            whole[-2], part[-2] = p.n_agents, slice(first, first + local)
+        if env_range is not None:
+            start = env_range[0]
+            whole[0], part[0] = env_range[1], slice(start, start + x.shape[0])
+        noise = torch.randn(whole, generator=gen, device=x.device,
+                            dtype=vel.dtype)[tuple(part)]
         vel = vel + p.dynamics_noise * noise
     return torch.cat([pos, vel], -1)
 
 
 def step(state: EnvState, action: torch.Tensor, p: FlockingParams,
-         gen: Optional[torch.Generator] = None):
+         gen: Optional[torch.Generator] = None,
+         env_range: Optional[Tuple[int, int]] = None):
     """One env step: ``(state', obs', reward (...,), done)``; ``done`` is a
-    Python bool, true once ``episode_steps`` steps are taken."""
-    x = dynamics(state.x, action, p, gen)
+    Python bool, true once ``episode_steps`` steps are taken.
+    ``env_range``: as :func:`dynamics`'s."""
+    x = dynamics(state.x, action, p, gen, env_range=env_range)
     t = state.t + 1
     return EnvState(x, t), observe(x, p), reward(x), t >= p.episode_steps
 
@@ -366,16 +376,19 @@ ENV_REGISTRY: Dict[str, Callable[[FlockingParams], FlockingParams]] = {
 
 @dataclasses.dataclass(frozen=True)
 class FlockingEnv:
-    """The dense functions bound to their params, gym_flock-style names."""
+    """The dense functions bound to their params, gym_flock-style names.
+    ``env_range`` ``(start, total)``: the states it steps are envs ``[start,
+    start + E)`` of a batch of ``total`` (:func:`dynamics`)."""
 
     params: FlockingParams
+    env_range: Optional[Tuple[int, int]] = None
 
     def reset(self, gen: torch.Generator, batch: Tuple[int, ...] = ()):
         return reset(gen, self.params, batch)
 
     def step(self, state: EnvState, action: torch.Tensor,
              gen: Optional[torch.Generator] = None):
-        return step(state, action, self.params, gen)
+        return step(state, action, self.params, gen, self.env_range)
 
     def controller(self, state: EnvState,
                    centralized: bool = True) -> torch.Tensor:

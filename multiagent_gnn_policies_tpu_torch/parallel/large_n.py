@@ -378,6 +378,42 @@ def _scan_steps(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
     return state, torch.stack(rewards)
 
 
+def make_config(p: FlockingParams, *, path: str = "pcells",
+                cap: Optional[int] = None, cell_margin: float = 1.3,
+                cell_edge_mult: float = 1.0, centralized: bool = True,
+                need_expert: bool = False, mesh=None, axis: str = "agents",
+                force_n_dev: Optional[int] = None) -> LargeNConfig:
+    """The :class:`LargeNConfig` of ``p`` on ``path``, on one device or
+    banded over ``mesh``'s ``axis`` (``rollout_large``'s arguments of the
+    same names; a mesh without that axis runs the single-device program).
+    Raises ValueError for ``force_n_dev`` without a mesh and, on the
+    blocked path, for an axis that does not divide N."""
+    if mesh is not None and axis not in (mesh.mesh_dim_names or ()):
+        mesh = None    # no agents axis to band over: one device's program
+    if force_n_dev is not None and mesh is None:
+        raise ValueError("force_n_dev needs a mesh (a one-rank mesh is "
+                         "fine)")
+    group = None if mesh is None else mesh_axis_group(mesh, axis,
+                                                      force_n_dev)
+    n, n_dev = p.n_agents, 1 if group is None else group.n_dev
+    blocked = path == "blocked"
+    if blocked and n % n_dev:
+        raise ValueError(f"n_agents={n} not divisible by mesh axis {n_dev} "
+                         f"(the blocked path splits agent rows)")
+    return LargeNConfig(
+        params=p,
+        cell_spec=None if blocked else cc.make_pcell_spec(
+            p, cap=cap or 16, margin=cell_margin, edge_mult=cell_edge_mult,
+            n_dev=n_dev),
+        centralized=centralized,
+        need_expert=need_expert,
+        path=path,
+        block=block_rows(n, n // n_dev) if blocked else 0,
+        axis=group, n_dev=n_dev, rows=n // n_dev,
+        emulated=group is not None and group.emulated,
+    )
+
+
 def rollout_large(actor: Optional[torch.nn.Module],
                   acfg: Optional[ActorConfig],
                   gen: Optional[torch.Generator], p: FlockingParams,
@@ -450,32 +486,14 @@ def rollout_large(actor: Optional[torch.nn.Module],
         actor = acfg = None
     elif acfg is None or acfg.ind_agg != 0:
         raise ValueError("the large-N path requires ind_agg == 0 actors")
-    if mesh is not None and axis not in (mesh.mesh_dim_names or ()):
-        mesh = None    # no agents axis to band over: one device's program
-    if force_n_dev is not None and mesh is None:
-        raise ValueError("force_n_dev needs a mesh (a one-rank mesh is "
-                         "fine)")
-    group = None if mesh is None else mesh_axis_group(mesh, axis,
-                                                      force_n_dev)
-    n, n_dev = p.n_agents, 1 if group is None else group.n_dev
-    blocked = path == "blocked"
-    if blocked and n % n_dev:
-        raise ValueError(f"n_agents={n} not divisible by mesh axis {n_dev} "
-                         f"(the blocked path splits agent rows)")
+    cfg = make_config(p, path=path, cap=cap, cell_margin=cell_margin,
+                      cell_edge_mult=cell_edge_mult,
+                      centralized=centralized_expert,
+                      need_expert=expert_mode, mesh=mesh, axis=axis,
+                      force_n_dev=force_n_dev)
+    group = cfg.axis
     strict_fp32()
     device = torch.device(device)
-    cfg = LargeNConfig(
-        params=p,
-        cell_spec=None if blocked else cc.make_pcell_spec(
-            p, cap=cap or 16, margin=cell_margin, edge_mult=cell_edge_mult,
-            n_dev=n_dev),
-        centralized=centralized_expert,
-        need_expert=expert_mode,
-        path=path,
-        block=block_rows(n, n // n_dev) if blocked else 0,
-        axis=group, n_dev=n_dev, rows=n // n_dev,
-        emulated=group is not None and group.emulated,
-    )
     rewards, overflow = [], None
     with torch.no_grad():
         for _ in range(n_episodes):

@@ -1,26 +1,116 @@
-"""Agent-axis-sharded inference on a mesh.
+"""Data-parallel training and agent-axis-sharded inference on a mesh.
 
 The counterpart of the JAX package's ``parallel/sharded.py``:
 
+* :class:`ShardedImitationLearner`, data parallelism for the dense
+  learner: the round's ``n_rollout_envs`` episodes are split over the
+  mesh's ``env`` axis, and each Adam update's replay batch is split over
+  the same axis, its gradient summed by one ``all_reduce`` (the gradient
+  ``psum`` that XLA inserts against the JAX learner's replicated params).
 * :func:`sharded_policy_forward`, the dense large-N inference path: the
   ``(K, N, N) x (K, N, F)`` aggregation partitions by output-agent blocks,
   so each rank holds the GSO columns of its own agents, contracts the
   whole (replicated, small) feature stack with them and runs the policy on
   its agents. Memory per rank is O(K·N²/D).
-
-The JAX package's ``ShardedImitationLearner`` (data-parallel training over
-the mesh's ``env`` axis) is not ported yet: it is the next slice (ROADMAP.md
-queue 1 item 2).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
+from multiagent_gnn_policies_tpu_torch.algos.imitation import (
+    ImitationConfig,
+    ImitationLearner,
+    rollout_episode,
+)
 from multiagent_gnn_policies_tpu_torch.ops.graph import aggregate
 from multiagent_gnn_policies_tpu_torch.parallel.distributed import AxisGroup
+from multiagent_gnn_policies_tpu_torch.parallel.mesh import axis_group
+from multiagent_gnn_policies_tpu_torch.utils.metrics import MetricsLogger
+
+
+class ShardedImitationLearner(ImitationLearner):
+    """The dense imitation learner with its round data-parallel over the
+    ``env`` axis of ``mesh`` (``parallel.mesh.make_mesh``; every rank of
+    the mesh constructs one, each on its own device).
+
+    Every rank holds the same actor, Adam state, buffer and generator, and
+    makes every random draw of the round, as one process does:
+
+    * collection: env group g runs episodes ``[g·E/n_env, (g+1)·E/n_env)``
+      of the round's E = ``n_rollout_envs`` (the whole batch's reset, coins
+      and noise drawn, its slice kept: ``FlockingEnv.env_range``);
+      the records are gathered over ``env`` in episode order, so every
+      rank's buffer is the one-process buffer;
+    * updates: every rank samples the same batch of B records; env group g
+      takes the MSE of rows ``[g·c, min((g+1)·c, B))``, c = ceil(B /
+      n_env) (XLA's split of an uneven batch, which the JAX learner takes
+      too), as that slice's share of the batch mean (its mean times its
+      rows / B), and one ``all_reduce(SUM)`` over ``env`` sums the
+      gradients and the loss; then the same Adam step on every rank.
+
+    Ranks of one env group (the ``agents`` axis) do the same work, as the
+    JAX learner replicates over that axis. Raises ValueError when the
+    ``env`` axis does not divide ``n_rollout_envs``."""
+
+    def __init__(self, cfg: ImitationConfig, mesh,
+                 logger: Optional[MetricsLogger] = None, device="cuda"):
+        env_axis = axis_group(mesh, "env")
+        if cfg.n_rollout_envs % env_axis.n_dev:
+            raise ValueError(
+                f"n_rollout_envs={cfg.n_rollout_envs} not divisible by mesh "
+                f"env axis {env_axis.n_dev} (the episodes must divide "
+                f"evenly over it)")
+        self.mesh, self._env_axis = mesh, env_axis
+        super().__init__(cfg, logger, device)
+
+    def _collect(self):
+        cfg, total = self.cfg, self.cfg.n_rollout_envs
+        e = total // self._env_axis.n_dev
+        mine = slice(self._env_axis.index * e, (self._env_axis.index + 1) * e)
+        x0 = self.env.reset(self.gen, (total,))[0].x[mine]
+        coins = None
+        if cfg.mode == "dagger":
+            coins = torch.rand((self.env.params.episode_steps, total),
+                               generator=self.gen,
+                               device=self.device)[:, mine] < self._beta
+        return rollout_episode(
+            self.actor, self.gen, self._beta,
+            dataclasses.replace(self.env, env_range=(mine.start, total)),
+            cfg.actor, mode=cfg.mode, x0=x0, coins=coins)
+
+    def _batch_rows(self, b: int):
+        """This env group's rows ``[lo, hi)`` of a batch of ``b``."""
+        ax = self._env_axis
+        c = -(-b // ax.n_dev)
+        return min(ax.index * c, b), min((ax.index + 1) * c, b)
+
+    def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        b = batch["act"].shape[0]
+        lo, hi = self._batch_rows(b)
+        params = list(self.actor.parameters())
+        self.opt.zero_grad(set_to_none=True)
+        if hi > lo:
+            loss = F.mse_loss(self.actor(batch["agg"][lo:hi]),
+                              batch["act"][lo:hi]) * ((hi - lo) / b)
+            loss.backward()
+            loss = loss.detach()
+        else:
+            loss = torch.zeros((), device=self.device)
+            for p in params:
+                p.grad = torch.zeros_like(p)
+        flat = self._env_axis.all_reduce(torch.cat(
+            [p.grad.reshape(-1) for p in params] + [loss.reshape(1)]))
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+            at += p.numel()
+        self.opt.step()
+        return flat[-1]
 
 
 def sharded_policy_forward(actor: torch.nn.Module, delay_state: torch.Tensor,

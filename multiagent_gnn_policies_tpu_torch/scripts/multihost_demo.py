@@ -10,16 +10,18 @@
 
 or under ``MAGNN_AUTO_DISTRIBUTED=1 torchrun --nproc-per-node D -m ...``
 (``--device cuda``, the default: NCCL, one card per process; gloo on the
-CPU with ``--device cpu``). The processes form one ``agents`` mesh, then:
+CPU with ``--device cpu``). The processes form one mesh, then:
 
 1. an ``all_reduce`` sanity check: rank r adds r + 1, so the sum is
    D(D + 1)/2;
 2. an agent-sharded large-N expert rollout (``parallel/large_n.py``) over
-   the mesh, against the same rollout with no process group on this
-   rank's device: rewards, final state and overflow must be equal bit for
-   bit (the JAX demo allows 1e-3);
-3. the data-parallel DAGGER round of the JAX demo is not ported yet
-   (``ShardedImitationLearner``, ROADMAP.md queue 1 item 2): it says so.
+   a 1 x D ``("env", "agents")`` mesh, against the same rollout with no
+   process group on this rank's device: rewards, final state and overflow
+   must be equal bit for bit (the JAX demo allows 1e-3);
+3. one data-parallel DAGGER round (``ShardedImitationLearner``, beta 0.9)
+   over the global ``env`` axis of a D x 1 mesh, at the JAX demo's config
+   (N = 8, T = 8, K = 2, hidden 8x8, batch 8, buffer 128, D episodes):
+   its mean episode reward and loss sum must be finite.
 
 Prints one ``MULTIHOST_OK`` line with the checked numbers, the same on
 every rank; exits non-zero when a check fails.
@@ -28,14 +30,20 @@ every rank; exits non-zero when a check fails.
 from __future__ import annotations
 
 import argparse
+import math
 import sys
 
 import torch
 
+from multiagent_gnn_policies_tpu_torch.algos.imitation import ImitationConfig
 from multiagent_gnn_policies_tpu_torch.envs.flocking import FlockingParams
+from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
 from multiagent_gnn_policies_tpu_torch.parallel import distributed
 from multiagent_gnn_policies_tpu_torch.parallel.large_n import rollout_large
 from multiagent_gnn_policies_tpu_torch.parallel.mesh import make_mesh
+from multiagent_gnn_policies_tpu_torch.parallel.sharded import (
+    ShardedImitationLearner,
+)
 from multiagent_gnn_policies_tpu_torch.scripts._common import (
     add_device_arg,
     device_of,
@@ -46,8 +54,9 @@ SEED = 7
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="Multi-process mesh check: all_reduce, and the "
-                    "agent-sharded expert rollout against one process's.")
+        description="Multi-process mesh check: all_reduce, the "
+                    "agent-sharded expert rollout against one process's, "
+                    "and one data-parallel DAGGER round.")
     ap.add_argument("--coordinator", default=None,
                     help="host:port of rank 0 (else the MAGNN_* or torchrun "
                          "variables)")
@@ -99,14 +108,26 @@ def main(argv=None) -> int:
             f"{float(r_mesh.sum())} vs {float(r_local.sum())}, overflow "
             f"{int(o_mesh)} vs {int(o_local)}")
 
-    # 3. the data-parallel round waits for the next slice
-    if rank == 0:
-        print("# step 3 (one data-parallel DAGGER round over the env axis): "
-              "not ported yet (ShardedImitationLearner, ROADMAP.md queue 1 "
-              "item 2)", flush=True)
+    # 3. one data-parallel DAGGER round over the global env axis
+    cfg = ImitationConfig(
+        mode="dagger",
+        actor=ActorConfig(n_s=6, n_a=2, hidden=(8, 8), k=2),
+        env_name="FlockingRelative-v0",
+        env=FlockingParams(n_agents=8, episode_steps=8),
+        batch_size=8, buffer_size=128, updates_per_episode=2,
+        n_train_episodes=world, n_rollout_envs=world, n_test_episodes=2,
+        seed=0)
+    learner = ShardedImitationLearner(
+        cfg, make_mesh(world, 1, device_type=args.device), device=device)
+    learner._beta = 0.9
+    ep_r, loss = (float(v) for v in learner._round())
+    if not (math.isfinite(ep_r) and math.isfinite(loss)):
+        raise SystemExit(f"the data-parallel round gave reward {ep_r}, "
+                         f"loss {loss}")
     print(f"MULTIHOST_OK rank={rank}/{world} devices={world} psum={psum:.1f} "
           f"rollout={float(r_mesh.sum()):.6f} "
-          f"local={float(r_local.sum()):.6f} overflow={int(o_mesh)}",
+          f"local={float(r_local.sum()):.6f} overflow={int(o_mesh)} "
+          f"round_reward={ep_r:.4f} loss={loss:.6f}",
           flush=True)
     torch.distributed.destroy_process_group()
     return 0

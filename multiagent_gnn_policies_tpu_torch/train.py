@@ -117,9 +117,15 @@ def main(argv=None):
         raise SystemExit("no CUDA device (torch.cuda.is_available() is "
                          "False); pass --device cpu to run on the CPU")
 
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
     from multiagent_gnn_policies_tpu_torch.utils.config import load_ini
     from multiagent_gnn_policies_tpu_torch.utils.profiling import trace
 
+    # a multi-process launch (MAGNN_* or torchrun variables) joins its
+    # process group before anything is built, as train.py does; the
+    # learners here build no mesh
+    distributed.maybe_initialize_distributed(
+        "cpu" if args.device == "cpu" else None)
     config = load_ini(args.config)
     only = set(args.sections.split(",")) if args.sections else None
     sections = [s for s in config.sections() if only is None or s in only]

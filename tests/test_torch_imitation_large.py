@@ -194,8 +194,7 @@ def test_from_experiment_store_agents_rule():
         300, "pcells", 32, "cloning")
 
 
-@pytest.mark.parametrize("path,module", [("blocked", "ops/blocked.py"),
-                                         ("cells", "ops/cells.py"),
+@pytest.mark.parametrize("path,module", [("cells", "ops/cells.py"),
                                          ("binned", "ops/binned.py")])
 def test_other_graph_paths_are_refused(path, module):
     with pytest.raises(ValueError, match=module):

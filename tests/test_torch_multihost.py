@@ -3,7 +3,8 @@ groups on the CPU, one subprocess per rank, each on a free port and under a
 timeout (tests/test_multihost.py's pattern; no state of
 ``torch.distributed`` is left in the test process):
 
-* the port's ``multihost_demo`` at 2 ranks;
+* the port's ``multihost_demo`` at 2 ranks (its three steps, the
+  data-parallel DAGGER round's reward and loss equal on both ranks);
 * D-rank rollouts (D = 2 and 4; the expert and a K = 3 policy on the
   pcells and blocked paths, the leader and stochastic variants, an episode
   chain, a recorded trajectory) equal the single-process port rollout bit
@@ -236,7 +237,11 @@ def test_multihost_demo_two_ranks():
     assert fields[0]["psum"] == fields[1]["psum"] == "3.0"
     assert fields[0]["rollout"] == fields[1]["rollout"] == fields[0]["local"]
     assert fields[0]["overflow"] == "0"
-    assert "not ported yet" in outs[0]
+    for f in fields:      # step 3: the data-parallel DAGGER round
+        assert np.isfinite(float(f["round_reward"]))
+        assert np.isfinite(float(f["loss"])) and float(f["loss"]) > 0
+    assert fields[0]["round_reward"] == fields[1]["round_reward"]
+    assert fields[0]["loss"] == fields[1]["loss"]
 
 
 def test_maybe_initialize_is_a_noop_without_the_environment(monkeypatch):
