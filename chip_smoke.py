@@ -154,10 +154,13 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     large-N detail; the one-thread baseline in its subprocess as always;
     its JSON line must parse with the four keys); ``smoke_env --episodes
     1`` (all five envs, 1 episode each, not 2); ``bench_large_n --n 10000
-    --paths blocked pcells --steps 25`` and ``--n 1000000 --paths pcells
-    --steps 25 --edge-mult 2 --cap 32``, both with ``--repeats 2 --episodes
-    1`` (25-step episodes: a first one, 2 timed chains of 1, not 3 of 2,
-    and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
+    --paths blocked cells binned pcells --steps 10 --repeats 1 --episodes
+    1`` (10-step episodes, not 25: a first one, 1 timed chain of 1, not 3
+    of 2, and one profiled; cut from 25 steps and 2 chains when the cells
+    and binned rows joined, to hold the run's budget) and ``--n 1000000
+    --paths pcells --steps 25 --edge-mult 2 --cap 32 --repeats 2
+    --episodes 1`` (25-step episodes: a first one, 2 timed chains of 1,
+    not 3 of 2, and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
     the 1M geometry kept); ``run_1m`` at its full N = 1,000,000, T = 200,
     edge_mult 2, cap 32 (two episodes; it exits 1 unless overflow 0,
     finite rewards and launches 201/200/200 per episode); and
@@ -196,6 +199,28 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     both printed beside phase 11's. (c) The same learner with one slot per
     cell (``cell_cap`` 1): the round's overflow gate raises on the rank
     within DP_OVERFLOW_S, nothing stored. The group is destroyed after;
+19. backends: the cells and binned graph backends (``ops/cells.py``,
+    ``ops/binned.py``; plain PyTorch, no cell kernel). (a) A lattice reset
+    at N = 32,768 and BACKEND_STEPS policy steps on the pcells path, as
+    phase 3; on that step's own inputs each backend's frame against the
+    pcells frame (values and expert within 1e-5, degrees and min r^2
+    exact, overflow 0), its apply at 12 columns (the delayed columns)
+    against the pcells apply, and its delayed stack against
+    ``ystack_pre`` (1e-5). (b) One greedy 200-step K = 3 episode of the
+    n32k checkpoint on each backend through ``rollout_large(path=)``
+    (cells at BACKEND_CELL_CAP slots per cell, binned at its 32), from
+    phase 4's reset: overflow 0, reward within -458.8 +- 15 (phase
+    4's band), K1-K3 counters 0 across each episode, ms per step printed;
+    then BACKEND_PARITY_STEPS-step episodes from one x0 on pcells, cells
+    and binned: rewards and final states within 1e-4 of pcells'. (c) One
+    round of ``cfg/dagger_n32k.cfg [n32k]`` with ``graph_path = cells``
+    and ``cell_cap = BACKEND_CELL_CAP``, cut in depth as phase 11 (LARGE_BUFFER records, 1 eval episode):
+    finite loss sum, overflow 0 (the gate raises otherwise), counters 0;
+    collection ms per env step and ms per Adam update printed. (d) On a
+    one-rank NCCL group and ``make_mesh(1, 1)``, built as phase 18 builds
+    them: a BACKEND_MESH_STEPS-step episode of each backend on the mesh
+    equal to the same episode with no mesh, bit for bit. The group is
+    destroyed after;
 17. budget, run last: the run, build included, must finish in BUDGET_S; a
     watchdog ends it with a non-zero exit after WATCHDOG_S.
 
@@ -234,7 +259,7 @@ sys.path.insert(0, ROOT)
 from multiagent_gnn_policies_tpu_torch.scripts.verify_cells import (  # noqa
     apply_work, frame_work, neighbour_bytes, pair_counts)
 from multiagent_gnn_policies_tpu_torch.utils.profiling import (  # noqa: E402
-    bound_ms, device_ms, summarize_trace)
+    bound_ms, device_ms, summarize_trace, trace_events)
 
 BUDGET_S = 300.0
 WATCHDOG_S = 480
@@ -320,6 +345,14 @@ MESH_FORCE = 4
 MESH_STEPS = 25
 DP_DENSE_TOL = 1e-6           # phase 18 (a): sharded vs one-process params
 DP_OVERFLOW_S = 60.0          # phase 18 (c): the gate raises within this
+BACKEND_PATHS = ("cells", "binned")   # phase 19: the other graph backends
+BACKEND_STEPS = 3             # (a): policy steps before the checks
+BACKEND_PARITY_STEPS = 20     # (b): pcells, cells, binned from one x0
+BACKEND_MESH_STEPS = 25       # (d): mesh vs no mesh
+# (b)-(d): the cells grid's slots per cell for the n32k policy. At the
+# module's default of 12 one agent of a 200-step episode overflowed (a
+# cell of 13); 16 is the pcells grid's capacity
+BACKEND_CELL_CAP = 16
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -489,7 +522,7 @@ def trace_steps(torch, ln, cc, cfg, actor, state, gen, steps):
         ln._scan_steps(cfg, annotated_actor, state, steps, gen)
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
-    summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
+    summarize_trace(trace_events(prof), steps, wall_ms, prof_wall_ms)
     return wall_ms
 
 
@@ -672,7 +705,7 @@ def dagger_phase(torch, im, load_actor_npz, actor_params_from_numpy, Actor,
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     print(f"#   dagger trace: one round, per env step with its Adam update",
           flush=True)
-    summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
+    summarize_trace(trace_events(prof), steps, wall_ms, prof_wall_ms)
     return losses, timing, same
 
 
@@ -801,7 +834,7 @@ def large_dagger_phase(torch, im, il, cc, ExperimentConfig, load_ini,
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     print("#   large dagger trace: one round, per collection step with its "
           "Adam update", flush=True)
-    summarize_trace(prof.events(), steps, wall_ms, prof_wall_ms)
+    summarize_trace(trace_events(prof), steps, wall_ms, prof_wall_ms)
     return losses, timing, same, total
 
 
@@ -905,12 +938,12 @@ def tools_phase(cc):
     text, out["smoke_env_s"] = _tool(smoke_env.main, ["--episodes", "1"])
     if "SUSPECT" in text or text.count(" ok\n") != 5:
         raise AssertionError("smoke_env: a SUSPECT or missing episode")
-    cut = ["--steps", "25", "--repeats", "2", "--episodes", "1"]
     _, out["bench_large_n_s"] = _tool(bench_large_n.main, [
-        "--n", "10000", "--paths", "blocked", "pcells", *cut])
+        "--n", "10000", "--paths", "blocked", "cells", "binned", "pcells",
+        "--steps", "10", "--repeats", "1", "--episodes", "1"])
     _, s = _tool(bench_large_n.main, [
         "--n", "1000000", "--paths", "pcells", "--edge-mult", "2", "--cap",
-        "32", *cut])
+        "32", "--steps", "25", "--repeats", "2", "--episodes", "1"])
     out["bench_large_n_s"] += s
     text, out["verify_cells_s"] = _tool(verify_cells.main, ["--quick"])
     if "[FAIL]" in text or "ALL PASSED" not in text:
@@ -1043,7 +1076,7 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
                 run()
                 torch.cuda.synchronize()
             summary = summarize_trace(
-                prof.events(), MESH_STEPS, ms,
+                trace_events(prof), MESH_STEPS, ms,
                 1e3 * (time.perf_counter() - t) / MESH_STEPS, top=3)
             busy = ("not measured" if summary is None
                     else f"{summary['busy_ms']:.4f}")
@@ -1174,6 +1207,203 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
         torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out, by_cols
+
+
+def _section_params(ExperimentConfig, section, n_agents, steps=None):
+    """The env of ``section`` at ``n_agents`` as the evaluate entry point
+    builds it (``episode_steps`` cut to ``steps`` when given), and the
+    section's config."""
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+        ENV_REGISTRY, FlockingParams)
+
+    cfg = ExperimentConfig.from_section(section)
+    p = FlockingParams(n_agents=n_agents, comm_radius=cfg.comm_radius,
+                       dt=cfg.dt, v_max=cfg.v_max,
+                       episode_steps=steps or cfg.episode_steps)
+    return ENV_REGISTRY[cfg.env](p), cfg
+
+
+def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
+                   n_agents, reward):
+    """Phase 19: the cells and binned graph backends on the card (module
+    docstring): (a) their frames, applies and stacks against the pcells
+    path's on a K = 3 step's own inputs, (b) a 200-step episode of each
+    and 20-step episodes of all three paths from one x0, (c) a cells
+    learner round, (d) a one-rank NCCL mesh against no mesh. Returns what
+    the phase line prints."""
+    import dataclasses as dc
+
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import (
+        _init_candidate)
+    from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+    from multiagent_gnn_policies_tpu_torch.ops import binned as bn
+    from multiagent_gnn_policies_tpu_torch.ops import cells as cl
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel import mesh as pm
+
+    dev = torch.device(DEVICE)
+    section = load_ini(CONFIG)["n32k"]
+    p, xcfg = _section_params(ExperimentConfig, section, n_agents)
+    acfg = ActorConfig(n_s=6, n_a=2, hidden=(32, 32), k=3)
+    actor = ev.load_actor(CHECKPOINT, acfg, dev)
+    out = {}
+    err = 0.0
+    # (a) a lattice reset and K = 3 policy steps on the pcells path, then
+    # every backend on that step's inputs
+    spec = cc.make_pcell_spec(p)
+    cfg = ln.LargeNConfig(params=p, cell_spec=spec, centralized=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 19)
+    with torch.no_grad():
+        state = ln._episode_init(cfg, acfg, gen, dev)
+        state, _ = ln._scan_steps(cfg, actor, state, BACKEND_STEPS, gen)
+        x, carry = state.x, state.carry
+        fq = cc.frame(x, state.grid, spec, p, True, need_expert=True)
+        deg = fq.degree.contiguous()
+        cols = ln._s0_cols(carry).contiguous()                  # (N, 12)
+        want = {
+            "frame": torch.cat([fq.values, deg[:, None], fq.expert], 1),
+            "apply": cc.apply_adjT(x[:, :2], deg, cols, spec, p,
+                                   grid=state.grid),
+            "ystack": cc.ystack_pre(carry, state.s0, spec, p,
+                                    grid_hist=state.grid_hist),
+        }
+        cspec = cl.make_cell_spec(p)
+        cgrid = cl.build_cell_grid(x[:, :2], cspec)
+        nl = bn.build_neighbor_list(x[:, :2], p.comm_radius)
+        cfq = cl.cells_frame(x, cgrid, cspec, p, True)
+        bfq = bn.binned_frame(x, nl, p, True)
+        got = {
+            "cells": {
+                "frame": cfq,
+                "apply": cl.cells_apply_adjT(x[:, :2], fq.degree, cols, cspec,
+                                             p, grid=cgrid),
+                "ystack": cl.cells_ystack(carry, cgrid, x, fq.degree, cspec,
+                                          p),
+                "overflow": int(cgrid.overflow)},
+            "binned": {
+                "frame": bfq,
+                "apply": bn.binned_apply_adjT(nl, cols, deg=fq.degree),
+                "ystack": bn.binned_ystack(carry, nl, p),
+                "overflow": int(nl.overflow)},
+        }
+        torch.cuda.synchronize()
+    for path, g in got.items():
+        if g["overflow"]:
+            raise AssertionError(f"{path}: overflow {g['overflow']}")
+        f = g["frame"]
+        err = max(err, check_close(
+            f"{path} frame vs pcells, N={n_agents}",
+            torch.cat([f.values, f.degree[:, None], f.expert], 1),
+            want["frame"], REL_PLAIN, exact_channels=(6,)))
+        if float(f.min_r2) != float(fq.min_r2):
+            raise AssertionError(f"{path} min r^2 {float(f.min_r2)} != "
+                                 f"{float(fq.min_r2)}")
+        err = max(err, check_close(f"{path} apply C=12 vs pcells (K3)",
+                                   g["apply"], want["apply"], REL_PLAIN))
+        err = max(err, check_close(
+            f"{path} ystack vs ystack_pre", g["ystack"].transpose(0, 1),
+            want["ystack"].transpose(0, 1), REL_PLAIN))
+    out["max_abs_err"] = f"{err:.3g}"
+
+    # (b) a 200-step episode of each backend through rollout_large(path=),
+    # with phase 4's reset; then 20-step episodes of all three paths
+    cap = {"cells": BACKEND_CELL_CAP, "binned": None}
+    for path in BACKEND_PATHS:
+        cc.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.no_grad():
+            r, _, ovf = ln.rollout_large(
+                actor, acfg, ev.episode_generator(xcfg.seed, 0, dev), p,
+                centralized_expert=xcfg.centralized, return_overflow=True,
+                device=dev, path=path, cap=cap[path])
+            total = float(r.sum())
+        wall = time.perf_counter() - t
+        launches = cc.launch_counts()
+        steps = p.episode_steps
+        print(f"#   {path}: {steps}-step K = 3 episode at N = {n_agents}: "
+              f"reward {total} (pcells {reward}), overflow {int(ovf)}, "
+              f"launches {launches}, {1e3 * wall / steps:.4f} ms per step "
+              f"(reset included)", flush=True)
+        if int(ovf) or any(launches.values()):
+            raise AssertionError(f"{path}: overflow {int(ovf)}, launches "
+                                 f"{launches}")
+        if not math.isfinite(total) or abs(total - REWARD_REF) > REWARD_BAND:
+            raise AssertionError(f"{path}: reward {total} outside "
+                                 f"{REWARD_REF} +- {REWARD_BAND}")
+        out[f"{path}_reward"] = total
+        out[f"{path}_ms_per_step"] = f"{1e3 * wall / steps:.4f}"
+    p20, _ = _section_params(ExperimentConfig, section, n_agents,
+                             BACKEND_PARITY_STEPS)
+    x0 = _init_candidate(torch.Generator(device=dev).manual_seed(SEED + 20),
+                         p20, dev)
+    ends = {}
+    with torch.no_grad():
+        for path in ("pcells", *BACKEND_PATHS):
+            r, xf, ovf = ln.rollout_large(actor, acfg, None, p20, x0=x0,
+                                          return_overflow=True, device=dev,
+                                          path=path, cap=cap.get(path))
+            if int(ovf):
+                raise AssertionError(f"{path} 20-step episode: overflow")
+            ends[path] = (r, xf)
+    for path in BACKEND_PATHS:
+        check_close(f"{path} {BACKEND_PARITY_STEPS}-step final state vs "
+                    f"pcells", ends[path][1], ends["pcells"][1], REL_EPISODE)
+        check_close(f"{path} {BACKEND_PARITY_STEPS}-step rewards vs pcells",
+                    ends[path][0][:, None], ends["pcells"][0][:, None],
+                    REL_EPISODE)
+
+    # (c) one round of the n32k section on the cells path, cut in depth as
+    # phase 11
+    lcfg = il.LargeNImitationConfig.from_experiment(dc.replace(
+        xcfg, n_agents=n_agents, buffer_size=LARGE_BUFFER, n_test_episodes=1,
+        graph_path="cells", cell_cap=BACKEND_CELL_CAP), mode="dagger")
+    lrn = il.LargeNImitationLearner(lcfg, device=DEVICE)
+    _, launches = _counted(cc, lambda: lrn.train(stop_after=1))
+    torch.cuda.synchronize()
+    speed = lrn.timing_summary()
+    loss = float(lrn.last_loss_sum)
+    print(f"#   cells learner: cfg/dagger_n32k.cfg [n32k] with graph_path = "
+          f"cells at N = {n_agents} (buffer {LARGE_BUFFER} records, 1 eval "
+          f"episode), 1 round: loss sum {loss}, launches {launches}; "
+          f"collection {speed['rollout_ms_per_step']:.4f} ms per env step, "
+          f"{speed['update_ms_per_update']:.4f} ms per Adam update",
+          flush=True)
+    if not math.isfinite(loss) or any(launches.values()):
+        raise AssertionError(f"cells learner: loss {loss}, launches "
+                             f"{launches}")
+    out.update(cells_learner_loss=loss,
+               cells_collection_ms_per_step=(
+                   f"{speed['rollout_ms_per_step']:.4f}"),
+               cells_update_ms=f"{speed['update_ms_per_update']:.4f}")
+    del lrn
+
+    # (d) a one-rank NCCL mesh against no mesh, bit for bit
+    pm_steps, _ = _section_params(ExperimentConfig, section, n_agents,
+                                  BACKEND_MESH_STEPS)
+    distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
+    try:
+        mesh = pm.make_mesh(1, 1)
+        for path in BACKEND_PATHS:
+            runs = []
+            for m in (None, mesh):
+                with torch.no_grad():
+                    runs.append(ln.rollout_large(
+                        actor, acfg, torch.Generator(device=dev).manual_seed(
+                            SEED + 21), pm_steps, return_overflow=True,
+                        device=dev, path=path, cap=cap[path], mesh=m))
+            (r1, x1, o1), (r2, x2, o2) = runs
+            same = (torch.equal(r1, r2) and torch.equal(x1, x2)
+                    and int(o1) == int(o2) == 0)
+            print(f"#   {path}: {BACKEND_MESH_STEPS}-step episode on a "
+                  f"one-rank NCCL mesh vs no mesh: bit for bit {same}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"{path}: the mesh episode differs")
+            out[f"{path}_mesh_bit_for_bit"] = same
+    finally:
+        torch.distributed.destroy_process_group()
+    cc.reset_launch_counts()
+    return out
 
 
 def _transfer_section(load_ini, k, noiseless=False):
@@ -1792,7 +2022,7 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     print(f"#   ddpg trace: {config}.cfg, one episode, per env step with its "
           f"gradient step", flush=True)
-    summarize_trace(prof.events(), steps, per[-1]["ms_per_step"],
+    summarize_trace(trace_events(prof), steps, per[-1]["ms_per_step"],
                     prof_wall_ms)
     return per[-1]["ms_per_step"], same
 
@@ -2109,6 +2339,12 @@ def main():
     dp, dp_launches = dp_phase(torch, im, il, cc, ExperimentConfig,
                                load_ini, N, l_speed)
     phase("dp training", t, **dp)
+
+    # 19. the cells and binned graph backends
+    t = time.perf_counter()
+    backends = backends_phase(torch, ev, ln, cc, il, ExperimentConfig,
+                              load_ini, N, reward)
+    phase("backends", t, **backends)
 
     # 17. budget, last
     total = time.perf_counter() - T0

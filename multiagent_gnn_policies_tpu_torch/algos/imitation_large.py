@@ -46,7 +46,10 @@ a round here collects through the O(N) cell sweeps of
 
 The port's default is the "pcells" path at every N: ``graph_path`` "auto"
 and "pcells" run it, "blocked" runs the O(N²) row-blocked sweeps of
-``ops/blocked.py`` (no cell kernel), "cells" and "binned" raise.
+``ops/blocked.py``, "cells" the dense cell grid of ``ops/cells.py`` (cap
+``cell_cap`` or 12) and "binned" the spatial-hash neighbour list of
+``ops/binned.py`` (cap 32, as the JAX learner's); none of the last three
+launches a cell kernel.
 
 Random draws: the learner's one device generator draws the actor's init,
 the replay samples, the eval resets and, at the start of each round,
@@ -77,13 +80,6 @@ from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
 from multiagent_gnn_policies_tpu_torch.parallel.mesh import axis_group
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
 
-# graph backends of the JAX learner that the port does not have
-_OTHER_PATHS = {
-    "cells": "multiagent_gnn_policies_tpu/ops/cells.py",
-    "binned": "multiagent_gnn_policies_tpu/ops/binned.py",
-}
-
-
 @dataclasses.dataclass(frozen=True)
 class LargeNImitationConfig(ImitationConfig):
     """:class:`ImitationConfig` and the large-N collection settings.
@@ -91,10 +87,13 @@ class LargeNImitationConfig(ImitationConfig):
     Attributes:
       store_agents: agents per stored replay record (a uniform subsample
         with replacement; 0 = all agents, only sensible at small N).
-      graph_path: "auto" or "pcells" (the cell sweeps), or "blocked"
-        (the O(N²) row-blocked sweeps).
+      graph_path: "auto" or "pcells" (the cell sweeps), "blocked" (the
+        O(N²) row-blocked sweeps), "cells" (the dense cell grid) or
+        "binned" (the spatial-hash neighbour list).
       cell_margin / cell_cap / cell_edge_mult: the cell grid
-        (``make_pcell_spec``; ``cell_cap`` 0 = 16).
+        (``make_pcell_spec``; ``cell_cap`` 0 = 16; on the cells path
+        ``make_cell_spec``, 0 = 12, no edge multiple; the binned path
+        takes 32 slots per cell run whatever they say).
     """
 
     store_agents: int = 4096
@@ -173,12 +172,7 @@ class LargeNImitationLearner(ImitationLearner):
 
     def __init__(self, cfg: LargeNImitationConfig, logger=None,
                  device="cuda", mesh=None, axis: str = "agents"):
-        if cfg.graph_path in _OTHER_PATHS:
-            raise ValueError(
-                f"graph_path = {cfg.graph_path} needs "
-                f"{_OTHER_PATHS[cfg.graph_path]}, which the port does not "
-                f"have (graph_path auto, pcells or blocked)")
-        if cfg.graph_path not in ("auto", "pcells", "blocked"):
+        if cfg.graph_path != "auto" and cfg.graph_path not in ln.PATHS:
             raise ValueError(f"unknown graph_path {cfg.graph_path!r}")
         if cfg.actor.ind_agg != 0 or cfg.actor.k < 2:
             raise ValueError("the large-N learner needs ind_agg == 0, "
@@ -190,11 +184,13 @@ class LargeNImitationLearner(ImitationLearner):
                     f"n_rollout_envs={cfg.n_rollout_envs} must divide evenly "
                     f"over the mesh env axis ({self._env_axis.n_dev})")
         self.mesh, self.axis = mesh, axis
-        path = "blocked" if cfg.graph_path == "blocked" else "pcells"
+        path = "pcells" if cfg.graph_path == "auto" else cfg.graph_path
+        # the JAX learner's binned table has 32 slots whatever cell_cap is
+        self._cap = None if path == "binned" else cfg.cell_cap or None
         # collection acts on the centralized expert, as the JAX learner's
         self._lcfg = ln.make_config(
             ENV_REGISTRY[cfg.env_name](cfg.env), path=path,
-            cap=cfg.cell_cap or None, cell_margin=cfg.cell_margin,
+            cap=self._cap, cell_margin=cfg.cell_margin,
             cell_edge_mult=cfg.cell_edge_mult, centralized=True,
             need_expert=True, mesh=mesh, axis=axis)
         super().__init__(cfg, logger, device)
@@ -261,7 +257,7 @@ class LargeNImitationLearner(ImitationLearner):
         for _ in range(cfg.n_test_episodes):
             r, _, ovf = ln.rollout_large(
                 self.actor, cfg.actor, self.gen, self._lcfg.params,
-                cap=cfg.cell_cap or None, cell_margin=cfg.cell_margin,
+                cap=self._cap, cell_margin=cfg.cell_margin,
                 cell_edge_mult=cfg.cell_edge_mult, return_overflow=True,
                 device=self.device, path=self._lcfg.path, mesh=self.mesh,
                 axis=self.axis)

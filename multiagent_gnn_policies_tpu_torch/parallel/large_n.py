@@ -1,10 +1,10 @@
 """Large-N rollouts on one device or agent-sharded over a mesh, through the
-cell sweeps.
+cell sweeps or one of three other graph backends.
 
-The counterpart of the JAX package's ``parallel/large_n.py`` for the
-"pcells" and "blocked" paths: reset, then a Python loop of env steps
-(the JAX package's ``lax.scan`` body, ``_scan_steps``). Each step of a K >= 2
-policy runs
+The counterpart of the JAX package's ``parallel/large_n.py``, with its
+four paths ("pcells", "blocked", "cells", "binned"): reset, then a Python
+loop of env steps (the JAX package's ``lax.scan`` body, ``_scan_steps``).
+On the pcells path each step of a K >= 2 policy runs
 
 1. ``ystack_pre``: the historical graphs' applies of the delayed stack,
    s = 1 .. K-2, through K3 on (K-1-s)·F columns (the s = 0 apply was done
@@ -36,13 +36,27 @@ N = 32,768) computes the same step with the O(N²) row-blocked sweeps of
 cell kernel and has no grid, so its overflow is always 0. Its peak memory
 is O(B·N) for blocks of B rows (:func:`block_rows`).
 
+The "cells" path (``ops/cells.py``, the dense cell grid swept in
+(cap, 9·cap) blocks per cell, a batched product for each apply) and the
+"binned" path (``ops/binned.py``, the spatial-hash neighbour list, the
+exact oracle at any extent; ``sparse=True`` selects it) run the same step
+unfused as the blocked path does: their frame (with the expert, always),
+then the whole delayed stack (``cells_ystack``, ``binned_ystack``: the
+historical graphs rebuilt from the carried positions). Both are plain
+PyTorch and launch no cell kernel; their overflow is the grid's or the
+neighbour list's.
+
 On a mesh (``rollout_large(mesh=...)``, one process per device, the
 ``agents`` axis of D ranks) every rank holds the whole O(N) state and
 shares the sweeps: on the pcells path rank d builds the grid with a 1/D
 share of the sort (``build_pcell_grid_sharded``), sweeps its band of
 ``cx / D`` grid rows through K1-K3 and completes each (N, C) table with one
 ``all_reduce(SUM)`` (exact: every agent is written by one band); on the
-blocked path it sweeps its N/D agent rows and gathers the frame. The
+cells path every rank builds the grid, sweeps its ``cx / D`` grid rows and
+completes the frame's (N, 9) and each apply's (N, C) table the same way,
+with a MIN for min r², so any N shards; on the blocked and binned paths
+it sweeps its N/D agent rows, gathers the frame (min r² by MIN) and, after
+each binned apply, its rows (a tiled ``all_gather``). The
 actor and the double-integrator step run on the rank's N/D agents and an
 ``all_gather`` rebuilds the (N, 4) state (:func:`_shard_actor_dynamics`).
 So every rank returns the same rewards, and they equal the single-process
@@ -54,7 +68,7 @@ table and 4·N·6 of the historical apply reduced, 16·N of the state and
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.distributed as dist
@@ -76,6 +90,8 @@ from multiagent_gnn_policies_tpu_torch.ops.blocked import (
     delayed_ystack,
     pick_block,
 )
+from multiagent_gnn_policies_tpu_torch.ops import binned as bn
+from multiagent_gnn_policies_tpu_torch.ops import cells as cl
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
 from multiagent_gnn_policies_tpu_torch.parallel.distributed import AxisGroup
 from multiagent_gnn_policies_tpu_torch.parallel.mesh import (
@@ -83,7 +99,7 @@ from multiagent_gnn_policies_tpu_torch.parallel.mesh import (
 )
 
 
-PATHS = ("pcells", "blocked")
+PATHS = ("pcells", "blocked", "cells", "binned")
 # rows per block of the blocked path's O(N²) sweeps: about 2^25 (row,
 # agent) pairs per block, so that each of a block's ~25 (B, N) float32
 # temporaries stays near 128 MB (~3.4 GB in all at N = 32,768), and
@@ -98,8 +114,12 @@ class LargeNConfig(NamedTuple):
     ``need_expert`` computes it (``fq.expert``), which only expert-mode
     rollouts and the imitation learner's collection read (the JAX
     package's ``LargeNConfig.need_expert``; the blocked frame always
-    computes it). ``path`` is "pcells" (the cell sweeps over ``cell_spec``)
-    or "blocked" (row blocks of ``block`` rows; ``cell_spec`` unused).
+    computes it, and so do the cells and binned frames). ``path`` is
+    "pcells" (the cell sweeps over ``cell_spec``, a ``PCellSpec``),
+    "blocked" (row blocks of ``block`` rows), "cells" (the dense cell grid
+    of ``ops/cells.py`` over ``cell_spec``, a ``CellSpec``) or "binned"
+    (the spatial-hash neighbour list of ``ops/binned.py``, ``cap`` agents
+    per cell run).
 
     On a mesh: ``axis`` holds the ``agents`` axis's collectives, ``n_dev``
     its size, ``rows`` the agents per rank (N / n_dev) and ``emulated``
@@ -107,7 +127,7 @@ class LargeNConfig(NamedTuple):
     of the same shapes; results not valid). ``axis`` None: one device."""
 
     params: FlockingParams
-    cell_spec: Optional[cc.PCellSpec]
+    cell_spec: Optional[Union[cc.PCellSpec, cl.CellSpec]]
     centralized: bool = True
     need_expert: bool = False
     path: str = "pcells"
@@ -116,6 +136,7 @@ class LargeNConfig(NamedTuple):
     n_dev: int = 1
     rows: int = 0
     emulated: bool = False
+    cap: int = 32
 
 
 class EpisodeState(NamedTuple):
@@ -127,8 +148,11 @@ class EpisodeState(NamedTuple):
     x: torch.Tensor                  # (N, 4) state
     carry: Optional[DelayCarry]
     fq: cc.FrameQuantities           # frame of x
-    grid: Optional[cc.PCellGrid]     # grid of x (None on the blocked path)
-    grid_hist: Tuple[cc.PCellGrid, ...]  # grids of pos_hist, newest first
+    # the neighbour structure of x: a PCellGrid (pcells), a CellGrid
+    # (cells), a NeighborList (binned) or None (blocked)
+    grid: Optional[NamedTuple]
+    grid_hist: Tuple[cc.PCellGrid, ...]  # pcells: grids of pos_hist, newest
+                                         # first
     s0: Optional[torch.Tensor]       # (N, (K-1)·F) pre-applied s=0 columns
     overflow: torch.Tensor           # () max overflow so far
 
@@ -156,11 +180,22 @@ def _row_range(cfg: LargeNConfig):
 
 
 def _cell_row_range(cfg: LargeNConfig):
-    """This rank's band of grid rows (pcells path), or None: the sweep is
-    per grid row, so the mesh partitions grid rows, not agent rows."""
+    """This rank's band of grid rows (pcells and cells paths), or None: the
+    sweep is per grid row, so the mesh partitions grid rows, not agent
+    rows."""
     if cfg.axis is None:
         return None
     return cc.row_band(cfg.cell_spec, cfg.n_dev, cfg.axis.index)
+
+
+def _gather_frame(cfg: LargeNConfig, fq: cc.FrameQuantities):
+    """A frame of this rank's agent rows completed over the mesh: one
+    ``all_gather`` of the (N/D, 9) table and min r² reduced by MIN."""
+    table = cfg.axis.all_gather(torch.cat(
+        [fq.values, fq.degree[:, None], fq.expert], 1))
+    min_r2 = cfg.axis.all_reduce(fq.min_r2.reshape(1), dist.ReduceOp.MIN)
+    return cc.FrameQuantities(values=table[:, :6], degree=table[:, 6],
+                              expert=table[:, 7:9], min_r2=min_r2[0])
 
 
 def _grid(cfg: LargeNConfig, pos: torch.Tensor) -> cc.PCellGrid:
@@ -171,28 +206,31 @@ def _grid(cfg: LargeNConfig, pos: torch.Tensor) -> cc.PCellGrid:
     return cc.build_pcell_grid(pos, cfg.cell_spec)
 
 
-def _blocked_frame(cfg: LargeNConfig, x: torch.Tensor):
-    """The blocked frame; on a mesh of this rank's rows, gathered (one
-    ``all_gather`` of the (N/D, 9) table) with min r² reduced by MIN."""
-    fq = blocked_frame(x, cfg.params, cfg.centralized, cfg.block,
-                       row_range=_row_range(cfg))
-    if cfg.axis is None:
-        return fq
-    table = cfg.axis.all_gather(torch.cat(
-        [fq.values, fq.degree[:, None], fq.expert], 1))
-    min_r2 = cfg.axis.all_reduce(fq.min_r2.reshape(1), dist.ReduceOp.MIN)
-    return cc.FrameQuantities(values=table[:, :6], degree=table[:, 6],
-                              expert=table[:, 7:9], min_r2=min_r2[0])
-
-
 def _frame(cfg: LargeNConfig, x: torch.Tensor, apply_cols=None):
-    """Grid and frame of ``x``; with ``apply_cols`` also the fused K2 apply
-    of those columns over the same graph. Returns ``(fq, grid[, applied])``.
-    The expert as ``cfg`` says (``centralized``, ``need_expert``). The
-    blocked path returns ``(blocked_frame, None)`` (it never fuses). On a
-    mesh every sweep is this rank's band, completed over the mesh."""
+    """Grid and frame of ``x``; with ``apply_cols`` (pcells only) also the
+    fused K2 apply of those columns over the same graph. Returns ``(fq,
+    grid[, applied])``. The expert as ``cfg`` says (``centralized``,
+    ``need_expert``; the blocked, cells and binned frames always compute
+    it). The blocked path returns ``(blocked_frame, None)``, the cells path
+    its ``CellGrid``, the binned path its ``NeighborList``. On a mesh every
+    sweep is this rank's band (grid rows on the cell paths, agent rows on
+    the blocked and binned paths), completed over the mesh."""
     if cfg.path == "blocked":
-        return _blocked_frame(cfg, x), None
+        fq = blocked_frame(x, cfg.params, cfg.centralized, cfg.block,
+                           row_range=_row_range(cfg))
+        return (fq if cfg.axis is None else _gather_frame(cfg, fq)), None
+    if cfg.path == "binned":
+        # the table is built on every rank; each gathers its agent rows
+        nl = bn.build_neighbor_list(x[:, :2], cfg.params.comm_radius,
+                                    cfg.cap)
+        fq = bn.binned_frame(x, nl, cfg.params, cfg.centralized,
+                             row_range=_row_range(cfg))
+        return (fq if cfg.axis is None else _gather_frame(cfg, fq)), nl
+    if cfg.path == "cells":
+        grid = cl.build_cell_grid(x[:, :2], cfg.cell_spec)
+        return cl.cells_frame(x, grid, cfg.cell_spec, cfg.params,
+                              cfg.centralized, row_range=_cell_row_range(cfg),
+                              axis=cfg.axis), grid
     grid = _grid(cfg, x[:, :2])
     band = _cell_row_range(cfg)
     if apply_cols is not None:
@@ -234,8 +272,9 @@ def _s0_cols(carry: DelayCarry) -> torch.Tensor:
     return carry.history[:k_1].transpose(0, 1).reshape(n, k_1 * f)
 
 
-def _overflow(grid: Optional[cc.PCellGrid], x: torch.Tensor):
-    """The grid's dropped-agent count; 0 on the blocked path (no grid)."""
+def _overflow(grid: Optional[NamedTuple], x: torch.Tensor):
+    """The grid's (or neighbour list's) dropped-agent count; 0 on the
+    blocked path (no grid)."""
     if grid is None:
         return torch.zeros((), dtype=torch.int32, device=x.device)
     return grid.overflow
@@ -245,8 +284,8 @@ def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
                   gen: Optional[torch.Generator], device,
                   x0: Optional[torch.Tensor] = None) -> EpisodeState:
     """Reset (or the injected ``x0``) and the initial episode state; with
-    ``acfg`` None (expert mode) no delayed stack, at K = 1 or on the
-    blocked path no pre-applied columns and no historical grids."""
+    ``acfg`` None (expert mode) no delayed stack, at K = 1 or off the
+    pcells path no pre-applied columns and no historical grids."""
     p = cfg.params
     if x0 is None:
         x, fq, grid = _reset(cfg, gen, device)
@@ -257,8 +296,8 @@ def _episode_init(cfg: LargeNConfig, acfg: Optional[ActorConfig],
         return EpisodeState(x, None, fq, grid, (), None, _overflow(grid, x))
     k = acfg.k
     carry = delay_carry_init(fq.values, p.n_agents, k)
-    if grid is None:
-        return EpisodeState(x, carry, fq, None, (), None, _overflow(grid, x))
+    if cfg.path != "pcells":
+        return EpisodeState(x, carry, fq, grid, (), None, _overflow(grid, x))
     # the K-2 historical graphs start as the reset frame's grid: their
     # history slots are zero until step >= k, so this is exact
     grid_hist = tuple(grid for _ in range(max(k - 2, 0)))
@@ -275,6 +314,13 @@ def _ystack(cfg: LargeNConfig, state: EpisodeState) -> torch.Tensor:
         return delayed_ystack(state.carry, state.x[:, :2], cfg.params,
                               cfg.block, deg_now=state.fq.degree,
                               row_range=_row_range(cfg), axis=cfg.axis)
+    if cfg.path == "cells":
+        return cl.cells_ystack(state.carry, state.grid, state.x,
+                               state.fq.degree, cfg.cell_spec, cfg.params,
+                               row_range=_cell_row_range(cfg), axis=cfg.axis)
+    if cfg.path == "binned":
+        return bn.binned_ystack(state.carry, state.grid, cfg.params, cfg.cap,
+                                row_range=_row_range(cfg), axis=cfg.axis)
     return cc.ystack_pre(state.carry, state.s0, cfg.cell_spec, cfg.params,
                          grid_hist=state.grid_hist,
                          band=_cell_row_range(cfg), axis=cfg.axis)
@@ -386,8 +432,18 @@ def make_config(p: FlockingParams, *, path: str = "pcells",
     """The :class:`LargeNConfig` of ``p`` on ``path``, on one device or
     banded over ``mesh``'s ``axis`` (``rollout_large``'s arguments of the
     same names; a mesh without that axis runs the single-device program).
-    Raises ValueError for ``force_n_dev`` without a mesh and, on the
-    blocked path, for an axis that does not divide N."""
+    ``cap`` defaults to 16 (pcells), 12 (cells) or 32 (binned).
+    Raises ValueError for an unknown path, for ``force_n_dev`` without a
+    mesh, on the blocked and binned paths (which split agent rows) for an
+    axis that does not divide N, and on the binned path with the
+    centralized expert for ``comm_radius < 1`` (its 3x3 cells of edge
+    comm_radius would miss part of the expert's unit-range potential)."""
+    if path not in PATHS:
+        raise ValueError(f"unknown path {path!r}; known: {PATHS}")
+    if path == "binned" and centralized and p.comm_radius < 1.0:
+        raise ValueError(
+            "binned path needs comm_radius >= 1.0 for the centralized "
+            "expert's unit-range potential (use the cells or blocked path)")
     if mesh is not None and axis not in (mesh.mesh_dim_names or ()):
         mesh = None    # no agents axis to band over: one device's program
     if force_n_dev is not None and mesh is None:
@@ -396,21 +452,26 @@ def make_config(p: FlockingParams, *, path: str = "pcells",
     group = None if mesh is None else mesh_axis_group(mesh, axis,
                                                       force_n_dev)
     n, n_dev = p.n_agents, 1 if group is None else group.n_dev
-    blocked = path == "blocked"
-    if blocked and n % n_dev:
+    if path in ("blocked", "binned") and n % n_dev:
         raise ValueError(f"n_agents={n} not divisible by mesh axis {n_dev} "
-                         f"(the blocked path splits agent rows)")
+                         f"(the {path} path splits agent rows)")
+    spec = None
+    if path == "pcells":
+        spec = cc.make_pcell_spec(p, cap=cap or 16, margin=cell_margin,
+                                  edge_mult=cell_edge_mult, n_dev=n_dev)
+    elif path == "cells":
+        spec = cl.make_cell_spec(p, cap=cap or 12, margin=cell_margin,
+                                 n_dev=n_dev)
     return LargeNConfig(
         params=p,
-        cell_spec=None if blocked else cc.make_pcell_spec(
-            p, cap=cap or 16, margin=cell_margin, edge_mult=cell_edge_mult,
-            n_dev=n_dev),
+        cell_spec=spec,
         centralized=centralized,
         need_expert=need_expert,
         path=path,
-        block=block_rows(n, n // n_dev) if blocked else 0,
+        block=block_rows(n, n // n_dev) if path == "blocked" else 0,
         axis=group, n_dev=n_dev, rows=n // n_dev,
         emulated=group is not None and group.emulated,
+        cap=cap or 32,
     )
 
 
@@ -422,17 +483,19 @@ def rollout_large(actor: Optional[torch.nn.Module],
                   return_overflow: bool = False,
                   x0: Optional[torch.Tensor] = None, device="cuda",
                   expert_mode: bool = False, traj_agents: int = 0,
-                  path: str = "pcells", sparse: bool = False,
+                  path: Optional[str] = None, sparse: bool = False,
                   n_episodes: int = 1, mesh=None, axis: str = "agents",
                   force_n_dev: Optional[int] = None):
     """One episode of ``p.episode_steps`` steps through the cell sweeps (the
-    JAX package's "pcells" path) or the row-blocked O(N²) sweeps
-    (``path="blocked"``): greedy, or the analytic expert with
-    ``expert_mode``. Returns ``(rewards (T,), final_x)``, plus the max
-    per-step grid overflow with ``return_overflow`` (0 means every step was
-    exact; always 0 on the blocked path), plus with ``traj_agents`` = M > 0
-    the (T, M, 4) states of :func:`traj_subset_indices`' agents after each
-    step: ``(rewards, final_x[, overflow][, traj])``.
+    JAX package's "pcells" path), the row-blocked O(N²) sweeps
+    (``path="blocked"``), the dense cell grid (``"cells"``) or the
+    spatial-hash neighbour list (``"binned"``): greedy, or the analytic
+    expert with ``expert_mode``. Returns ``(rewards (T,), final_x)``, plus
+    the max per-step grid overflow with ``return_overflow`` (0 means every
+    step was exact; always 0 on the blocked path), plus with
+    ``traj_agents`` = M > 0 the (T, M, 4) states of
+    :func:`traj_subset_indices`' agents after each step: ``(rewards,
+    final_x[, overflow][, traj])``.
 
     Args:
       actor / acfg: the policy (``ind_agg`` must be 0; any K >= 1);
@@ -441,17 +504,20 @@ def rollout_large(actor: Optional[torch.nn.Module],
         noise); may be None when ``x0`` is given and the env is noiseless.
       centralized_expert: the expert's kind (expert mode reads it; K1's
         gradient mask follows it either way).
-      cap / cell_margin / cell_edge_mult: the cell grid (``make_pcell_spec``).
+      cap / cell_margin / cell_edge_mult: the cell grid (``make_pcell_spec``;
+        ``make_cell_spec`` on the cells path, which has no edge multiple;
+        ``cap`` alone on the binned path: 16, 12 and 32 by default).
       x0: an (N, 4) initial state to use instead of the reset's draw (of
         every episode, with ``n_episodes``).
       device: "cuda" (default) or "cpu"; nothing falls back to the CPU.
       expert_mode: roll the analytic controller instead of the policy (the
         large-N expert baseline): a grid build and K1 per step.
       traj_agents: record this many agents' states per step (0: none).
-      path: "pcells" (default, at every N: the port's switch-over point is
-        not set) or "blocked". The JAX package's "cells" and "binned"
-        backends, and ``sparse=True`` (its alias for "binned"), are not
-        ported yet and raise.
+      path: "pcells" (the default at every N: the port's switch-over point
+        is not set), "blocked", "cells" or "binned" (the exact oracle; with
+        the centralized expert it needs ``comm_radius >= 1``).
+      sparse: with ``path`` None, True selects "binned" (the JAX package's
+        alias).
       n_episodes: run this many episodes one after another from ``gen``
         with no host synchronisation between them (the JAX package's
         episode chain): the (E·T,) rewards, the last episode's final state
@@ -460,23 +526,19 @@ def rollout_large(actor: Optional[torch.nn.Module],
         ``axis`` dimension of D ranks shares the sweeps (module docstring);
         run by every rank of it, each on its own device with a generator
         seeded alike, and each returns the same outputs. The grid is
-        ``make_pcell_spec(n_dev=D)``'s (``cx`` a multiple of D). A mesh
-        without an ``axis`` dimension runs the single-device program. The
-        blocked path needs D to divide N. The overflow is the maximum over
-        the ranks.
+        ``make_pcell_spec(n_dev=D)``'s (``cx`` a multiple of D; on the cells
+        path ``make_cell_spec(n_dev=D)``'s, D bands of whole strips). A
+        mesh without an ``axis`` dimension runs the single-device program.
+        The blocked and binned paths need D to divide N. The overflow is
+        the maximum over the ranks.
       force_n_dev: a timing mode: run this rank's program of a
         ``force_n_dev``-rank axis on the given mesh (one rank is fine),
         every collective replaced by a local operation of the same shape
         (``parallel.distributed.AxisGroup``). Its rewards, states and
         overflow are not valid unless it equals the mesh's size.
     """
-    if sparse or path in ("cells", "binned"):
-        raise ValueError(
-            f"the {'binned' if sparse else path!r} graph backend is not "
-            f"ported (ROADMAP.md queue 1 item 3); use path 'pcells' or "
-            f"'blocked'")
-    if path not in PATHS:
-        raise ValueError(f"unknown path {path!r}; known: {PATHS}")
+    if path is None:
+        path = "binned" if sparse else "pcells"
     if n_episodes < 1:
         raise ValueError(f"n_episodes must be >= 1, got {n_episodes}")
     if n_episodes > 1 and traj_agents:

@@ -1,10 +1,13 @@
 """Large-N steps per second on the card, per N and graph path: the
 counterpart of the JAX package's ``scripts/bench_large_n.py``.
 
-For each N and path (``pcells``, the O(N) cell sweeps; ``blocked``, the
-O(N²) row-blocked sweeps, run only up to N = 32,768: at 100,000 its frame
-is ~10^10 pairs per step) a greedy K = 3 policy (hidden 32x2, seeded
-random weights) runs:
+For each N and path (``pcells``, the O(N) cell sweeps; ``cells``, the
+dense cell grid, and ``binned``, the spatial-hash neighbour list, both
+run only up to N = 100,000: at 1,000,000 a cells sweep holds 1.3·10^9
+slot pairs and a binned gather (N, 288, C) blocks of ~4.6 GB; ``blocked``,
+the O(N²) row-blocked sweeps, run only up to N = 32,768: at 100,000 its
+frame is ~10^10 pairs per step) a greedy K = 3 policy (hidden 32x2,
+seeded random weights) runs:
 
 * a first episode, timed alone (the kernels' build, at the first pcells
   run of the process, is in it);
@@ -19,9 +22,12 @@ random weights) runs:
 
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n \\
-        --n 10000 --paths blocked pcells --steps 25 [--device cpu]
+        --n 10000 --paths blocked cells binned pcells --steps 25 \\
+        [--device cpu]
 
-Default sizes 10,000, 32,768, 100,000 and 1,000,000, edge_mult 1, cap 16.
+Default sizes 10,000, 32,768, 100,000 and 1,000,000, paths blocked, cells
+and pcells (the JAX script's), edge_mult 1, cap the path's default (16
+pcells, 12 cells, 32 binned).
 """
 
 from __future__ import annotations
@@ -37,8 +43,6 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     FlockingParams,
     strict_fp32,
 )
-from multiagent_gnn_policies_tpu_torch.ops import blocked as bl
-from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
 from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
 from multiagent_gnn_policies_tpu_torch.scripts._common import (
     add_device_arg,
@@ -48,19 +52,16 @@ from multiagent_gnn_policies_tpu_torch.scripts._common import (
     sync,
     timed,
 )
-from multiagent_gnn_policies_tpu_torch.utils.profiling import summarize_trace
+from multiagent_gnn_policies_tpu_torch.utils.profiling import (
+    summarize_trace,
+    trace_events,
+)
 
 SIZES = (10_000, 32_768, 100_000, 1_000_000)
-BLOCKED_MAX_N = 32_768
+PATHS = ("blocked", "cells", "pcells")
+# the largest N run on a path (pcells runs every N)
+MAX_N = {"blocked": 32_768, "cells": 100_000, "binned": 100_000}
 TOP = 5              # device operations listed per profiled episode
-
-
-def _edges(x, p, path, spec, block):
-    """Directed radius edges of the frame of ``x``."""
-    if path == "blocked":
-        return float(bl.blocked_frame(x, p, True, block).degree.sum())
-    grid = cc.build_pcell_grid(x[:, :2], spec)
-    return float(cc.frame(x, grid, spec, p).degree.sum())
 
 
 def bench_one(n, path, args, actor, acfg, device):
@@ -69,9 +70,8 @@ def bench_one(n, path, args, actor, acfg, device):
     p = FlockingParams(n_agents=n, episode_steps=args.steps, max_resets=2)
     kw = dict(return_overflow=True, cap=args.cap,
               cell_edge_mult=args.edge_mult, device=device, path=path)
-    spec = (None if path == "blocked" else
-            cc.make_pcell_spec(p, cap=args.cap or 16,
-                               edge_mult=args.edge_mult))
+    cfg = ln.make_config(p, path=path, cap=args.cap,
+                         cell_edge_mult=args.edge_mult)
 
     def chain(seed, episodes):
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -86,7 +86,9 @@ def bench_one(n, path, args, actor, acfg, device):
         max_ovf = max(max_ovf, int(ovf))
         bad += int((~torch.isfinite(r.reshape(args.episodes, -1).sum(1)))
                    .sum())
-    edges = args.k * _edges(x, p, path, spec, ln.block_rows(n))
+    # the final frame's directed radius edges, which each of the K hops
+    # aggregates once per step
+    edges = args.k * float(ln._frame(cfg, x)[0].degree.sum())
     med = statistics.median(ms)
     row = {"n": n, "path": path, "first_s": first_s, "ms": ms,
            "median_ms": med, "overflow": max_ovf, "nonfinite": bad,
@@ -107,7 +109,7 @@ def bench_one(n, path, args, actor, acfg, device):
                 else [ProfilerActivity.CPU])
         with profile(activities=acts) as prof:
             _, s = timed(lambda: chain(99, 1), device)
-        summary = summarize_trace(prof.events(), args.steps, med,
+        summary = summarize_trace(trace_events(prof), args.steps, med,
                                   1e3 * s / args.steps, top=TOP)
         if summary:
             row.update(busy_ms=summary["busy_ms"], idle=summary["idle"],
@@ -122,7 +124,7 @@ def main(argv=None) -> int:
         description="Large-N steps per second per N and path, repeated, "
                     "with one profiled episode each.")
     ap.add_argument("--n", type=int, nargs="+", default=list(SIZES))
-    ap.add_argument("--paths", nargs="+", default=["pcells", "blocked"],
+    ap.add_argument("--paths", nargs="+", default=list(PATHS),
                     choices=ln.PATHS)
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--episodes", type=int, default=2,
@@ -132,7 +134,8 @@ def main(argv=None) -> int:
     ap.add_argument("--edge-mult", type=float, default=1.0,
                     help="pcells cell-edge multiple (make_pcell_spec)")
     ap.add_argument("--cap", type=int, default=None,
-                    help="cell slot capacity (default 16)")
+                    help="cell slot capacity (default 16 pcells, 12 cells, "
+                         "32 binned)")
     ap.add_argument("--k", type=int, default=3, help="the policy's K")
     add_device_arg(ap)
     args = ap.parse_args(argv)
@@ -145,9 +148,9 @@ def main(argv=None) -> int:
     with torch.no_grad():
         for n in args.n:
             for path in args.paths:
-                if path == "blocked" and n > BLOCKED_MAX_N:
-                    print(f"N={n:>8} {path:>8}: skipped (O(N^2) frame above "
-                          f"N = {BLOCKED_MAX_N})", flush=True)
+                if n > MAX_N.get(path, n):
+                    print(f"N={n:>8} {path:>8}: skipped (above N = "
+                          f"{MAX_N[path]} on this path)", flush=True)
                     continue
                 rows.append(bench_one(n, path, args, actor, acfg, device))
     sync(device)

@@ -38,10 +38,14 @@ Two modes, labelled as such in the output:
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_scaling \\
         --n 100000 [--devs 1 2 4 8] [--steps 25] [--device cpu]
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_scaling \\
-        --mode mesh --n 4096 --devs 1 2 4 --device cpu
+        --mode mesh --n 4096 --devs 1 2 4 --path cells --device cpu
 
 The policy: K = 3, hidden 32x2, seeded random weights, FlockingRelative,
-the pcells path (edge_mult 1, cap 16 by default).
+on ``--path`` (the JAX script's choices: pcells, the default, with edge_mult
+1 and cap 16; cells, cap 12; blocked) in both modes. The band kernels and
+the collectives are timed on the pcells path only: the cells and blocked
+paths launch no cell kernel, and their collectives are the frame's and
+the applies' tables (``collective_mb``).
 """
 
 from __future__ import annotations
@@ -77,9 +81,11 @@ from multiagent_gnn_policies_tpu_torch.utils.profiling import (
     bound_ms,
     device_ms,
     summarize_trace,
+    trace_events,
 )
 
 K, F = 3, 6
+PATHS = ("pcells", "cells", "blocked")
 MODULE = "multiagent_gnn_policies_tpu_torch.scripts.bench_scaling"
 # the directory that holds the package, for the ranks' interpreters
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -88,12 +94,18 @@ KERNELS = {"K1": r"\bframe_kernel", "K2": r"\bapply_deg_kernel",
            "K3": r"\bapply_kernel"}
 
 
-def collective_mb(n: int, spec: cc.PCellSpec, d: int, k: int = K) -> float:
-    """MB per step in the collectives' tensors of a D-rank pcells step
-    (K >= 2 policy): the (N, 10 + (K-1)F) frame_apply table and the K-2
+def collective_mb(n: int, spec: cc.PCellSpec, d: int, k: int = K,
+                  path: str = "pcells") -> float:
+    """MB per step in the collectives' tensors of a D-rank step (K >= 2
+    policy). pcells: the (N, 10 + (K-1)F) frame_apply table and the K-2
     historical applies' (N, (K-1-s)F) tables reduced, the (N, 4) state and
     the grid build's (N, 2) slots and positions and (D, cx·cy) counts
-    gathered, the origin reduced."""
+    gathered, the origin reduced. cells and blocked: the (N, 9) frame
+    table (reduced or gathered) and min r², the K-1 applies' (N, (K-1-s)F)
+    tables reduced, the (N, 4) state gathered."""
+    if path != "pcells":
+        floats = 9 * n + 1 + sum(n * (k - 1 - s) * F for s in range(k - 1))
+        return 4 * (floats + 4 * n) / 1e6
     floats = n * (10 + (k - 1) * F)
     floats += sum(n * (k - 1 - s) * F for s in range(1, k - 1))
     floats += 4 * n + 2 * n + d * spec.cx * spec.cy + 2
@@ -111,7 +123,7 @@ def _chain(actor, acfg, p, args, device, mesh, force, seed, episodes):
     return ln.rollout_large(actor, acfg, gen, p, return_overflow=True,
                             cap=args.cap, cell_edge_mult=args.edge_mult,
                             device=device, n_episodes=episodes, mesh=mesh,
-                            force_n_dev=force)
+                            force_n_dev=force, path=args.path)
 
 
 def time_chains(run, args, device):
@@ -213,7 +225,7 @@ def band_row(d, actor, acfg, p, args, device, mesh):
             else [ProfilerActivity.CPU])
     with profile(activities=acts) as prof:
         _, s = timed(lambda: run(99, 1), device)
-    summary = summarize_trace(prof.events(), args.steps, med,
+    summary = summarize_trace(trace_events(prof), args.steps, med,
                               1e3 * s / args.steps, top=3)
     if summary and device.type == "cuda":
         kms = {}
@@ -265,7 +277,7 @@ def band_mode(args, device):
     distributed.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
                                        platform)
     mesh = make_mesh(1, 1, device_type=device.type)
-    if device.type == "cuda":
+    if device.type == "cuda" and args.path == "pcells":
         from multiagent_gnn_policies_tpu_torch.parallel.mesh import (
             axis_group)
 
@@ -342,6 +354,7 @@ def main(argv=None) -> int:
                     "the agent-sharded large-N rollout.")
     ap.add_argument("--mode", default="band", choices=("band", "mesh"))
     ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--path", default="pcells", choices=PATHS)
     ap.add_argument("--devs", type=int, nargs="+", default=[1, 2, 4, 8])
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--episodes", type=int, default=1,
@@ -367,14 +380,16 @@ def main(argv=None) -> int:
                               n_dev=max(args.devs))
     t0 = time.perf_counter()
     kernels = {}
-    if args.mode == "band" and device.type == "cuda":
+    if (args.mode == "band" and device.type == "cuda"
+            and args.path == "pcells"):
         with torch.no_grad():
             kernels = band_kernels(args, device, spec)
     rows = (band_mode(args, device) if args.mode == "band"
             else mesh_mode(args, argv))
     label = ("one rank's program, collectives emulated (results not valid "
              "for D > 1)" if args.mode == "band" else "real ranks")
-    print(f"# {args.mode} mode, {label}: N = {args.n}, {args.steps} steps "
+    print(f"# {args.mode} mode, {label}: N = {args.n}, path {args.path}, "
+          f"{args.steps} steps "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
     t1 = next((r for r in rows if r["D"] == 1), None)
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
@@ -385,7 +400,8 @@ def main(argv=None) -> int:
                     if d and t1 and r.get("busy_ms") and t1.get("busy_ms")
                     else None)
         r.update(eff=eff, eff_busy=eff_busy,
-                 collective_mb=collective_mb(args.n, spec, d) if d else 0.0,
+                 collective_mb=(collective_mb(args.n, spec, d, path=args.path)
+                                if d else 0.0),
                  band_kernels=kernels.get(d))
         kms = r.get("kernel_ms")
         print(f"D={d}{' (no mesh)' if not d else ''}: {r['ms']:.4f} ms/step ({r['spread'][0]:.4f}.."
@@ -395,7 +411,8 @@ def main(argv=None) -> int:
                  else "not measured")
               + f" ms, eff {fmt(eff, '.3f')} (busy {fmt(eff_busy, '.3f')}), "
               f"collectives {r['collective_mb']:.2f} MB/step", flush=True)
-    print(json.dumps({"mode": args.mode, "n": args.n, "steps": args.steps,
+    print(json.dumps({"mode": args.mode, "path": args.path, "n": args.n,
+                      "steps": args.steps,
                       "rows": rows}), flush=True)
     return 0
 

@@ -10,13 +10,15 @@ trace through ``utils/profiling.summarize_trace``: device busy ms and idle
 share per step, device operations per step; then every device operation
 by self time: ms over the episode, share of the device time, and count.
 K1, K2 and K3 appear under their kernel names (``frame_kernel``,
-``apply_deg_kernel<...>``, ``apply_kernel<...>``).
+``apply_deg_kernel<...>``, ``apply_kernel<...>``) on the pcells path;
+``--path`` profiles another graph backend (``rollout_large``'s paths).
 
     python -m multiagent_gnn_policies_tpu_torch.scripts.profile_large_n \\
-        [--n 100000] [--steps 25] [--edge-mult 2 --cap 32] [--device cpu]
+        [--n 100000] [--path pcells] [--steps 25] [--edge-mult 2 --cap 32] \\
+        [--device cpu]
 
-The JAX script's ``--path`` and ``--force-n-dev`` are left out: the port
-profiles its pcells path on one device.
+The JAX script's ``--force-n-dev`` is left out: the port profiles one
+device's program (``scripts/bench_scaling.py`` times the emulated bands).
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from multiagent_gnn_policies_tpu_torch.scripts._common import (
 from multiagent_gnn_policies_tpu_torch.utils.profiling import (
     summarize_trace,
     trace,
+    trace_events,
 )
 
 TOP = 25             # rows of the per-operation table
@@ -53,11 +56,13 @@ def main(argv=None) -> int:
         description="Profile one steady large-N episode; per-operation "
                     "device time table.")
     ap.add_argument("--n", type=int, default=100_000)
+    ap.add_argument("--path", default="pcells", choices=ln.PATHS)
     ap.add_argument("--steps", type=int, default=25)
     ap.add_argument("--edge-mult", type=float, default=1.0,
                     help="pcells cell-edge multiple (make_pcell_spec)")
     ap.add_argument("--cap", type=int, default=None,
-                    help="cell slot capacity (default 16)")
+                    help="cell slot capacity (default 16 pcells, 12 "
+                         "cells, 32 binned)")
     ap.add_argument("--out", default=os.path.join("runs", "torch",
                                                   "profile_large_n"),
                     help="directory of the Chrome trace (trace.json)")
@@ -75,7 +80,8 @@ def main(argv=None) -> int:
         r, _, ovf = ln.rollout_large(actor, acfg, gen, p,
                                      return_overflow=True,
                                      cell_edge_mult=args.edge_mult,
-                                     cap=args.cap, device=device)
+                                     cap=args.cap, device=device,
+                                     path=args.path)
         return float(r.sum()), int(ovf)
 
     with torch.no_grad():
@@ -92,7 +98,7 @@ def main(argv=None) -> int:
     print(f"traced episode: {s:.4f} s = {prof_ms:.4f} ms/step "
           f"(overflow={ovf}) -> {os.path.join(args.out, 'trace.json')}",
           flush=True)
-    summary = summarize_trace(prof.events(), args.steps, wall_ms, prof_ms,
+    summary = summarize_trace(trace_events(prof), args.steps, wall_ms, prof_ms,
                               top=0)
     if summary:
         by_name = summary["by_name"]

@@ -19,7 +19,7 @@ And what ``chip_smoke.py`` and the measurement scripts share on the card:
   and float32 operations (``HBM_BYTES_PER_S``, ``FP32_FLOPS``);
 * :func:`summarize_trace`: device busy time, idle share, device operations
   per step, the top device operations and per-layer times of a
-  ``torch.profiler`` event list.
+  ``torch.profiler`` event list, read by :func:`trace_events`.
 """
 
 from __future__ import annotations
@@ -28,7 +28,8 @@ import bisect
 import contextlib
 import os
 import time
-from typing import Iterator, Optional
+from types import SimpleNamespace
+from typing import Iterator, List, Optional
 
 import torch
 
@@ -133,10 +134,39 @@ def bound_ms(n_bytes, n_ops):
                                        else "operations")
 
 
+def trace_events(prof) -> List[SimpleNamespace]:
+    """The events of a finished ``torch.profiler`` profile that
+    :func:`summarize_trace` reads (every device event, and the host
+    ranges named ``"layer: <name>"``), straight from its raw kineto
+    results: ``prof.events()`` first builds the whole host event tree,
+    the larger part of reading a trace with host activity, of which
+    this reads nothing but the layer ranges. Each has
+    ``name``, ``device_type``, ``is_user_annotation`` and ``time_range``
+    (microseconds from the profile's first event), as ``prof.events()``'s
+    have."""
+    from torch.autograd import DeviceType
+    from torch.autograd.profiler_util import Interval
+
+    raw = prof.profiler.kineto_results.events()
+    base = min((e.start_ns() for e in raw), default=0)
+    out = []
+    for e in raw:
+        name, dev = e.name(), e.device_type()
+        if dev != DeviceType.CUDA and not name.startswith("layer: "):
+            continue
+        t0 = (e.start_ns() - base) / 1e3
+        out.append(SimpleNamespace(
+            name=name, device_type=dev,
+            is_user_annotation=bool(e.is_user_annotation()),
+            time_range=Interval(t0, t0 + e.duration_ns() / 1e3)))
+    return out
+
+
 def summarize_trace(events, steps, wall_ms, prof_wall_ms, top: int = 10):
     """Prints device busy and idle share per step, device ops per step, the
     top ``top`` device ops and each annotated layer's host and device time,
-    from a torch.profiler event list (kernels, memcpys and memsets are its
+    from a torch.profiler event list (``prof.events()`` or
+    :func:`trace_events`; kernels, memcpys and memsets are its
     device events; the layer ranges, named ``"layer: <name>"``, appear on
     both sides). Returns ``{"busy_ms", "idle", "ops_per_step", "by_name":
     {op name: (device us, count)}}`` per the whole window, or None when the

@@ -8,7 +8,9 @@ Each case of the JSON list names an env, a path, a policy (an actor
 ``state_dict`` file, or the expert), an optional initial state (.npy) or a
 generator seed, the episode length and optionally the agents whose states
 it records (``traj``); the rank writes its rewards, final state, overflow
-(and trajectory) to ``OUT_DIR/<case>_<rank>.npz``. A case with ``grid``
+(and trajectory) to ``OUT_DIR/<case>_<rank>.npz``, or, for a case with
+``may_raise``, the ValueError's message (``error``) if the rollout raises
+one. A case with ``grid``
 (positions .npy and a ``PCellSpec``'s fields) writes the sharded grid
 build's tables instead. Imports no JAX.
 """
@@ -70,7 +72,14 @@ def main(argv):
             np.savez(os.path.join(out, f"{case['name']}_{rank}.npz"),
                      **{k: v.numpy() for k, v in g._asdict().items()})
             continue
-        r, x, ovf, *traj = run_case(case, mesh)
+        try:
+            r, x, ovf, *traj = run_case(case, mesh)
+        except ValueError as e:
+            if not case.get("may_raise"):
+                raise
+            np.savez(os.path.join(out, f"{case['name']}_{rank}.npz"),
+                     error=str(e))
+            continue
         np.savez(os.path.join(out, f"{case['name']}_{rank}.npz"),
                  rewards=r.numpy(), x=x.numpy(), overflow=int(ovf),
                  **({"traj": traj[0].numpy()} if traj else {}))

@@ -15,8 +15,8 @@ each group on a free port and under a timeout; no state of
   the JAX ``ShardedImitationLearner`` itself on such a batch, which runs
   (XLA splits it unevenly) rather than raising;
 * ``LargeNImitationLearner(mesh=)`` on ``("agents",)`` meshes of 2 and 4
-  ranks (n_env = 1; and the blocked path on 2), an ``("env",)`` mesh of 2
-  and a 2 x 2 mesh, at tests/test_imitation_large.py's sizes (N = 64,
+  ranks (n_env = 1; and the blocked and cells paths on 2, the binned path
+  on 4), an ``("env",)`` mesh of 2 and a 2 x 2 mesh (pcells and cells), at tests/test_imitation_large.py's sizes (N = 64,
   store 16, T = 10, 2 episodes a round): parameters and eval means equal
   the one-process learner's within rtol 1e-6 (bit for bit here); a D-rank
   ``collect_episode`` from injected draws equals the one-process episode
@@ -98,8 +98,11 @@ LARGE_CASES = {
     "d2-agents": (2, 1, {}),
     "d4-agents": (4, 1, {}),
     "d2-agents-blocked": (2, 1, {"graph_path": "blocked"}),
+    "d2-agents-cells": (2, 1, {"graph_path": "cells"}),
+    "d4-agents-binned": (4, 1, {"graph_path": "binned"}),
     "d2-env": (2, 2, {}),
     "d4-2x2": (4, 2, {}),
+    "d4-2x2-cells": (4, 2, {"graph_path": "cells"}),
 }
 # ranks: (batch rows, the JAX reference's name)
 UPDATES = {2: 7, 4: 6}

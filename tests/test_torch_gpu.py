@@ -630,3 +630,32 @@ def test_world_of_one_nccl_mesh_on_gpu():
         env=dict(os.environ, PYTHONPATH=root))
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "MULTIHOST_OK rank=0/1 devices=1 psum=1.0" in proc.stdout
+
+
+@pytest.mark.gpu
+def test_trace_events_summarize_as_the_event_list_on_gpu():
+    """``utils/profiling.trace_events`` (the raw kineto events) gives
+    ``summarize_trace`` the device operations, busy time and layer ranges
+    that ``prof.events()`` gives it, on a trace with host and device
+    activity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (device events)")
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from multiagent_gnn_policies_tpu_torch.utils.profiling import (
+        summarize_trace, trace_events)
+
+    x = torch.randn(4096, 64, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            with record_function("layer: product"):
+                y = x @ x.t()
+            y.sum()
+        torch.cuda.synchronize()
+    want = summarize_trace(prof.events(), 5, 1.0, 1.0)
+    got = summarize_trace(trace_events(prof), 5, 1.0, 1.0)
+    assert got["ops_per_step"] == want["ops_per_step"] > 0
+    assert {k: n for k, (_, n) in got["by_name"].items()} == {
+        k: n for k, (_, n) in want["by_name"].items()}
+    assert abs(got["busy_ms"] - want["busy_ms"]) <= 1e-3 * want["busy_ms"]

@@ -1,11 +1,13 @@
 """The port's large-N imitation path against the JAX package's: an
 expert-mode ``rollout_large`` episode (centralized and decentralized) and
 a collection episode (cloning and DAGGER) of ``algos/imitation_large.py``,
-both on the "pcells" path with the Pallas kernels in interpret mode; then
-the port's ``LargeNImitationLearner`` on its own (buffer shapes, the update
-gate, several envs a round, the overflow gate, the eval refusal, resume bit
-for bit with and without the buffer, the export read by both packages),
-the sweeps each episode runs, and the config rules.
+both on the "pcells" path with the Pallas kernels in interpret mode, and
+the collection episode on the "cells" and "binned" paths; then the port's
+``LargeNImitationLearner`` on its own (buffer shapes, the update gate,
+several envs a round, rounds on the cells and binned paths, the overflow
+gate, the eval refusal, resume bit for bit with and without the buffer,
+the export read by both packages), the sweeps each episode runs, and the
+config rules.
 
 jax.random and torch generators give different numbers, so the port is
 handed what the JAX side drew: the reset's state (``x0``) and, for
@@ -28,6 +30,7 @@ import torch
 from multiagent_gnn_policies_tpu.algos import imitation_large as jil
 from multiagent_gnn_policies_tpu.envs import flocking as jfl
 from multiagent_gnn_policies_tpu.models import actor as jac
+from multiagent_gnn_policies_tpu.ops import cells as jcl
 from multiagent_gnn_policies_tpu.ops import pallas_cells as jpc
 from multiagent_gnn_policies_tpu.parallel import large_n as jln
 from multiagent_gnn_policies_tpu.utils import checkpoint as jck
@@ -56,10 +59,12 @@ def _close(got, want, what="", rel=REL):
     assert (err <= rel * scale).all(), (what, err / scale)
 
 
-def _jax_cfg(p):
+def _jax_cfg(p, path="pcells"):
+    spec = {"pcells": lambda: jpc.make_pcell_spec(p),
+            "cells": lambda: jcl.make_cell_spec(p, cap=12),
+            "binned": lambda: None}[path]()
     return jln.LargeNConfig(params=p, block=p.n_agents, rows=p.n_agents,
-                            axis=None, path="pcells",
-                            cell_spec=jpc.make_pcell_spec(p))
+                            axis=None, path=path, cell_spec=spec)
 
 
 def _port_cfg(p):
@@ -90,12 +95,12 @@ def test_expert_episode_matches_jax(centralized):
     _close(tx, jx, "final state")
 
 
-def _jax_draws(jp, key, beta):
+def _jax_draws(jp, key, beta, path="pcells"):
     """The reset, coins and subsample indices that the JAX
     ``_collect_episode`` draws for ``key`` (its key schedule,
-    ``imitation_large.py:151, 206-207``)."""
+    ``imitation_large.py:151, 206-207``) on ``path``."""
     reset_key, scan_key = jax.random.split(key)
-    x0, _, _ = jln._reset(_jax_cfg(jp), reset_key, centralized=True)
+    x0, _, _ = jln._reset(_jax_cfg(jp, path), reset_key, centralized=True)
     _, coin_keys, idx_keys = (jax.random.split(k, T)
                               for k in jax.random.split(scan_key, 3))
     coins = jax.vmap(lambda k: jax.random.bernoulli(k, beta))(coin_keys)
@@ -128,6 +133,39 @@ def test_collection_episode_matches_jax(mode):
         [{k: np.array(v) for k, v in layer.items()} for layer in params]))
     got, got_reward, got_ovf = til.collect_episode(
         _port_cfg(tp), actor, tcfg, mode, S, None, 0.5, "cpu", x0=x0,
+        coins=coins if mode == "dagger" else None, idx=idx)
+    assert int(got_ovf) == int(ovf) == 0
+    assert got["agg"].shape == (T, 3, S, 6) and got["act"].shape == (T, S, 2)
+    _close(got["agg"], samples["agg"], "agg")
+    _close(got["act"], samples["act"], "act")
+    _close(got_reward.reshape(1), np.asarray(reward).reshape(1), "reward")
+
+
+@pytest.mark.parametrize("mode", ["dagger", "cloning"])
+@pytest.mark.parametrize("path", ["cells", "binned"])
+def test_cells_and_binned_collection_matches_jax(path, mode):
+    """One collecting episode on the cells or binned path against the JAX
+    ``_collect_episode`` of the same path (the JAX learner's cap: 12 cells,
+    32 binned), from the same reset, coins, indices and weights as the
+    pcells case above: the subsampled features and labels, the summed
+    reward and the overflow."""
+    jp = jfl.FlockingParams(n_agents=N, episode_steps=T)
+    tp = tfl.FlockingParams(n_agents=N, episode_steps=T)
+    jcfg = jac.ActorConfig(n_s=6, n_a=2, hidden=(16, 16), k=3)
+    tcfg = tac.ActorConfig(n_s=6, n_a=2, hidden=(16, 16), k=3)
+    params = jac.init_actor(jax.random.key(0), jcfg)
+    key, beta = jax.random.key(11), jnp.float32(0.5)
+    samples, reward, ovf = jax.jit(
+        lambda pp, kk, bb: jil._collect_episode(
+            _jax_cfg(jp, path), jcfg, mode, S, T, pp, kk, bb)
+    )(params, key, beta)
+    x0, coins, idx = _jax_draws(jp, key, beta, path)
+    actor = tac.Actor(tcfg)
+    actor.load_state_dict(tti.actor_params_from_numpy(
+        [{k: np.array(v) for k, v in layer.items()} for layer in params]))
+    got, got_reward, got_ovf = til.collect_episode(
+        tln.make_config(tp, path=path, centralized=True, need_expert=True),
+        actor, tcfg, mode, S, None, 0.5, "cpu", x0=x0,
         coins=coins if mode == "dagger" else None, idx=idx)
     assert int(got_ovf) == int(ovf) == 0
     assert got["agg"].shape == (T, 3, S, 6) and got["act"].shape == (T, S, 2)
@@ -194,11 +232,29 @@ def test_from_experiment_store_agents_rule():
         300, "pcells", 32, "cloning")
 
 
-@pytest.mark.parametrize("path,module", [("cells", "ops/cells.py"),
-                                         ("binned", "ops/binned.py")])
-def test_other_graph_paths_are_refused(path, module):
-    with pytest.raises(ValueError, match=module):
-        til.LargeNImitationLearner(_cfg(graph_path=path), device="cpu")
+@pytest.mark.parametrize("path", ["cells", "binned"])
+def test_cells_and_binned_learner_rounds(monkeypatch, path):
+    """Two rounds on the cells or binned path: the buffer and update gate
+    as on the pcells path, a finite loss and eval, the JAX learner's cap
+    (cells ``cell_cap`` or 12; binned 32, whatever ``cell_cap`` says), and
+    no cell sweep called (the plain versions, counted on the CPU)."""
+    calls = []
+    for name in ("frame", "apply_deg", "apply"):
+        monkeypatch.setattr(tcc, f"{name}_sweep_plain",
+                            lambda *a, _n=name, **k: calls.append(_n))
+    lrn = til.LargeNImitationLearner(
+        _cfg(graph_path=path, batch_size=6, cell_cap=8), device="cpu")
+    assert lrn._lcfg.path == path
+    if path == "cells":
+        assert lrn._lcfg.cell_spec.cap == 8
+    else:
+        assert lrn._lcfg.cap == 32 and lrn._lcfg.cell_spec is None
+    stats = lrn.train(stop_after=2)
+    assert lrn.buffer.size == 12 and lrn.timing["updates"] == 3
+    assert float(lrn.last_loss_sum) > 0.0 and np.isfinite(stats["mean"])
+    assert calls == []
+    with pytest.raises(ValueError, match="unknown graph_path"):
+        til.LargeNImitationLearner(_cfg(graph_path="sparse"), device="cpu")
 
 
 def test_buffer_holds_subsampled_records_and_updates_wait_for_a_batch():

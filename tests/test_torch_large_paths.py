@@ -1,8 +1,10 @@
-"""``rollout_large``'s blocked path and episode chains, on the CPU: the
-blocked path (``blocked_frame`` frames, the ``delayed_ystack`` stack)
-against the JAX package's ``rollout_large(path="blocked")`` and against
-the port's pcells path, its block size, ``n_episodes`` against a loop of
-single episodes, and the backends the port refuses.
+"""``rollout_large``'s blocked, cells and binned paths and episode chains,
+on the CPU: the blocked path (``blocked_frame`` frames, the
+``delayed_ystack`` stack), the cells path (``ops/cells.py``) and the binned
+path (``ops/binned.py``, also as ``sparse=True``) against the JAX
+package's ``rollout_large`` of the same path and against the port's
+pcells path, the block size, ``n_episodes`` against a loop of single
+episodes, and an unknown path's refusal.
 
 jax.random and torch generators give different numbers, so the port is
 handed the JAX reset's initial state (``x0``). Tolerance: 1e-4 of the
@@ -101,7 +103,7 @@ def test_block_rows_divide_n_and_bound_memory():
     assert tbl.pick_block(97, 50) == jln.pick_block(97, 50) == 1
 
 
-@pytest.mark.parametrize("path", ["pcells", "blocked"])
+@pytest.mark.parametrize("path", ["pcells", "blocked", "cells", "binned"])
 def test_n_episodes_is_a_loop_of_single_episodes(path):
     """``n_episodes = 3`` equals three consecutive single episodes from
     the same generator, bit for bit: the concatenated rewards, the last
@@ -126,14 +128,72 @@ def test_n_episodes_is_a_loop_of_single_episodes(path):
                           device="cpu")
 
 
-@pytest.mark.parametrize("kw", [dict(path="cells"), dict(path="binned"),
-                                dict(sparse=True), dict(path="nonsense")],
-                         ids=["cells", "binned", "sparse", "unknown"])
+@pytest.mark.parametrize("kw", [dict(path="nonsense")], ids=["unknown"])
 def test_unported_backends_raise(kw):
-    """The JAX package's "cells" and "binned" backends (and ``sparse``,
-    its alias for "binned") are not ported: they raise, naming the
-    roadmap item, before any work."""
+    """A path that is none of ``PATHS`` raises before any work (every path
+    of the JAX package is ported)."""
     p = tfl.FlockingParams(n_agents=48, episode_steps=2)
     tcfg = tac.ActorConfig(**ACFG)
-    with pytest.raises(ValueError, match="ROADMAP|unknown path"):
+    assert set(tln.PATHS) == {"pcells", "blocked", "cells", "binned"}
+    with pytest.raises(ValueError, match="unknown path"):
         tln.rollout_large(tac.Actor(tcfg), tcfg, None, p, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw,k", [
+    (dict(path=path), k) for path in ("cells", "binned") for k in range(4)
+] + [(dict(sparse=True), 0), (dict(sparse=True), 3)], ids=[
+    f"{path}-{k and f'k{k}' or 'expert'}" for path in ("cells", "binned")
+    for k in range(4)] + ["sparse-expert", "sparse-k3"])
+def test_cells_and_binned_episodes_match_jax(kw, k):
+    """The cells and binned paths (and ``sparse=True``, the alias for
+    "binned") against the JAX package's ``rollout_large`` of the same path
+    from the JAX reset's x0 (N = 600, the lattice regime), for the expert
+    (k = 0) and JAX-initialised K = 1, 2, 3 policies: rewards and final
+    state within 1e-4, overflow 0 on both. No cell kernel runs."""
+    jp = jfl.FlockingParams(n_agents=N_BLOCKED, episode_steps=T_BLOCKED)
+    tp = tfl.FlockingParams(n_agents=N_BLOCKED, episode_steps=T_BLOCKED)
+    key = jax.random.key(5)
+    x0 = torch.from_numpy(_jax_reset(jp, key))
+    if k:
+        acfg = dict(ACFG, k=k)
+        jcfg, tcfg = jac.ActorConfig(**acfg), tac.ActorConfig(**acfg)
+        params = jac.init_actor(jax.random.key(k), jcfg)
+        actor = _port_actor(params, tcfg)
+    else:
+        jcfg = tcfg = params = actor = None
+    jr, jx, jovf = jln.rollout_large(params, jcfg, key, jp, expert_mode=not k,
+                                     return_overflow=True, **kw)
+    tcc.reset_launch_counts()
+    tr, tx, tovf = tln.rollout_large(actor, tcfg, None, tp, x0=x0,
+                                     expert_mode=not k, return_overflow=True,
+                                     device="cpu", **kw)
+    assert not any(tcc.launch_counts().values())
+    assert int(tovf) == int(jovf) == 0
+    assert tr.shape == (T_BLOCKED,)
+    _close(tr, jr)
+    _close(tx, jx)
+
+
+@pytest.mark.parametrize("mode", ["policy", "expert"])
+@pytest.mark.parametrize("path", ["cells", "binned"])
+def test_cells_and_binned_match_pcells(monkeypatch, path, mode):
+    """The cells and binned paths against the port's pcells path on the
+    same x0 and policy (or the expert): rewards and final state within
+    1e-4, overflow 0; they call no cell sweep (on the CPU the wrappers'
+    plain versions, counted here)."""
+    p = tfl.FlockingParams(n_agents=N_BLOCKED, episode_steps=T_BLOCKED)
+    tcfg = tac.ActorConfig(**ACFG)
+    actor = tac.init_actor_(tac.Actor(tcfg),
+                            torch.Generator().manual_seed(0)).eval()
+    x0 = tfl._init_candidate(torch.Generator().manual_seed(1), p, "cpu")
+    kw = dict(return_overflow=True, x0=x0, device="cpu",
+              expert_mode=mode == "expert")
+    pr, px, povf = tln.rollout_large(actor, tcfg, None, p, **kw)
+    calls = []
+    for name in ("frame", "apply_deg", "apply"):
+        monkeypatch.setattr(tcc, f"{name}_sweep_plain",
+                            lambda *a, _n=name, **k: calls.append(_n))
+    r, x, ovf = tln.rollout_large(actor, tcfg, None, p, path=path, **kw)
+    assert calls == [] and int(ovf) == int(povf) == 0
+    _close(r, pr)
+    _close(x, px)

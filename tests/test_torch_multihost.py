@@ -6,13 +6,16 @@ timeout (tests/test_multihost.py's pattern; no state of
 * the port's ``multihost_demo`` at 2 ranks (its three steps, the
   data-parallel DAGGER round's reward and loss equal on both ranks);
 * D-rank rollouts (D = 2 and 4; the expert and a K = 3 policy on the
-  pcells and blocked paths, the leader and stochastic variants, an episode
-  chain, a recorded trajectory) equal the single-process port rollout bit
-  for bit, on every rank, with equal overflow, and agree within 1e-4 with
-  the JAX package's mesh rollout from the same initial state
+  pcells, blocked, cells and binned paths, the leader and stochastic
+  variants, an episode chain, a recorded trajectory, the cells path at
+  N = 66, which D = 4 does not divide) equal the single-process port
+  rollout bit for bit, on every rank, with equal overflow, and agree
+  within 1e-4 with the JAX package's mesh rollout from the same initial
+  state
   (``rollout_large(mesh=...)`` on tests/conftest.py's virtual CPU devices,
   Pallas in interpret mode), as tests/test_torch_rollout.py holds the
-  unsharded one;
+  unsharded one; the binned path at N = 66 raises at D = 4 (it splits
+  agent rows) and runs at D = 2;
 * ``build_pcell_grid_sharded`` equals the replicated build field for
   field, on a grid with dropped agents;
 * ``evaluate --mesh 2`` under 2 ranks prints the single-process CSV, and
@@ -54,6 +57,7 @@ N32K = os.path.join(REPO, "models", "actor_FlockingRelative-v0_dagger_n32k.npz")
 # the lattice reset's regime (no redraws), and cx = 28 grid rows: whole
 # bands at D = 2 and 4
 N, STEPS, K = 640, 8, 3
+N_ODD = 66           # the JAX cells mesh test's N: D = 4 does not divide it
 TIMEOUT = 300
 
 
@@ -113,7 +117,8 @@ def _jax_reset(p, key):
 
 
 CASES = ("pcells_k3", "pcells_expert", "blocked_k3", "blocked_expert",
-         "leader_k3", "stoch_k3", "chain_k3", "traj_k3")
+         "leader_k3", "stoch_k3", "chain_k3", "traj_k3", "cells_k3",
+         "cells_expert", "binned_k3", "binned_expert", "cells_n66")
 
 
 @pytest.fixture(scope="module")
@@ -129,8 +134,9 @@ def mesh_runs(tmp_path_factory):
         [{name: np.array(v) for name, v in layer.items()}
          for layer in params]))
     torch.save(actor.state_dict(), tmp / "actor.pt")
-    jp = jfl.FlockingParams(n_agents=N, episode_steps=STEPS)
-    np.save(tmp / "x0.npy", _jax_reset(jp, jax.random.key(3)))
+    for n, name in ((N, "x0.npy"), (N_ODD, "x0_66.npy")):
+        jp = jfl.FlockingParams(n_agents=n, episode_steps=STEPS)
+        np.save(tmp / name, _jax_reset(jp, jax.random.key(3)))
     base = dict(n=N, steps=STEPS, k=K, env="FlockingRelative-v0",
                 actor=str(tmp / "actor.pt"), x0=str(tmp / "x0.npy"),
                 path="pcells")
@@ -143,6 +149,13 @@ def mesh_runs(tmp_path_factory):
         "stoch_k3": dict(env="FlockingStochastic-v0", x0=None, seed=5),
         "chain_k3": dict(x0=None, seed=6, episodes=2, steps=4),
         "traj_k3": dict(path="blocked", traj=50),
+        "cells_k3": dict(path="cells"),
+        "cells_expert": dict(path="cells", actor=None),
+        "binned_k3": dict(path="binned"),
+        "binned_expert": dict(path="binned", actor=None),
+        "cells_n66": dict(path="cells", n=N_ODD, x0=str(tmp / "x0_66.npy")),
+        "binned_n66": dict(path="binned", n=N_ODD, may_raise=True,
+                           x0=str(tmp / "x0_66.npy")),
     }
     cases = [dict(base, name=name, **kw) for name, kw in cases.items()]
     rng = np.random.default_rng(4)
@@ -191,13 +204,16 @@ def test_rank_rollout_equals_single_process(mesh_runs, d, case):
 
 
 @pytest.mark.parametrize("d,case", [(2, "pcells_k3"), (4, "pcells_expert"),
-                                    (2, "blocked_k3"), (4, "blocked_expert")])
+                                    (2, "blocked_k3"), (4, "blocked_expert"),
+                                    (2, "cells_k3"), (4, "cells_expert"),
+                                    (4, "binned_k3"), (2, "binned_expert"),
+                                    (4, "cells_n66")])
 def test_rank_rollout_matches_jax_mesh(mesh_runs, d, case):
     """The D-rank rollout against the JAX package's rollout over a D-device
     ``agents`` mesh from the same key (its reset is the ranks' x0):
     rewards and final state within 1e-4 of their largest magnitude."""
     c = mesh_runs["cases"][case]
-    jp = jfl.FlockingParams(n_agents=N, episode_steps=STEPS)
+    jp = jfl.FlockingParams(n_agents=c["n"], episode_steps=STEPS)
     mesh = Mesh(np.asarray(jax.devices()[:d]), axis_names=("agents",))
     expert = c["actor"] is None
     jr, jx, jovf = jln.rollout_large(
@@ -210,6 +226,20 @@ def test_rank_rollout_matches_jax_mesh(mesh_runs, d, case):
         want = np.asarray(want, np.float64)
         err = np.abs(got - want).max()
         assert err <= 1e-4 * np.abs(want).max(), (err, np.abs(want).max())
+
+
+def test_binned_needs_the_axis_to_divide_n(mesh_runs):
+    """The binned path splits agent rows: at N = 66 a 4-rank axis raises on
+    every rank, and a 2-rank one equals the single process bit for bit."""
+    for out in _rank_outputs(mesh_runs, 4, "binned_n66"):
+        assert "n_agents=66 not divisible by mesh axis 4" in str(out["error"])
+    c = mesh_runs["cases"]["binned_n66"]
+    r1, x1, o1 = worker.run_case(c, None)
+    assert int(o1) == 0
+    for out in _rank_outputs(mesh_runs, 2, "binned_n66"):
+        assert "error" not in out
+        np.testing.assert_array_equal(out["rewards"], r1.numpy())
+        np.testing.assert_array_equal(out["x"], x1.numpy())
 
 
 @pytest.mark.parametrize("d", [2, 4])

@@ -446,6 +446,38 @@ def test_bench_scaling_mesh_mode_on_cpu(capsys):
     assert rows[0]["overflow"] == rows[1]["overflow"] == 0
 
 
+@pytest.mark.parametrize("path", ["cells", "blocked"])
+def test_bench_scaling_takes_the_other_paths(capsys, path):
+    """``--path cells`` and ``--path blocked`` (the JAX script's choices
+    beside pcells): band mode labels the path, runs no kernel band timing
+    and gives the collectives' MB of that path's step (the (N, 9) frame
+    table and min r², the K-1 applies' tables, the (N, 4) state); mesh
+    mode's reward is the same at D = 1 and 2 on the cells path."""
+    from multiagent_gnn_policies_tpu_torch.scripts import bench_scaling
+
+    assert bench_scaling.main(["--n", "1024", "--devs", "1", "2",
+                               "--steps", "3", "--repeats", "1", "--path",
+                               path, "--device", "cpu"]) == 0
+    assert not dist.is_initialized()
+    out = capsys.readouterr().out
+    assert f"N = 1024, path {path}," in out
+    line = json.loads(out.strip().splitlines()[-1])
+    assert line["path"] == path
+    rows = line["rows"]
+    assert [r["D"] for r in rows] == [0, 1, 2] and rows[1]["eff"] == 1.0
+    want = 4 * (1024 * 9 + 1 + 1024 * 12 + 1024 * 6 + 1024 * 4) / 1e6
+    assert rows[2]["collective_mb"] == pytest.approx(want)
+    if path == "cells":
+        assert bench_scaling.main(["--mode", "mesh", "--n", "640", "--devs",
+                                   "1", "2", "--steps", "3", "--repeats",
+                                   "1", "--path", "cells", "--device",
+                                   "cpu"]) == 0
+        rows = json.loads(capsys.readouterr().out.strip().splitlines()[-1])[
+            "rows"]
+        assert rows[0]["reward"] == rows[1]["reward"]
+        assert rows[0]["overflow"] == rows[1]["overflow"] == 0
+
+
 @pytest.mark.parametrize("tool", ["bench_scaling", "multihost_demo"])
 def test_new_entry_points_refuse_without_a_card(tool):
     import importlib

@@ -28,7 +28,9 @@ from multiagent_gnn_policies_tpu_torch.scripts import (
 from multiagent_gnn_policies_tpu_torch.utils.profiling import (
     Throughput,
     assert_finite,
+    summarize_trace,
     trace,
+    trace_events,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -72,6 +74,29 @@ def test_trace_noop_and_dir(tmp_path):
         torch.ones(8).sum()
     assert (tmp_path / "prof" / "trace.json").exists()
     assert len(prof.events()) > 0
+
+
+def test_trace_events_read_the_layer_ranges():
+    """``trace_events`` reads a host trace's ``"layer: "`` ranges as
+    ``prof.events()`` has them (same count and durations within 1 us) and
+    nothing else of the host; with no device event ``summarize_trace``
+    reports device time not measured from either reading."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(3):
+            with record_function("layer: block"):
+                torch.ones(4096).cumsum(0)
+    got = trace_events(prof)
+    want = [e for e in prof.events() if e.name.startswith("layer: ")]
+    assert [e.name for e in got] == ["layer: block"] * 3 and len(want) == 3
+    for g, w in zip(sorted(got, key=lambda e: e.time_range.start),
+                    sorted(want, key=lambda e: e.time_range.start)):
+        assert abs(g.time_range.elapsed_us()
+                   - w.time_range.elapsed_us()) <= 1.0
+        assert g.is_user_annotation
+    assert summarize_trace(got, 3, 1.0, 1.0) is None
+    assert summarize_trace(prof.events(), 3, 1.0, 1.0) is None
 
 
 def test_assert_finite():
@@ -164,6 +189,30 @@ def test_bench_large_n_and_profile_print_their_tables(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "warm episode" in out and "traced episode" in out
     assert (tmp_path / "prof" / "trace.json").exists()
+
+
+def test_bench_large_n_and_profile_take_the_new_paths(tmp_path, capsys):
+    """The cells and binned paths at N = 600 through ``bench_large_n`` (a
+    row each, overflow 0) and binned through ``profile_large_n --path``;
+    cells and binned are skipped above N = 100,000 and blocked above
+    32,768 (here an N of 100,001 is never run: the skip line comes
+    first)."""
+    assert bench_large_n.main(["--device", "cpu", "--n", "600", "--paths",
+                               "cells", "binned", "--steps", "3",
+                               "--repeats", "2", "--episodes", "1"]) == 0
+    out = capsys.readouterr().out
+    rows = [l for l in out.splitlines() if l.startswith("#        600")]
+    assert [r.split()[2] for r in rows] == ["cells", "binned"]
+    assert out.count("overflow=0 nonfinite_eps=0") == 2
+    assert bench_large_n.main(["--device", "cpu", "--n", "100001",
+                               "--paths", "cells", "binned", "blocked"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("skipped (above N = ") == 3
+    assert profile_large_n.main(["--device", "cpu", "--n", "600", "--path",
+                                 "binned", "--steps", "3", "--out",
+                                 str(tmp_path / "prof")]) == 0
+    out = capsys.readouterr().out
+    assert "traced episode" in out and "(overflow=0)" in out
 
 
 VERIFY_ARGS = ["--device", "cpu", "--sizes", "600", "--big-n", "1200",
