@@ -3,7 +3,22 @@
 
     python3 chip_smoke.py
 
-Phases, one progress line each (``# phase ...``, with wall seconds):
+Phases, one progress line each (``# phase ...``, with wall seconds).
+
+Launches. On one card the large-N entry points run each episode's steps
+as the episode program's CUDA graph (``parallel/large_n.py``), whose
+replay calls no kernel wrapper: the wrappers' counters count the eager
+launches and those a capture records. So the runs whose launches the
+``kernels`` line reports or that hold the graph to its count (phases 4,
+13 (b) at N = 32,768 and 20) go under torch.profiler, and their launches
+are the kernels the device ran, read from the trace's kernel names
+(``cells_cuda.device_launches``, which checks that the trace is whole):
+per K = 3 episode K1 201 times and K2 and K3 200 times each, plus, for
+each program captured in the run, its warm-up's WARMUP_STEPS = 2 steps
+on scratch copies. The other counted runs (phases 10-12, 13 (a) and (b)
+at N = 4,096, 19 (c)) check the counters: per episode the reset's K1,
+and per capture its warm-up and its 200 recorded steps (the captures
+are counted).
 
 1. device: fails without ``torch.cuda.is_available()``; prints nvidia-smi's
    name and power limit and ``torch.cuda.get_device_name(0)``;
@@ -25,17 +40,23 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
    the row-strided view of the pre-applied output that the delayed stack
    passes;
 4. episode: one greedy 200-step N = 32,768 K = 3 episode through the
-   port's evaluate entry point with the in-repo n32k checkpoint, with the
-   launch counters zeroed just before and read just after. It must launch
-   K1 201 times and K2 and K3 200 times each, overflow 0, and land within
-   -458.8 +- 15 (the JAX package's 10-episode eval of this checkpoint at
-   this N is -458.8 +- 2.0, RESULTS.md section 8);
-5. trace: TRACE_STEPS steady steps of the same rollout, timed by the host
-   clock, then again under torch.profiler with each layer of the step
-   annotated: the top 10 device operations, device operations per step,
-   device-busy against wall ms per step (the idle share), and each
-   layer's host and device ms per step ("not measured" when the profiler
-   records no device activity);
+   port's evaluate entry point with the in-repo n32k checkpoint, counted.
+   Its steps run as the entry point's default, the episode program's CUDA
+   graph, captured in this episode (the cached programs are dropped
+   before it). The device must run K1 203 times and K2 and K3 202 times
+   each (the reset, the warm-up and the replay), the wrappers' calls (the
+   reset, the warm-up and the recorded steps) must equal them, overflow
+   0, and the reward land within -458.8 +- 15 (the JAX package's
+   10-episode eval of this checkpoint at this N is -458.8 +- 2.0,
+   RESULTS.md section 8);
+5. trace: TRACE_STEPS steady steps of the same rollout as the eager loop,
+   timed by the host clock, then again under torch.profiler with each
+   layer of the step annotated: the top 10 device operations, device
+   operations per step, device-busy against wall ms per step (the idle
+   share), and each layer's host and device ms per step ("not measured"
+   when the profiler records no device activity); then the same steps as
+   one CUDA graph (no layer ranges inside a replay): ms per step, busy,
+   idle share and device operations per step;
 6. dense eval: the dense N = 100 path (no cell kernel: its (K, N, N)
    products are float32 cuBLAS matmuls). The in-repo
    ``models/actor_FlockingRelative-v0_dagger_k3.npz``, read by the port's
@@ -66,15 +87,16 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
 10. expert: one 200-step N = 32,768 episode of the analytic expert
     through the evaluate entry point's ``--expert`` path, centralized
     within -443.4 +- 15 and decentralized within -849.6 +- 25 (RESULTS.md
-    section 8: -443.4 +- 3.1, -849.6 +- 4.9), overflow 0, K1 201
-    launches and K2 and K3 none (counters zeroed before each episode);
+    section 8: -443.4 +- 3.1, -849.6 +- 4.9), overflow 0, the counters
+    as an expert episode and its capture leave them (K2 and K3 none);
 11. large dagger, this slice's main path: ``cfg/dagger_n32k.cfg [n32k]``
     at full width (N = 32,768, K = 3, hidden 32x2, store_agents 4,096,
     batch 20, 200 updates a round) for LARGE_ROUNDS rounds through the
     large-N learner's ``train``. Cut in depth: the buffer from 10,000 to
     LARGE_BUFFER records and the eval from 10 episodes to 1 (at episode
-    0 only). Each round's counters (zeroed before it) must read 201/200/200
-    per episode (a collection episode; round 1 also its eval episode);
+    0 only). Each round's counters as its episodes leave them (a
+    collection episode; round 1 also its eval episode, and the captures
+    of the programs not yet cached);
     finite loss sums with the third below the first; collection ms per
     env step and ms per Adam update; a run stopped after 2 rounds, its
     state saved to a temporary directory, resumed by a fresh learner for
@@ -84,7 +106,8 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
 12. variants: one greedy episode of each in-repo
     ``models/actor_Flocking{Leader,Stochastic,AirsimAccel,TwoFlocks}-v0_dagger_*_n32k.npz``
     under its ``cfg/dagger_variants_n32k.cfg`` section at N = 32,768:
-    overflow 0, 201/200/200 launches, the first three within +-15 of
+    overflow 0, the counters as a policy episode and its capture leave
+    them, the first three within +-15 of
     RESULTS.md section 8 (-458.5, -521.4, -391.4), TwoFlocks (cell_margin
     1.6, cell_cap 32) finite with its reward printed. Then the TwoFlocks
     gate: TWOFLOCKS_PAIRS episodes of that policy and of the centralized
@@ -92,8 +115,8 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     ``episode_generator(seed, episode)``), each policy reward within +-10
     of 1.503 x its expert's + 210.3 (RESULTS.md section 8b's per-draw fit
     of this checkpoint over 24 paired JAX episodes, residual std 1.8; the
-    band is over 5 stds), overflow 0, launches 201/200/200 per policy and
-    201/0/0 per expert episode;
+    band is over 5 stds), overflow 0, the counters as the policy's and the
+    expert's episodes (and the expert's capture) leave them;
 13. transfer, this slice's main path: the in-repo
     ``models/actor_FlockingStochastic-v0_transfer2_stoch{1..4}`` policies
     of ``cfg/transfer_stoch.cfg`` (hidden 32x2, K = 4, 3, 2, 1).
@@ -106,10 +129,11 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     against the plain versions (1e-5); and at N = 4,096 the whole K = 4
     stack of ystack_pre against the O(N²) delayed_ystack (1e-4).
     (b) ``evaluate cfg/transfer_stoch.cfg --actor-base ... --n-agents
-    32768 --episodes 1`` through the CLI's main, the counters zeroed per
-    section: overflow 0, finite rewards, K1/K2/K3 launches 201/200/400,
-    201/200/200, 201/200/0 and 201/0/0 for K = 4, 3, 2, 1; rewards and ms
-    per step printed. No JAX number exists at this N, so the same
+    32768 --episodes 1`` through the CLI's main, each section traced:
+    overflow 0, finite rewards, K1/K2/K3 launches on the device
+    201/200/400, 201/200/200, 201/200/0 and 201/0/0 for K = 4, 3, 2, 1
+    (and each capture's warm-up); rewards and ms per step (under the
+    profiler) printed. No JAX number exists at this N, so the same
     evaluation at N = 4,096 with 3 episodes per section (and a
     ``--save-trajectory`` file, its keys and shapes checked) must land
     within +-1.5 of the JAX package's means there (-25.05, -25.71,
@@ -162,8 +186,9 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     --episodes 1`` (25-step episodes: a first one, 2 timed chains of 1,
     not 3 of 2, and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
     the 1M geometry kept); ``run_1m`` at its full N = 1,000,000, T = 200,
-    edge_mult 2, cap 32 (two episodes; it exits 1 unless overflow 0,
-    finite rewards and launches 201/200/200 per episode); and
+    edge_mult 2, cap 32 (two episodes and the second again under
+    torch.profiler; it exits 1 unless overflow 0, finite rewards and, in
+    the trace, launches 201/200/200); and
     ``profile_large_n --n 100000 --steps 10`` (not 25), its trace in a
     temporary directory;
 16. mesh, the agent-sharded path (every rank sweeps its band of grid
@@ -215,21 +240,40 @@ Phases, one progress line each (``# phase ...``, with wall seconds):
     and binned: rewards and final states within 1e-4 of pcells'. (c) One
     round of ``cfg/dagger_n32k.cfg [n32k]`` with ``graph_path = cells``
     and ``cell_cap = BACKEND_CELL_CAP``, cut in depth as phase 11 (LARGE_BUFFER records, 1 eval episode):
-    finite loss sum, overflow 0 (the gate raises otherwise), counters 0;
+    finite loss sum, overflow 0 (the gate raises otherwise), no cell
+    kernel launched (counted);
     collection ms per env step and ms per Adam update printed. (d) On a
     one-rank NCCL group and ``make_mesh(1, 1)``, built as phase 18 builds
     them: a BACKEND_MESH_STEPS-step episode of each backend on the mesh
     equal to the same episode with no mesh, bit for bit. The group is
     destroyed after;
+20. graph: the episode program (``parallel/large_n.py``) against the
+    eager loop (``graph=False``), the oracle of phases 4 and 10-13. (a)
+    Phase 4's episode (its section, generator and grid) through the
+    graph, a first episode capturing (capture and instantiate seconds, the
+    pool's growth), a second replaying under CUDA's sync debug mode
+    "error" (no host synchronisation from the eager reset to the
+    generator's hand-back), a third replaying, counted, and eagerly,
+    counted: rewards, final state and overflow bit for bit, the reward
+    equal to phase 4's; launches on the device 201/200/200 for the replay
+    and the eager episode and 203/202/202 for the capturing one (its
+    warm-up), the wrappers' calls equal to them eagerly and at the
+    capture and the reset's K1 alone for the replay; ms per step, device
+    busy ms, idle share and device ops per step of one more episode of
+    each. (b) One DAGGER collection episode of the ``[n32k]`` learner's
+    setup (S = 4,096, beta 0.5) through the graph (capture, then replay)
+    and eagerly, each counted: records, reward and overflow bit for bit,
+    the launches as (a)'s; the same numbers as (a);
 17. budget, run last: the run, build included, must finish in BUDGET_S; a
     watchdog ends it with a non-zero exit after WATCHDOG_S.
 
 Then, before the last line: the card's nvidia-smi line and one JSON object
 ``{"kernels": [...]}``, one entry per kernel and column width the run
 launched (K1; K2 at 6, 12 and 18; K3 at 6 and 12): launches on the main
-paths, each read with its counters zeroed just before it (phase 13 (b),
-every K at N = 32,768, and phase 18 (b), this slice's mesh training
-round, at K = 3's widths), max abs error
+paths (phase 13 (b), every K at N = 32,768 through the graph, read from
+the device's trace, and phase 18 (b), this slice's mesh training round,
+at K = 3's widths, the eager loop, its counters zeroed just before and
+read just after), max abs error
 against the plain version, ms, plain ms, the bound worked out from this
 run's bytes and operations, and the PyTorch library time, null: no
 PyTorch call computes these sweeps. K1, K2 at 12 and K3 at 6 are timed
@@ -251,6 +295,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import typing
 
 sys.dont_write_bytecode = True   # write nothing outside the build directory
 
@@ -491,10 +536,12 @@ class _Annotated:
 
 
 def trace_steps(torch, ln, cc, cfg, actor, state, gen, steps):
-    """Host-clock ms per step of ``steps`` steady steps, then the same
-    steps under torch.profiler with the step's layers annotated. Prints
-    the top 10 device operations, device operations per step, device-busy
-    against wall ms per step, and per-layer host and device ms per step."""
+    """Host-clock ms per step of ``steps`` steady steps of the eager loop,
+    then the same steps under torch.profiler with the step's layers
+    annotated. Prints the top 10 device operations, device operations per
+    step, device-busy against wall ms per step, and per-layer host and
+    device ms per step; then the same of the steps as one CUDA graph, less
+    the layers. Returns both ms per step ``(eager, graph)``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     torch.cuda.synchronize()
@@ -523,7 +570,25 @@ def trace_steps(torch, ln, cc, cfg, actor, state, gen, steps):
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     summarize_trace(trace_events(prof), steps, wall_ms, prof_wall_ms)
-    return wall_ms
+    # the same steps as the episode program's CUDA graph (no layer ranges
+    # inside a replay): captured by a first run, then timed and traced
+    acfg = actor.cfg
+    prog = ln.episode_program(cfg, acfg, steps, DEVICE)
+    prog.run(state, actor, gen)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    prog.run(state, actor, gen)
+    torch.cuda.synchronize()
+    graph_ms = 1e3 * (time.perf_counter() - t) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prog.run(state, actor, gen)
+        torch.cuda.synchronize()
+        prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
+    print(f"#   trace: the same {steps} steps as one CUDA graph: "
+          f"{graph_ms:.4f} ms/step", flush=True)
+    summarize_trace(trace_events(prof), steps, graph_ms, prof_wall_ms)
+    return wall_ms, graph_ms
 
 
 
@@ -709,20 +774,70 @@ def dagger_phase(torch, im, load_actor_npz, actor_params_from_numpy, Actor,
     return losses, timing, same
 
 
-def _counted(cc, fn):
+class Launched(typing.NamedTuple):
+    """The kernels' launches in one run (:func:`_counted`)."""
+
+    host: dict       # wrapper -> the wrappers' calls (the counters)
+    captures: int    # episode programs captured in the run
+    seconds: float   # the run's wall, synchronised
+    device: dict     # wrapper -> launches the device ran (traced runs)
+    by_cols: dict    # wrapper -> {columns: launches}, of the same
+
+
+def _counted(cc, fn, traced=False):
     """``fn()`` with the kernel counters zeroed just before and read just
-    after: ``(result, launches)``."""
+    after: ``(result, Launched)``. A CUDA graph's replay calls no wrapper,
+    so the counters count the eager launches and those a capture records
+    (``host``). ``traced``: the run goes under torch.profiler
+    (``cells_cuda.device_launches``), and ``device`` and ``by_cols`` are
+    the launches the device ran, read from the trace's kernel names (its
+    wall then includes the profiler); else they are the counters'."""
+    import torch
+
+    from multiagent_gnn_policies_tpu_torch.parallel.large_n import (
+        EpisodeProgram)
+
+    def timed():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    captures = EpisodeProgram.captures
     cc.reset_launch_counts()
-    out = fn()
-    return out, cc.launch_counts()
+    if traced:
+        (out, seconds), by_cols = cc.device_launches(timed)
+    else:
+        out, seconds = timed()
+        by_cols = cc.launch_counts_by_cols()
+    return out, Launched(
+        cc.launch_counts(), EpisodeProgram.captures - captures, seconds,
+        {w: sum(by.values()) for w, by in by_cols.items()}, by_cols)
 
 
-def _launches(episodes, policy=True, t=200):
-    """What ``episodes`` episodes of ``t`` steps launch: K1 T+1 times each,
-    K2 and K3 T times each for a policy, never for the expert."""
-    return {"frame_sweep": episodes * (t + 1),
-            "apply_deg_sweep": episodes * t if policy else 0,
-            "apply_sweep": episodes * t if policy else 0}
+def _launches(episodes, policy=True, t=200, captures=0, per_step=None,
+              host=False):
+    """What ``episodes`` episodes of ``t`` steps launch on the device: K1
+    T+1 times each (the reset and each step), K2 and K3 T times each for a
+    K = 3 policy, never for the expert (``per_step``: each wrapper's
+    launches per step, for another K); plus, for each of ``captures``
+    episode programs captured, the WARMUP_STEPS steps its warm-up ran on
+    scratch copies before capture. ``host``: the wrappers' calls instead,
+    a replay making none: the resets' K1, and per capture its warm-up and
+    its T recorded steps."""
+    from multiagent_gnn_policies_tpu_torch.parallel.large_n import (
+        WARMUP_STEPS)
+
+    per_step = per_step or {"frame_sweep": 1,
+                            "apply_deg_sweep": int(policy),
+                            "apply_sweep": int(policy)}
+    if host:
+        return {w: episodes * (w == "frame_sweep")
+                + captures * (WARMUP_STEPS + t) * n
+                for w, n in per_step.items()}
+    return {w: episodes * (n * t + (w == "frame_sweep"))
+            + captures * WARMUP_STEPS * n for w, n in per_step.items()}
 
 
 def expert_phase(ev, cc, load_ini, n_agents):
@@ -735,18 +850,19 @@ def expert_phase(ev, cc, load_ini, n_agents):
     for centralized in (True, False):
         section = load_ini(CONFIG)["n32k"]
         section["centralized"] = str(centralized)
-        t = time.perf_counter()
         stats, launches = _counted(cc, lambda: ev.evaluate_blocked(
             section, None, n_agents=n_agents, n_episodes=1, expert=True,
             device=DEVICE))
-        wall = time.perf_counter() - t
+        wall = launches.seconds
         print(f"#   expert: centralized={centralized}, N = {n_agents}: "
               f"{stats['mean']}, overflow {stats['overflow']}, launches "
               f"{launches}, {wall:.3f} s ({1e3 * wall / 200:.4f} ms per step, "
-              f"reset included)", flush=True)
+              f"reset and capture included)",
+              flush=True)
         _in_band(f"expert centralized={centralized}", stats["mean"],
                  EXPERT_BANDS[centralized])
-        if launches != _launches(1, policy=False):
+        if launches.host != _launches(1, False, captures=launches.captures,
+                                      host=True):
             raise AssertionError(f"expert launches {launches}")
         out[centralized] = stats["mean"]
     return out
@@ -776,10 +892,11 @@ def large_dagger_phase(torch, im, il, cc, ExperimentConfig, load_ini,
     for r in range(1, LARGE_ROUNDS + 1):
         _, launches = _counted(cc, lambda: full.train(stop_after=r))
         losses.append(float(full.last_loss_sum))
-        want = _launches(2 if r == 1 else 1)
-        if launches != want:
+        want = _launches(2 if r == 1 else 1, captures=launches.captures,
+                         host=True)
+        if launches.host != want:
             raise AssertionError(f"round {r}: launches {launches} != {want}")
-        total = {k: total.get(k, 0) + v for k, v in launches.items()}
+        total = {k: total.get(k, 0) + v for k, v in launches.host.items()}
     evals = [f for e, f in log.events if e == "eval"]
     if [f["episode"] for f in evals] != [0] or not math.isfinite(
             evals[0]["reward_mean"]):
@@ -856,7 +973,9 @@ def variants_phase(ev, cc, load_ini, n_agents):
         print(f"#   variant [{name}] {section['env']}: {stats['mean']}, "
               f"overflow {stats['overflow']}, launches {launches}",
               flush=True)
-        if launches != _launches(1) or not math.isfinite(stats["mean"]):
+        if (launches.host != _launches(1, captures=launches.captures,
+                                       host=True)
+                or not math.isfinite(stats["mean"])):
             raise AssertionError(f"variant {name}: {stats}, {launches}")
         if VARIANT_BANDS[name] is not None:
             _in_band(f"variant [{name}]", stats["mean"], VARIANT_BANDS[name])
@@ -880,8 +999,10 @@ def twoflocks_gate(ev, cc, load_ini, n_agents):
         section, path, n_agents=n_agents, n_episodes=TWOFLOCKS_PAIRS,
         device=DEVICE, **kw))
     (pol, lp), (exp, le) = run(), run(expert=True)
-    if (lp != _launches(TWOFLOCKS_PAIRS)
-            or le != _launches(TWOFLOCKS_PAIRS, policy=False)):
+    if (lp.host != _launches(TWOFLOCKS_PAIRS, captures=lp.captures,
+                             host=True)
+            or le.host != _launches(TWOFLOCKS_PAIRS, False,
+                                    captures=le.captures, host=True)):
         raise AssertionError(f"twoflocks launches {lp}, {le}")
     slope, icpt = TWOFLOCKS_FIT
     worst = 0.0
@@ -1368,7 +1489,7 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
           f"collection {speed['rollout_ms_per_step']:.4f} ms per env step, "
           f"{speed['update_ms_per_update']:.4f} ms per Adam update",
           flush=True)
-    if not math.isfinite(loss) or any(launches.values()):
+    if not math.isfinite(loss) or any(launches.host.values()):
         raise AssertionError(f"cells learner: loss {loss}, launches "
                              f"{launches}")
     out.update(cells_learner_loss=loss,
@@ -1404,6 +1525,189 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
         torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out
+
+
+def _episode_stats(torch, run, steps):
+    """``run()`` timed by the host clock (synchronised) and then once more
+    under torch.profiler: ``(ms per step, busy ms per step, idle share,
+    device ops per step)``; the last three None when the profiler records
+    no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t) / steps
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        prof_ms = 1e3 * (time.perf_counter() - t) / steps
+    summary = summarize_trace(trace_events(prof), steps, ms, prof_ms, top=0)
+    if summary is None:
+        return ms, None, None, None
+    return ms, summary["busy_ms"], summary["idle"], summary["ops_per_step"]
+
+
+def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
+                reward):
+    """Phase 20: the episode program (``parallel/large_n.py``), the default
+    of phases 4 and 10-13. (a) The n32k checkpoint's 200-step K = 3
+    episode of phase 4 (its section, generator and grid), eagerly
+    (``graph=False``) and through the CUDA graph: a first graph episode
+    captures (its capture and instantiate seconds and the pool's growth
+    printed), the next replays under CUDA's sync debug mode "error" (no
+    host synchronisation from the reset to the generator's hand-back),
+    one more replays, counted; rewards, final state and overflow bit for
+    bit, reward equal to phase 4's, launches as
+    :func:`_check_graph_launches` wants them; ms per step, busy ms, idle
+    share and device ops per step of one more episode of each. (b) One
+    DAGGER collection episode of the ``[n32k]`` learner's setup (S =
+    4,096, beta 0.5) the same way: records, reward and overflow bit for
+    bit, the same launches and numbers. Returns what the phase line
+    prints."""
+    section = load_ini(CONFIG)["n32k"]
+    p, xcfg = _section_params(ExperimentConfig, section, n_agents)
+    acfg = _section_actor_config(xcfg)
+    actor = ev.load_actor(CHECKPOINT, acfg, DEVICE)
+    steps = p.episode_steps
+    kw = dict(centralized_expert=xcfg.centralized, return_overflow=True,
+              cell_margin=xcfg.cell_margin, cap=xcfg.cell_cap or None,
+              cell_edge_mult=xcfg.cell_edge_mult, device=DEVICE)
+    cfg = ln.make_config(p, cap=kw["cap"], cell_margin=kw["cell_margin"],
+                         cell_edge_mult=kw["cell_edge_mult"],
+                         centralized=xcfg.centralized)
+    out = {}
+
+    def episode(graph):
+        return ln.rollout_large(
+            actor, acfg, ev.episode_generator(xcfg.seed, 0, DEVICE), p,
+            graph=graph, **kw)
+
+    # (a) the evaluation episode
+    ln.clear_programs()
+    first, first_l = _counted(cc, lambda: episode(True), traced=True)
+    first_s = first_l.seconds
+    prog = ln.episode_program(cfg, acfg, steps, DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced = episode(True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graphed, g_launch = _counted(cc, lambda: episode(True), traced=True)
+    eager, e_launch = _counted(cc, lambda: episode(False))
+    same = all(all(torch.equal(a, b) for a, b in zip(run, eager))
+               for run in (first, synced, graphed))
+    total = float(graphed[0].sum())
+    print(f"#   graph: {steps}-step K = 3 episode at N = {n_agents}: graph "
+          f"reward {total}, eager {float(eager[0].sum())}, phase 4 {reward};"
+          f" overflow {int(graphed[2])}; launches: replay {g_launch}, "
+          f"capture episode {first_l}, eager {e_launch}; bit for bit "
+          f"{same}; first graph episode {first_s:.3f} s (under the "
+          f"profiler): capture {prog.capture_s:.3f} s, instantiate "
+          f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB",
+          flush=True)
+    if not same or total != reward or int(graphed[2]):
+        raise AssertionError(f"graph episode differs from the eager loop "
+                             f"or phase 4 ({total} against {reward})")
+    _check_graph_launches(first_l, g_launch, e_launch)
+    out.update(reward=total, bit_for_bit=same,
+               capture_s=f"{prog.capture_s:.3f}",
+               instantiate_s=f"{prog.instantiate_s:.3f}",
+               pool_mb=f"{prog.pool_mb:.1f}")
+    out.update(_eager_and_graph_stats(torch, "episode", episode, steps))
+
+    # (b) one collection episode of the large learner's setup
+    lcfg = il.LargeNImitationConfig.from_experiment(
+        dataclasses.replace(xcfg, n_agents=n_agents), mode="dagger")
+    ccfg = ln.make_config(p, cap=lcfg.cell_cap or None,
+                          cell_margin=lcfg.cell_margin,
+                          cell_edge_mult=lcfg.cell_edge_mult,
+                          centralized=True, need_expert=True)
+
+    def collect(graph):
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 40)
+        samples, r, ovf = il.collect_episode(
+            ccfg, actor, acfg, "dagger", lcfg.store_agents, gen, 0.5, DEVICE,
+            graph=graph)
+        return samples["agg"], samples["act"], r, ovf
+
+    runs = {}
+    for name, graph in (("capture", True), ("graph", True), ("eager", False)):
+        res, launches = _counted(cc, lambda: collect(graph),
+                                 traced=graph)
+        runs[name] = (res, launches, launches.seconds)
+    prog = il.collection_program(ccfg, acfg, "dagger", lcfg.store_agents,
+                                 DEVICE)
+    same = all(all(torch.equal(a, b) for a, b in zip(runs[n][0],
+                                                     runs["eager"][0]))
+               for n in ("capture", "graph"))
+    print(f"#   graph: DAGGER collection episode, S = {lcfg.store_agents}: "
+          f"reward {float(runs['graph'][0][2])}, overflow "
+          f"{int(runs['graph'][0][3])}, bit for bit {same}; launches "
+          + ", ".join(f"{n} {runs[n][1]}" for n in runs) + "; "
+          + ", ".join(f"{n} {1e3 * runs[n][2] / steps:.4f}" for n in runs)
+          + " ms per step (reset and draws included, under the profiler)",
+          flush=True)
+    if not same or int(runs["graph"][0][3]):
+        raise AssertionError("graph collection differs from the eager loop")
+    _check_graph_launches(*(runs[n][1] for n in runs))
+    print(f"#   graph: collection capture {prog.capture_s:.3f} s, "
+          f"instantiate {prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} "
+          f"MB", flush=True)
+    out.update(collection_bit_for_bit=same,
+               collection_capture_s=f"{prog.capture_s:.3f}",
+               collection_instantiate_s=f"{prog.instantiate_s:.3f}",
+               collection_pool_mb=f"{prog.pool_mb:.1f}")
+    out.update(_eager_and_graph_stats(torch, "collection", collect, steps))
+    return out
+
+
+def _check_graph_launches(capture, replay, eager):
+    """One 200-step K = 3 episode's launches (:func:`_counted`): through
+    the graph at its capture (the reset, the warm-up and the replay on the
+    device; the wrappers' calls the same: the reset, the warm-up and the
+    recorded steps), through the graph replayed (201/200/200 on the
+    device; the wrappers count the reset's K1 alone) and eagerly
+    (201/200/200, wrappers and device alike)."""
+    once = _launches(1)
+    want = ((capture, _launches(1, captures=1), _launches(1, captures=1), 1),
+            (replay, once, {"frame_sweep": 1, "apply_deg_sweep": 0,
+                            "apply_sweep": 0}, 0),
+            (eager, once, once, 0))
+    for got, device, host, captures in want:
+        if (got.device, got.host, got.captures) != (device, host, captures):
+            raise AssertionError(f"launches {got}, want device {device}, "
+                                 f"host {host}, {captures} captures")
+
+
+def _eager_and_graph_stats(torch, what, run, steps):
+    """ms per step (reset included), device busy ms, idle share and device
+    ops per step of one more ``run(graph)`` eagerly and one through the
+    graph (:func:`_episode_stats`), printed; returns the phase line's
+    fields."""
+    fmt = lambda v, f: "not measured" if v is None else format(v, f)
+    out = {}
+    for name, graph in (("eager", False), ("graph", True)):
+        ms, busy, idle, ops = _episode_stats(torch, lambda: run(graph),
+                                             steps)
+        print(f"#   graph: {what}, {name}: {ms:.4f} ms per step (reset "
+              f"included), device busy {fmt(busy, '.4f')} ms per step, idle "
+              f"{fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops per step",
+              flush=True)
+        out[f"{what}_{name}_ms_per_step"] = f"{ms:.4f}"
+        out[f"{what}_{name}_idle"] = fmt(idle, ".4f")
+    return out
+
+
+def _section_actor_config(xcfg):
+    """The section's policy config (evaluate_blocked's)."""
+    from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+
+    return ActorConfig(n_s=xcfg.n_states, n_a=xcfg.n_actions,
+                       hidden=xcfg.hidden, k=xcfg.k, ind_agg=0)
 
 
 def _transfer_section(load_ini, k, noiseless=False):
@@ -1512,10 +1816,10 @@ def transfer_kernels(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
                                                    grid_h, spec, r2cut))}
     for name, (fn, plain) in chunked.items():
         out, launches = _counted(cc, fn)
-        by_cols = cc.launch_counts_by_cols()
         want = "apply_deg_sweep" if name == "K2" else "apply_sweep"
-        if by_cols[want] != {6: 1, 18: 1} or sum(launches.values()) != 2:
-            raise AssertionError(f"{name} at 24 columns: {by_cols}")
+        if (launches.by_cols[want] != {6: 1, 18: 1}
+                or sum(launches.host.values()) != 2):
+            raise AssertionError(f"{name} at 24 columns: {launches}")
         check_close(f"{name} C=24 in chunks of 18 and 6 vs plain", out,
                     plain(), REL_PLAIN)
     # the whole K = 4 stack at N_ORACLE against the O(N^2) oracle
@@ -1557,24 +1861,23 @@ def transfer_kernels(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
 
 
 def transfer_eval(torch, ev, cc, ExperimentConfig, n_agents, episodes,
-                  extra=()):
+                  extra=(), traced=False):
     """``evaluate cfg/transfer_stoch.cfg --actor-base ... --n-agents
     n_agents --episodes episodes`` through the CLI's main, each section's
-    ``evaluate_blocked`` call with the counters zeroed just before it and
-    read just after. Returns ``{K: (stats, launches, launches by columns,
-    ms per step)}``; an overflow exits 3 (evaluate_blocked's gate)."""
+    ``evaluate_blocked`` call counted by :func:`_counted` (``traced``: the
+    device's launches from a trace). Returns ``{K: (stats, Launched, ms
+    per step)}`` (ms with the reset, the checkpoint's load and the capture,
+    and with ``traced`` the profiler); an overflow exits 3
+    (evaluate_blocked's gate)."""
     per, orig = {}, ev.evaluate_blocked
 
     def counted(section, path, **kw):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        stats, launches = _counted(cc, lambda: orig(section, path, **kw))
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+        stats, launches = _counted(cc, lambda: orig(section, path, **kw),
+                                   traced)
         steps = episodes * ExperimentConfig.from_section(
             section).episode_steps
-        per[int(section.name)] = (stats, launches, cc.launch_counts_by_cols(),
-                                  1e3 * wall / steps)
+        per[int(section.name)] = (stats, launches,
+                                  1e3 * launches.seconds / steps)
         return stats
 
     ev.evaluate_blocked = counted
@@ -1681,21 +1984,21 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
                                        ExperimentConfig, load_ini, gen,
                                        floor_ms)
     # (b) the main path: every K at N, one episode per section
-    per = transfer_eval(torch, ev, cc, ExperimentConfig, N, 1)
+    per = transfer_eval(torch, ev, cc, ExperimentConfig, N, 1, traced=True)
     total = {}
-    for k, (stats, launches, by_cols, ms) in sorted(per.items(),
-                                                    reverse=True):
-        want = dict(zip(("frame_sweep", "apply_deg_sweep", "apply_sweep"),
-                        TRANSFER_LAUNCHES[k]))
+    for k, (stats, launches, ms) in sorted(per.items(), reverse=True):
+        want = _launches(1, captures=launches.captures, per_step=dict(zip(
+            ("frame_sweep", "apply_deg_sweep", "apply_sweep"),
+            (1, *(n // 200 for n in TRANSFER_LAUNCHES[k][1:])))))
         print(f"#   transfer: K = {k}, N = {N}: {stats['mean']}, overflow "
-              f"{stats['overflow']}, launches {launches} by columns "
-              f"{by_cols}, {ms:.4f} ms per step (reset and load included)",
-              flush=True)
-        if (launches != want or stats["overflow"]
+              f"{stats['overflow']}, launches {launches}, {ms:.4f} ms per "
+              f"step (reset, load and capture included, under the "
+              f"profiler)", flush=True)
+        if (launches.device != want or stats["overflow"]
                 or not math.isfinite(stats["mean"])):
             raise AssertionError(f"K = {k}: {stats}, launches {launches} "
                                  f"!= {want}")
-        for fn, cols in by_cols.items():
+        for fn, cols in launches.by_cols.items():
             for c, count in cols.items():
                 total[fn, c] = total.get((fn, c), 0) + count
     # the same evaluation at N_ORACLE against the JAX package's means
@@ -1706,7 +2009,7 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
         _check_trajectory(traj, {"x": (200, 2000, 4), "reward": (200,),
                                  "final_x": (N_ORACLE, 4),
                                  "subset_indices": (2000,)})
-    for k, (stats, _, _, ms) in sorted(small.items(), reverse=True):
+    for k, (stats, _, ms) in sorted(small.items(), reverse=True):
         print(f"#   transfer: K = {k}, N = {N_ORACLE}, {TRANSFER_EPISODES} "
               f"episodes: {stats['mean']} +- {stats['std']}, overflow "
               f"{stats['overflow']}, {ms:.4f} ms per step", flush=True)
@@ -1719,7 +2022,7 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
                                      load_ini, gen)
     dense = transfer_dense(torch, ev, cc, load_ini)
     means = {k: per[k][0]["mean"] for k in per}
-    ms = {k: per[k][3] for k in per}
+    ms = {k: per[k][2] for k in per}
     return timing, err, total, means, ms, parity_err, dense
 
 
@@ -2217,18 +2520,19 @@ def main():
     # 4. the main path: one greedy episode through the evaluate entry point
     t = time.perf_counter()
     section = load_ini(CONFIG)["n32k"]
-    cc.reset_launch_counts()
-    stats = ev.evaluate_blocked(section, CHECKPOINT, n_agents=N,
-                                n_episodes=1, device=DEVICE)
-    torch.cuda.synchronize()
-    episode_s = time.perf_counter() - t
-    launches = cc.launch_counts()
+    ln.clear_programs()
+    stats, launched = _counted(cc, lambda: ev.evaluate_blocked(
+        section, CHECKPOINT, n_agents=N, n_episodes=1, device=DEVICE),
+        traced=True)
+    episode_s = launched.seconds
+    launches = launched.device
     reward = stats["mean"]
     steps = ExperimentConfig.from_section(section).episode_steps
-    want = {"frame_sweep": steps + 1, "apply_deg_sweep": steps,
-            "apply_sweep": steps}
-    if launches != want:
-        raise AssertionError(f"launches {launches} != {want}")
+    # one capture replayed once: the wrappers' calls (the reset, the
+    # warm-up, the recorded steps) are the launches the device ran
+    want = _launches(1, t=steps, captures=1)
+    if launched.captures != 1 or not launches == launched.host == want:
+        raise AssertionError(f"launches {launched} != {want}")
     if stats["overflow"] != 0 or not math.isfinite(reward):
         raise AssertionError(f"overflow {stats['overflow']}, reward {reward}")
     if abs(reward - REWARD_REF) > REWARD_BAND:
@@ -2236,15 +2540,17 @@ def main():
                              f"{REWARD_BAND}")
     phase("episode", t, reward=reward, overflow=stats["overflow"],
           ms_per_step=f"{1e3 * episode_s / steps:.3f}",
-          launches=json.dumps(launches, separators=(",", ":")))
+          launches=json.dumps(launches, separators=(",", ":")),
+          counted=json.dumps(launched.host, separators=(",", ":")))
 
     # 5. a trace of steady steps of the same rollout
     t = time.perf_counter()
     with torch.no_grad():
         state, _ = ln._scan_steps(cfg, actor, state, 5, gen)
-        step_ms = trace_steps(torch, ln, cc, cfg, actor, state, gen,
-                              TRACE_STEPS)
-    phase("trace", t, steps=TRACE_STEPS, ms_per_step=f"{step_ms:.4f}")
+        step_ms, graph_ms = trace_steps(torch, ln, cc, cfg, actor, state,
+                                        gen, TRACE_STEPS)
+    phase("trace", t, steps=TRACE_STEPS, ms_per_step=f"{step_ms:.4f}",
+          graph_ms_per_step=f"{graph_ms:.4f}")
 
     # 6-8. the dense N = 100 path; it launches none of the cell kernels
     from multiagent_gnn_policies_tpu_torch.algos import imitation as im
@@ -2346,6 +2652,12 @@ def main():
                               load_ini, N, reward)
     phase("backends", t, **backends)
 
+    # 20. the episode program: graph against the eager loop
+    t = time.perf_counter()
+    graph = graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, N,
+                        reward)
+    phase("graph", t, **graph)
+
     # 17. budget, last
     total = time.perf_counter() - T0
     phase("budget", T0, budget_s=BUDGET_S, total_s=f"{total:.2f}")
@@ -2354,9 +2666,9 @@ def main():
 
     # one entry per kernel and width this run launched: phase 3 timed K1,
     # K2 at 12 and K3 at 6 (K = 3's widths), phase 13 the others; the
-    # launches are the main paths', each read with its counters zeroed
-    # just before: phase 13 (b) (every K at N = 32,768) and phase 18 (b)
-    # (the mesh training round, K = 3's widths)
+    # launches are the main paths': phase 13 (b) (every K at N = 32,768,
+    # through the graph: the device's trace) and phase 18 (b) (the mesh
+    # training round, K = 3's widths, eager: its counters)
     timing.update(t_timing)
     err.update(t_err)
     kernels = []

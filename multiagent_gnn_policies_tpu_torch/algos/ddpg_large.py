@@ -46,7 +46,6 @@ from multiagent_gnn_policies_tpu_torch.algos.ddpg import (
     ou_step,
 )
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
-    ENV_REGISTRY,
     FlockingParams,
     _init_candidate,
     _lattice_regime,
@@ -136,7 +135,9 @@ class DDPGLarge(DDPG):
     def _init_env(self) -> None:
         cfg = self.cfg
         self.env = None                    # the dense env is never built
-        self.params: FlockingParams = ENV_REGISTRY[cfg.env_name](cfg.env)
+        # the env as the config gives it, the id's variant not applied: the
+        # JAX DDPGLarge steps, resets and evaluates cfg.env itself
+        self.params: FlockingParams = cfg.env
         self.block = frame_block(cfg.env.n_agents)
 
     def _example_record(self) -> Batch:

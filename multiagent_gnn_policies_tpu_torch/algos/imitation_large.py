@@ -6,12 +6,14 @@ dense learner's (K, N, N) graph state cannot hold a swarm of this size, so
 a round here collects through the O(N) cell sweeps of
 ``parallel/large_n.py`` and stores an agent subsample:
 
-* **Collection** is a Python loop of env steps (the JAX package's
-  ``lax.scan``). Each step takes the delayed stack ``y`` (K3 in
-  ``ystack_pre``), the frame's expert (K1's gradient channels and the
-  float64 consensus), the action (the expert when cloning; the expert
-  where the episode's per-step coin ``rand < beta`` falls, else the
-  policy, when DAGGER), the record ``{agg: y[:, idx], act: expert[idx]}``
+* **Collection** runs :func:`collect_step` T times: as one
+  ``EpisodeProgram`` of ``parallel/large_n.py`` on the pcells path on one
+  device (a CUDA graph on the card, the JAX package's ``lax.scan``), else
+  as a Python loop (a mesh, the other paths, ``graph=False``). Each step
+  takes the delayed stack ``y`` (K3 in ``ystack_pre``), the frame's
+  expert (K1's gradient channels and the float64 consensus), the action
+  (the expert when cloning; the expert where the episode's per-step coin
+  ``rand < beta`` falls, else the policy, when DAGGER), the record ``{agg: y[:, idx], act: expert[idx]}``
   of ``store_agents`` agents drawn uniformly with replacement, the env
   step, and the new frame with the next step's s = 0 apply (K1 and K2).
   A K = 3 episode of T steps launches K1 T+1 times and K2 and K3 T times
@@ -120,13 +122,44 @@ class LargeNImitationConfig(ImitationConfig):
         )
 
 
+def collect_step(cfg: ln.LargeNConfig, actor: Optional[torch.nn.Module],
+                 state: ln.EpisodeState, gen: Optional[torch.Generator],
+                 sel: torch.Tensor, coin: Optional[torch.Tensor] = None):
+    """One collecting env step: the expert's action, or with a DAGGER
+    ``coin`` () bool the expert's where it falls and else the policy's on
+    the delayed stack ``y`` (K, N, F). Returns ``(state', reward, y[:,
+    sel] (K, S, F), the expert's actions at sel (S, 2))``: the subsample
+    ``sel`` (S,) recorded before the step. The eager loop of
+    :func:`collect_episode` and its episode program both run it."""
+    y = ln._ystack(cfg, state)
+    expert = state.fq.expert
+    act = expert if coin is None else torch.where(coin, expert, actor(y))
+    agg, label = y[:, sel], expert[sel]
+    state2, r = ln._advance(cfg, state, act, gen)
+    return state2, r, agg, label
+
+
+def collection_program(cfg: ln.LargeNConfig, acfg: ActorConfig, mode: str,
+                       s_store: int, device) -> ln.EpisodeProgram:
+    """The cached ``EpisodeProgram`` of :func:`collect_episode`'s steps:
+    :func:`collect_step` with the subsample (S,) and, for DAGGER, the coin
+    () as per-step inputs, and the (K, S, F) and (S, 2) records."""
+    s = s_store
+    return ln.episode_program(
+        cfg, acfg, cfg.params.episode_steps, device, step=collect_step,
+        inputs=((((s,), torch.int64),) if mode == "cloning" else
+                (((s,), torch.int64), ((), torch.bool))),
+        records=((acfg.k, s, acfg.n_s), (s, acfg.n_a)))
+
+
 def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
                     acfg: ActorConfig, mode: str, s_store: int,
                     gen: Optional[torch.Generator], beta: float, device,
                     x0: Optional[torch.Tensor] = None,
                     coins: Optional[torch.Tensor] = None,
-                    idx: Optional[torch.Tensor] = None):
-    """One collecting episode of ``cfg.params.episode_steps`` steps.
+                    idx: Optional[torch.Tensor] = None, graph=None):
+    """One collecting episode of ``cfg.params.episode_steps`` steps of
+    :func:`collect_step`.
 
     ``mode`` is "cloning" (expert actions) or "dagger" (per step, the
     expert's action where the coin falls, else the policy's). ``cfg``
@@ -136,11 +169,17 @@ def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
     ``reward`` is the episode's summed reward and ``overflow`` its max
     grid overflow, both () on the device. ``x0`` (N, 4), ``coins`` (T,)
     bool and ``idx`` (T, S) replace the reset's, the coins' and the
-    subsample's draws, for tests.
+    subsample's draws, for tests. ``graph`` as ``rollout_large``'s: by
+    default the steps run as the setup's ``EpisodeProgram`` on the pcells
+    path on one device (a CUDA graph on the card; the coins and indices
+    drawn before it as here, its records in static buffers, copied out
+    after it), else the eager loop below.
     """
     p = cfg.params
     T = p.episode_steps
     device = torch.device(device)
+    program = ln.use_program(cfg.path, device, graph,
+                             on_mesh=cfg.axis is not None)
     with torch.no_grad():
         state = ln._episode_init(cfg, acfg, gen, device, x0)
         if mode == "dagger" and coins is None:
@@ -148,17 +187,19 @@ def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
         if idx is None:
             idx = torch.randint(0, p.n_agents, (T, s_store), generator=gen,
                                 device=device)
+        inputs = (idx,) if mode == "cloning" else (idx, coins)
+        if program:
+            prog = collection_program(cfg, acfg, mode, idx.shape[1], device)
+            state = prog.run(state, actor, gen, inputs=inputs)
+            agg, act = (r.clone() for r in prog.records)
+            return ({"agg": agg, "act": act}, prog.rewards.sum(),
+                    state.overflow.clone())
         aggs, acts, rewards = [], [], []
         for t in range(T):
-            y = ln._ystack(cfg, state)
-            expert = state.fq.expert
-            if mode == "cloning":
-                act = expert
-            else:
-                act = torch.where(coins[t], expert, actor(y))
-            aggs.append(y[:, idx[t]])
-            acts.append(expert[idx[t]])
-            state, r = ln._advance(cfg, state, act, gen)
+            state, r, agg, act = collect_step(cfg, actor, state, gen,
+                                              *(x[t] for x in inputs))
+            aggs.append(agg)
+            acts.append(act)
             rewards.append(r)
     samples = {"agg": torch.stack(aggs), "act": torch.stack(acts)}
     return samples, torch.stack(rewards).sum(), state.overflow
@@ -168,7 +209,9 @@ class LargeNImitationLearner(ImitationLearner):
     """Cloning/DAGGER trainer at large N: cell-sweep collection and an
     agent-subsampled buffer, everything else the dense learner's. With
     ``mesh``, the mesh modes of the module docstring: ``axis`` names the
-    mesh axis the sweeps are banded over."""
+    mesh axis the sweeps are banded over. Its collection and eval
+    episodes take ``rollout_large``'s default: a CUDA graph on one card on
+    the pcells path, the eager loop on a mesh."""
 
     def __init__(self, cfg: LargeNImitationConfig, logger=None,
                  device="cuda", mesh=None, axis: str = "agents"):

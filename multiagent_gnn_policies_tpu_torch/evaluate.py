@@ -34,6 +34,10 @@ out.npz`` writes one greedy episode's states: on the dense path ``x (T, N,
 for M = min(2000, N) evenly spaced agents, ``reward``, ``final_x (N, 4)``
 and ``subset_indices (M,)``.
 
+On one card the large-N route runs each episode's steps as one CUDA graph
+per static setup, captured at its first episode (``parallel/large_n.py``'s
+episode program).
+
 ``--mesh D`` shares the large-N route's sweeps over the ``agents`` axis of
 D processes, one per device (``parallel/large_n.py``), and implies that
 route, as in the JAX CLI. Launch one process per card:

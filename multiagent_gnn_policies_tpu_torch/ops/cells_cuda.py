@@ -48,6 +48,7 @@ N they take a slice of rows at a time (``rows``).
 from __future__ import annotations
 
 import math
+import re
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -631,6 +632,79 @@ def launch_counts_by_cols() -> dict:
     frame channels)."""
     return {fn.__name__: dict(sorted(fn.launches_by_cols.items()))
             for fn in KERNEL_WRAPPERS}
+
+
+# the kernels' names in a profiler trace, by wrapper: K1 launches 10
+# frame channels, K2 and K3 the template's column count
+_KERNEL_NAMES = re.compile(
+    r"\b(?:(frame_kernel)\(|apply_deg_kernel<(\d+),|apply_kernel<(\d+)>)")
+
+
+def launches_in_trace(names) -> dict:
+    """The kernels' launches on the device, read from the names of a
+    profiler trace's device events (``utils.profiling.trace_events``):
+    ``{wrapper name: {output columns: launches}}`` as
+    :func:`launch_counts_by_cols` gives them. The counters count the
+    wrappers' calls on the host, which a CUDA graph's replay makes none
+    of; the trace counts what the device ran."""
+    out = {fn.__name__: {} for fn in KERNEL_WRAPPERS}
+    for name in names:
+        m = _KERNEL_NAMES.search(name)
+        if m is None:
+            continue
+        frame, deg_c, c = m.groups()
+        wrapper, cols = (("frame_sweep", 10) if frame else
+                         ("apply_deg_sweep", int(deg_c)) if deg_c else
+                         ("apply_sweep", int(c)))
+        out[wrapper][cols] = out[wrapper].get(cols, 0) + 1
+    return {w: dict(sorted(by.items())) for w, by in out.items()}
+
+
+SETTLE_S = 0.5     # host wait around a traced window's sentinels
+SENTINELS = 32     # spin kernels on each side of a traced window
+
+
+def device_launches(fn):
+    """``fn()`` under torch.profiler (device activity): ``(its result, the
+    kernels' launches the device ran, by wrapper and width)``
+    (:func:`launches_in_trace`). On an H100 the profiler at times loses
+    the first records of a window, and the last ones of a window that
+    closes as soon as the device finishes (seen around CUDA graph replays
+    and eager episodes alike). So the window opens with throwaway kernels
+    and a wait, then SENTINELS spin kernels, runs ``fn``, waits, launches
+    SENTINELS more spin kernels and waits again before it closes; it
+    raises RuntimeError unless the trace holds every sentinel, the work
+    between them included."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from multiagent_gnn_policies_tpu_torch.utils.profiling import (
+        trace_events)
+
+    def sentinels():
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(0)
+        torch.cuda.synchronize()
+
+    primer = torch.empty(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            primer.zero_()
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        sentinels()
+        out = fn()
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        sentinels()
+        time.sleep(SETTLE_S)
+    names = [e.name for e in trace_events(prof)]
+    seen = sum("spin_kernel" in name for name in names)
+    if seen != 2 * SENTINELS:
+        raise RuntimeError(f"the profiler lost part of the trace: {seen} of "
+                           f"{2 * SENTINELS} sentinel kernels in it")
+    return out, launches_in_trace(names)
 
 
 reset_launch_counts()

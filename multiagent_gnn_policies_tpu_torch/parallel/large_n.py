@@ -2,9 +2,14 @@
 cell sweeps or one of three other graph backends.
 
 The counterpart of the JAX package's ``parallel/large_n.py``, with its
-four paths ("pcells", "blocked", "cells", "binned"): reset, then a Python
-loop of env steps (the JAX package's ``lax.scan`` body, ``_scan_steps``).
-On the pcells path each step of a K >= 2 policy runs
+four paths ("pcells", "blocked", "cells", "binned"): reset, then T env
+steps (the JAX package's ``lax.scan`` body, ``_scan_steps``). On the pcells
+path on one device the steps run as an :class:`EpisodeProgram`, one CUDA
+graph per static setup, captured at its first use, cached and replayed per
+episode (the JAX package's jitted scan, ``lru_cache``'d); the reset stays
+eager. A mesh and the other paths run the eager loop of steps, which
+``graph=False`` also selects on pcells. On the pcells path each step of a
+K >= 2 policy runs
 
 1. ``ystack_pre``: the historical graphs' applies of the delayed stack,
    s = 1 .. K-2, through K3 on (K-1-s)·F columns (the s = 0 apply was done
@@ -26,8 +31,12 @@ frame alone. Neither runs K2 or K3.
 An episode of T steps launches K1 T+1 times (reset + T), K2 T times for
 K >= 2 and K3 (K-2)·T times for K >= 3 (one launch per historical graph
 and step while its columns fit one kernel width); an expert-mode or
-K = 1 episode launches K1 alone. The per-episode max grid overflow is
-returned: 0 means every step's sweep was exact.
+K = 1 episode launches K1 alone, through a graph as eagerly. The launch
+counters of ``ops/cells_cuda.py`` count the wrappers' calls: a capture
+counts the launches it records, and a replay, which calls no wrapper,
+counts nothing (a profiler trace counts the kernels a replay runs). The
+per-episode max grid overflow is returned: 0 means every step's sweep
+was exact.
 
 The "blocked" path (``path="blocked"``, the JAX package's default below
 N = 32,768) computes the same step with the O(N²) row-blocked sweeps of
@@ -68,6 +77,9 @@ table and 4·N·6 of the historical apply reduced, 16·N of the state and
 
 from __future__ import annotations
 
+import copy
+import functools
+import time
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -424,15 +436,293 @@ def _scan_steps(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
     return state, torch.stack(rewards)
 
 
+# --- the episode program: the JAX package's compiled scan as a CUDA graph --
+
+PROGRAMS_KEPT = 16    # programs cached per process, least recently used out
+WARMUP_STEPS = 2      # steps of the body run on scratch copies before capture
+_STREAMS: dict = {}   # per device: the stream every program captures on
+_POOLS: dict = {}     # per device: the programs' shared memory pool
+
+
+def _device(device) -> torch.device:
+    """``device`` with its index (the current card's when it has none)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _tensors(t) -> list:
+    """The tensors of a nested tuple (NamedTuples too), in order; None
+    leaves are skipped."""
+    if t is None:
+        return []
+    if isinstance(t, torch.Tensor):
+        return [t]
+    return [leaf for f in t for leaf in _tensors(f)]
+
+
+def _clone(t):
+    """A nested tuple with a contiguous copy of each tensor."""
+    if t is None or isinstance(t, torch.Tensor):
+        return None if t is None else t.clone(
+            memory_format=torch.contiguous_format)
+    fields = [_clone(f) for f in t]
+    return type(t)(*fields) if hasattr(t, "_fields") else tuple(fields)
+
+
+def _copy(dst, src) -> None:
+    for d, s in zip(_tensors(dst), _tensors(src), strict=True):
+        d.copy_(s)
+
+
+def copy_state(dst: EpisodeState, src: EpisodeState) -> None:
+    """Copy ``src`` into the tensors of ``dst``, in place. The historical
+    grids go first, oldest first: a step rotates them by reference
+    (``grid_hist' = (grid,) + grid_hist[:-1]``), so each table is read
+    before it is overwritten."""
+    for d, s in zip(dst.grid_hist[::-1], src.grid_hist[::-1], strict=True):
+        _copy(d, s)
+    _copy(dst._replace(grid_hist=()), src._replace(grid_hist=()))
+
+
+class _Buffers(NamedTuple):
+    """An episode program's per-step inputs and outputs, indexed by step."""
+
+    rewards: torch.Tensor                # (T,)
+    traj: Optional[torch.Tensor]         # (T, M, 4), or None
+    records: Tuple[torch.Tensor, ...]    # (T, *shape) per record
+    inputs: Tuple[torch.Tensor, ...]     # (T, ...) per input
+
+
+class EpisodeProgram:
+    """``steps`` env steps of one static setup as one CUDA graph: the
+    counterpart of the JAX package's jitted ``lax.scan`` of an episode
+    (``_jitted_rollout``, ``_jitted_chunked``'s chunk, the collection scan
+    of ``algos/imitation_large.py``). Only the pcells path on one device.
+
+    ``step(cfg, actor, state, gen, *inputs_t)`` returns ``(state', reward,
+    *records_t)``: :func:`_step` (a policy, or the expert with ``actor``
+    None) by default, with no inputs or records; the large learner's
+    collection step takes the step's subsample (and DAGGER's coin) and
+    returns its records. ``inputs`` gives each input's (per-step shape,
+    dtype), ``records`` each float32 record's per-step shape. The graph
+    reads and writes static buffers: every tensor of an
+    :class:`EpisodeState` (allocated from the first state it is given),
+    the per-step inputs and outputs (``rewards``, ``traj``, ``records``),
+    and its
+    own copy of the actor's parameters, which :meth:`run` refreshes from
+    the caller's actor before each replay (a graph reads parameters by
+    address: an in-place update of the caller's and another actor of the
+    same widths both reach it). The state passes from step to step by
+    reference, as the eager loop passes it, and is copied into the static
+    buffers once at the end: one replay per run.
+
+    On the CPU the same body runs eagerly over the static buffers: no
+    graph, no copy of the actor, the caller's generator. On the card the
+    first run warms the body up for ``WARMUP_STEPS`` steps on scratch
+    copies (on the capture stream: cuBLAS's workspace, the kernels'
+    first loads; a capture without them is invalidated), then captures;
+    the warm-up leaves the episode and the caller's generator as they
+    were, and its launches count as the launches they are
+    (``EpisodeProgram.captures`` counts the captures of the process). The
+    stochastic variant's noise comes from the program's own generator,
+    registered with the graph: each run sets its state to the caller's
+    (the default generator's with ``gen`` None), replays, and hands the
+    advanced state back, so an episode draws the eager loop's noise and
+    leaves the generator where the loop would. A failure to capture or to
+    replay raises; nothing falls back to the eager loop. Every program of
+    a device captures on one stream and into one memory pool: a graph
+    keeps no value in the pool from one replay to the next (its outputs
+    are static buffers), and replays run one at a time on the caller's
+    stream, so they may share it. ``capture_s``, ``instantiate_s`` and
+    ``pool_mb`` (the reserved memory's growth over the capture) record
+    the capture."""
+
+    captures = 0          # programs captured in this process
+
+    def __init__(self, cfg: LargeNConfig, acfg: Optional[ActorConfig],
+                 steps: int, device, traj_agents: int = 0, step=None,
+                 inputs: tuple = (), records: tuple = ()):
+        if cfg.axis is not None or cfg.path != "pcells":
+            raise ValueError("the episode program runs the pcells path on "
+                             "one device")
+        self.cfg, self.acfg, self.steps = cfg, acfg, steps
+        self.step, self.device = step or _step, _device(device)
+        self.capture_s = self.instantiate_s = self.pool_mb = None
+        self._graph = self._static = self._actor = None
+        dev = self.device
+        self._buf = _Buffers(
+            rewards=torch.zeros(steps, device=dev),
+            traj=(torch.zeros(steps, traj_agents, 4, device=dev)
+                  if traj_agents else None),
+            records=tuple(torch.zeros((steps, *shape), device=dev)
+                          for shape in records),
+            inputs=tuple(torch.zeros((steps, *shape), dtype=dtype,
+                                     device=dev)
+                         for shape, dtype in inputs))
+        self._traj_idx = (traj_subset_indices(cfg.params.n_agents,
+                                              traj_agents, dev)
+                          if traj_agents else None)
+        self._gen = (torch.Generator(device=dev)
+                     if dev.type == "cuda" and cfg.params.dynamics_noise > 0
+                     else None)
+
+    rewards = property(lambda self: self._buf.rewards)
+    traj = property(lambda self: self._buf.traj)
+    records = property(lambda self: self._buf.records)
+
+    def _body(self, state: EpisodeState, dst: EpisodeState, buf: _Buffers,
+              actor, gen, n: int) -> None:
+        """``n`` steps from ``state``, each one's outputs written into
+        ``buf`` at its index, the final state copied into ``dst``."""
+        for t in range(n):
+            state, r, *rec = self.step(self.cfg, actor, state, gen,
+                                       *(x[t] for x in buf.inputs))
+            buf.rewards[t] = r
+            if buf.traj is not None:
+                buf.traj[t] = state.x[self._traj_idx]
+            for out, v in zip(buf.records, rec, strict=True):
+                out[t] = v
+        copy_state(dst, state)
+
+    def run(self, state: EpisodeState, actor: Optional[torch.nn.Module] = None,
+            gen: Optional[torch.Generator] = None,
+            inputs: tuple = ()) -> EpisodeState:
+        """``steps`` env steps from ``state``, with the step's ``inputs``
+        (each (T, ...), row t passed to step t). Returns the final state,
+        which is the program's static buffers: valid until its next run,
+        as are ``rewards``, ``traj`` and ``records``."""
+        if actor is None and self.acfg is not None:
+            raise ValueError("a policy's episode needs an actor")
+        with torch.no_grad():
+            if self._static is None:
+                self._static = _clone(state)
+            else:
+                copy_state(self._static, state)
+            _copy(self._buf.inputs, inputs)
+            if self.device.type != "cuda":
+                self._body(self._static, self._static, self._buf, actor, gen,
+                           self.steps)
+                return self._static
+            self._load(actor)
+            if self._graph is None:
+                self._capture()
+            if self._gen is not None:
+                src = gen or torch.cuda.default_generators[self.device.index]
+                self._gen.set_state(src.get_state())
+            self._graph.replay()
+            if self._gen is not None:
+                src.set_state(self._gen.get_state())
+        return self._static
+
+    def _load(self, actor: Optional[torch.nn.Module]) -> None:
+        """The caller's parameters copied into the program's actor."""
+        if actor is None:
+            return
+        if self._actor is None:
+            self._actor = copy.deepcopy(actor).requires_grad_(False)
+        for d, s in zip(self._actor.parameters(), actor.parameters(),
+                        strict=True):
+            if d.shape != s.shape:
+                raise ValueError(f"the actor's widths differ from the "
+                                 f"program's: {tuple(s.shape)} against "
+                                 f"{tuple(d.shape)}")
+            d.copy_(s)
+
+    def _capture(self) -> None:
+        strict_fp32()
+        dev = self.device
+        if dev not in _STREAMS:
+            _STREAMS[dev] = torch.cuda.Stream(dev)
+        stream = _STREAMS[dev]
+        scratch, sbuf = _clone(self._static), _clone(self._buf)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(stream):
+            self._body(scratch, scratch, sbuf, self._actor, self._gen,
+                       min(WARMUP_STEPS, self.steps))
+        torch.cuda.current_stream(dev).wait_stream(stream)
+        del scratch, sbuf
+        graph = torch.cuda.CUDAGraph()
+        if self._gen is not None:
+            graph.register_generator_state(self._gen)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        if dev not in _POOLS:
+            _POOLS[dev] = torch.cuda.graph_pool_handle()
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=_POOLS[dev], stream=stream):
+            self._body(self._static, self._static, self._buf, self._actor,
+                       self._gen, self.steps)
+            t1 = time.perf_counter()
+        self.instantiate_s = time.perf_counter() - t1
+        self.capture_s = t1 - t0
+        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
+        self._graph = graph
+        EpisodeProgram.captures += 1
+
+
+@functools.lru_cache(maxsize=PROGRAMS_KEPT)
+def _cached_program(cfg, acfg, steps, device, traj_agents, step, inputs,
+                    records) -> EpisodeProgram:
+    return EpisodeProgram(cfg, acfg, steps, device, traj_agents, step,
+                          inputs, records)
+
+
+def episode_program(cfg: LargeNConfig, acfg: Optional[ActorConfig],
+                    steps: int, device, traj_agents: int = 0, step=None,
+                    inputs: tuple = (), records: tuple = ()
+                    ) -> EpisodeProgram:
+    """The :class:`EpisodeProgram` of this static setup, made at its first
+    use and kept (the JAX package's ``lru_cache`` of jitted episodes)."""
+    return _cached_program(cfg, acfg, steps, _device(device), traj_agents,
+                           step or _step, tuple(inputs), tuple(records))
+
+
+def clear_programs() -> None:
+    """Drop every cached episode program, its graph and the shared pool
+    (the next capture starts a new one)."""
+    _cached_program.cache_clear()
+    _POOLS.clear()
+
+
+def use_program(path: str, device, graph=None, on_mesh: bool = False) -> bool:
+    """Whether an episode on ``path`` on ``device`` (banded over a mesh
+    with ``on_mesh``) runs its steps as an :class:`EpisodeProgram` (else
+    the eager loop). ``graph``: None runs the program where it applies
+    (the pcells path on one device: captured on the card, its body eagerly
+    on the CPU) and the eager loop elsewhere; False the eager loop; True a
+    CUDA graph, which raises ValueError with a mesh, off the pcells path
+    or on the CPU."""
+    if graph is False:
+        return False
+    refusal = ("with a mesh" if on_mesh
+               else f"on the {path} path" if path != "pcells"
+               else "on the CPU" if torch.device(device).type != "cuda"
+               else None)
+    if graph is None:
+        return refusal in (None, "on the CPU")
+    if graph is not True:
+        raise ValueError(f"graph must be None, False or True, got {graph!r}")
+    if refusal:
+        raise ValueError(f"a CUDA graph of the episode was asked for "
+                         f"{refusal}: it runs the pcells path on one card "
+                         f"(graph=False runs the eager loop)")
+    return True
+
+
 def make_config(p: FlockingParams, *, path: str = "pcells",
                 cap: Optional[int] = None, cell_margin: float = 1.3,
                 cell_edge_mult: float = 1.0, centralized: bool = True,
                 need_expert: bool = False, mesh=None, axis: str = "agents",
-                force_n_dev: Optional[int] = None) -> LargeNConfig:
+                force_n_dev: Optional[int] = None,
+                block: Optional[int] = None) -> LargeNConfig:
     """The :class:`LargeNConfig` of ``p`` on ``path``, on one device or
     banded over ``mesh``'s ``axis`` (``rollout_large``'s arguments of the
     same names; a mesh without that axis runs the single-device program).
-    ``cap`` defaults to 16 (pcells), 12 (cells) or 32 (binned).
+    ``cap`` defaults to 16 (pcells), 12 (cells) or 32 (binned); ``block``
+    (the blocked path's rows per block) to :func:`block_rows`'.
     Raises ValueError for an unknown path, for ``force_n_dev`` without a
     mesh, on the blocked and binned paths (which split agent rows) for an
     axis that does not divide N, and on the binned path with the
@@ -468,7 +758,8 @@ def make_config(p: FlockingParams, *, path: str = "pcells",
         centralized=centralized,
         need_expert=need_expert,
         path=path,
-        block=block_rows(n, n // n_dev) if path == "blocked" else 0,
+        block=(block or block_rows(n, n // n_dev)) if path == "blocked"
+        else 0,
         axis=group, n_dev=n_dev, rows=n // n_dev,
         emulated=group is not None and group.emulated,
         cap=cap or 32,
@@ -485,7 +776,8 @@ def rollout_large(actor: Optional[torch.nn.Module],
                   expert_mode: bool = False, traj_agents: int = 0,
                   path: Optional[str] = None, sparse: bool = False,
                   n_episodes: int = 1, mesh=None, axis: str = "agents",
-                  force_n_dev: Optional[int] = None):
+                  force_n_dev: Optional[int] = None, scan_chunks: int = 1,
+                  block: Optional[int] = None, graph=None):
     """One episode of ``p.episode_steps`` steps through the cell sweeps (the
     JAX package's "pcells" path), the row-blocked O(N²) sweeps
     (``path="blocked"``), the dense cell grid (``"cells"``) or the
@@ -521,7 +813,8 @@ def rollout_large(actor: Optional[torch.nn.Module],
       n_episodes: run this many episodes one after another from ``gen``
         with no host synchronisation between them (the JAX package's
         episode chain): the (E·T,) rewards, the last episode's final state
-        and the max overflow over all of them. Not with ``traj_agents``.
+        and the max overflow over all of them. Not with ``traj_agents``
+        or ``scan_chunks``.
       mesh / axis: a ``DeviceMesh`` (``parallel.mesh.make_mesh``) whose
         ``axis`` dimension of D ranks shares the sweeps (module docstring);
         run by every rank of it, each on its own device with a generator
@@ -536,14 +829,30 @@ def rollout_large(actor: Optional[torch.nn.Module],
         every collective replaced by a local operation of the same shape
         (``parallel.distributed.AxisGroup``). Its rewards, states and
         overflow are not valid unless it equals the mesh's size.
+      scan_chunks: run the episode as this many chunks of ceil(T / C)
+        steps (the last one shorter), the state carried from one to the
+        next (the JAX package's chunked scans, which bound a TPU program's
+        memory); the result equals one chunk's bit for bit.
+      block: the blocked path's rows per block (default
+        :func:`block_rows`'; the JAX package's ``block or pick_block``).
+      graph: None (default) runs each chunk through its cached
+        :class:`EpisodeProgram` on the pcells path on one device, a CUDA
+        graph on the card and the same body eagerly on the CPU, and the
+        eager loop of steps (``_scan_steps``) on a mesh and on the blocked,
+        cells and binned paths; False the eager loop everywhere (the
+        graph's oracle); True the graph, raising ValueError with a mesh,
+        off pcells or on the CPU.
     """
     if path is None:
         path = "binned" if sparse else "pcells"
     if n_episodes < 1:
         raise ValueError(f"n_episodes must be >= 1, got {n_episodes}")
-    if n_episodes > 1 and traj_agents:
+    if scan_chunks < 1:
+        raise ValueError(f"scan_chunks must be >= 1, got {scan_chunks}")
+    if n_episodes > 1 and (traj_agents or scan_chunks > 1):
         raise ValueError("n_episodes > 1 is timing-oriented; trajectory "
-                         "dumps need per-episode calls")
+                         "dumps and chunked episodes need per-episode calls")
+    program = use_program(path, device, graph, on_mesh=mesh is not None)
     if expert_mode:
         actor = acfg = None
     elif acfg is None or acfg.ind_agg != 0:
@@ -552,22 +861,34 @@ def rollout_large(actor: Optional[torch.nn.Module],
                       cell_edge_mult=cell_edge_mult,
                       centralized=centralized_expert,
                       need_expert=expert_mode, mesh=mesh, axis=axis,
-                      force_n_dev=force_n_dev)
+                      force_n_dev=force_n_dev, block=block)
     group = cfg.axis
     strict_fp32()
     device = torch.device(device)
-    rewards, overflow = [], None
+    T = p.episode_steps
+    clen = -(-T // scan_chunks)
+    rewards, traj, overflow = [], [], None
     with torch.no_grad():
         for _ in range(n_episodes):
             state = _episode_init(cfg, acfg, gen, device, x0)
-            state, r, *traj = _scan_steps(cfg, actor, state, p.episode_steps,
-                                          gen, traj_agents)
-            rewards.append(r)
-            overflow = (state.overflow if overflow is None
+            for c0 in range(0, T, clen):
+                n = min(clen, T - c0)
+                if not program:
+                    state, r, *tr = _scan_steps(cfg, actor, state, n, gen,
+                                                traj_agents)
+                else:
+                    prog = episode_program(cfg, acfg, n, device, traj_agents)
+                    state = prog.run(state, actor, gen)
+                    r = prog.rewards.clone()
+                    tr = [prog.traj.clone()] if traj_agents else []
+                rewards.append(r)
+                traj += tr
+            overflow = (state.overflow.clone() if overflow is None
                         else torch.maximum(overflow, state.overflow))
         if group is not None:
             overflow = group.all_reduce(overflow.reshape(1),
                                         dist.ReduceOp.MAX)[0]
-    rewards = rewards[0] if n_episodes == 1 else torch.cat(rewards)
-    out = (rewards, state.x) + ((overflow,) if return_overflow else ())
-    return out + tuple(traj)
+    cat = lambda ts: ts[0] if len(ts) == 1 else torch.cat(ts)
+    out = (cat(rewards), state.x.clone())
+    out += (overflow,) if return_overflow else ()
+    return out + ((cat(traj),) if traj_agents else ())

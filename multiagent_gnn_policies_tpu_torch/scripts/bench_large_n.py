@@ -20,10 +20,16 @@ seeded random weights) runs:
 * one episode under ``torch.profiler``: device-busy ms per step, the idle
   share against the median's wall ms per step, device operations per step.
 
+On the pcells path each of ``--graphs`` is a row: ``eager`` (the eager
+loop of steps, ``graph=False``) and ``graph`` (the episode program's CUDA
+graph, on the card only), their chains timed in turn; the graph row adds
+its capture and instantiate seconds and its memory pool's growth (MB)
+over the capture, each N's programs captured into a new pool.
+
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n \\
         --n 10000 --paths blocked cells binned pcells --steps 25 \\
-        [--device cpu]
+        [--graphs eager graph] [--device cpu]
 
 Default sizes 10,000, 32,768, 100,000 and 1,000,000, paths blocked, cells
 and pcells (the JAX script's), edge_mult 1, cap the path's default (16
@@ -65,58 +71,89 @@ TOP = 5              # device operations listed per profiled episode
 
 
 def bench_one(n, path, args, actor, acfg, device):
-    """One (N, path) row: returns a dict of its numbers (rates None when
+    """The (N, path) rows, one per mode (pcells: ``args.graphs``; the other
+    paths: the eager loop): a list of each row's numbers (rates None when
     withheld)."""
     p = FlockingParams(n_agents=n, episode_steps=args.steps, max_resets=2)
     kw = dict(return_overflow=True, cap=args.cap,
               cell_edge_mult=args.edge_mult, device=device, path=path)
     cfg = ln.make_config(p, path=path, cap=args.cap,
                          cell_edge_mult=args.edge_mult)
+    modes = []
+    for mode in (args.graphs if path == "pcells" else ["eager"]):
+        if mode != "eager" and device.type != "cuda":
+            print(f"N={n:>8} {path:>8} {mode:>8}: skipped (a CUDA graph "
+                  f"needs the card)", flush=True)
+        else:
+            modes.append(mode)
 
-    def chain(seed, episodes):
+    def chain(mode, seed, episodes):
         gen = torch.Generator(device=device).manual_seed(seed)
         return ln.rollout_large(actor, acfg, gen, p, n_episodes=episodes,
+                                graph=mode == "graph",
                                 **kw)
 
-    (r, x, ovf), first_s = timed(lambda: chain(3, 1), device)
-    max_ovf, bad, ms = int(ovf), int(not bool(torch.isfinite(r.sum()))), []
-    for rep in range(args.repeats):
-        (r, x, ovf), s = timed(lambda: chain(4 + rep, args.episodes), device)
-        ms.append(1e3 * s / (args.episodes * args.steps))
-        max_ovf = max(max_ovf, int(ovf))
-        bad += int((~torch.isfinite(r.reshape(args.episodes, -1).sum(1)))
-                   .sum())
+    rows = {}
+    ln.clear_programs()       # each N's programs capture into a new pool
+    for mode in modes:
+        (r, x, ovf), first_s = timed(lambda: chain(mode, 3, 1), device)
+        row = rows[mode] = {
+            "n": n, "path": path, "mode": mode, "first_s": first_s, "ms": [],
+            "overflow": int(ovf), "busy_ms": None, "idle": None, "ops": None,
+            "nonfinite": int(not bool(torch.isfinite(r.sum()))),
+            "capture_s": None, "instantiate_s": None, "pool_mb": None}
+        if mode != "eager":
+            prog = ln.episode_program(cfg, acfg, args.steps, device)
+            row.update(capture_s=prog.capture_s,
+                       instantiate_s=prog.instantiate_s,
+                       pool_mb=prog.pool_mb)
+    for rep in range(args.repeats):       # the modes' chains in turn
+        for mode in modes:
+            row = rows[mode]
+            (r, x, ovf), s = timed(lambda: chain(mode, 4 + rep,
+                                                 args.episodes), device)
+            row["ms"].append(1e3 * s / (args.episodes * args.steps))
+            row["overflow"] = max(row["overflow"], int(ovf))
+            row["nonfinite"] += int(
+                (~torch.isfinite(r.reshape(args.episodes, -1).sum(1))).sum())
     # the final frame's directed radius edges, which each of the K hops
     # aggregates once per step
     edges = args.k * float(ln._frame(cfg, x)[0].degree.sum())
-    med = statistics.median(ms)
-    row = {"n": n, "path": path, "first_s": first_s, "ms": ms,
-           "median_ms": med, "overflow": max_ovf, "nonfinite": bad,
-           "busy_ms": None, "idle": None, "ops": None}
-    valid = max_ovf == 0 and bad == 0
-    print(f"N={n:>8} {path:>8}: first episode {first_s:8.2f} s | "
-          + (f"{1e3 / med:9.1f} steps/s | {1e3 / med * edges:.3e} edges/s | "
-             f"{med:9.4f} ms/step (median of {args.repeats}, "
-             f"{min(ms):.4f}..{max(ms):.4f}) | " if valid else
-             "INVALID: rates withheld | ")
-          + f"overflow={max_ovf} nonfinite_eps={bad}", flush=True)
-    if valid:
-        from torch.profiler import ProfilerActivity, profile
+    for mode in modes:
+        row = rows[mode]
+        ms, max_ovf, bad = row["ms"], row["overflow"], row["nonfinite"]
+        med = statistics.median(ms)
+        row["median_ms"] = med
+        valid = max_ovf == 0 and bad == 0
+        graph = ("" if mode == "eager" else
+                 f" | capture {row['capture_s']:.3f} s, instantiate "
+                 f"{row['instantiate_s']:.3f} s, pool {row['pool_mb']:.1f} "
+                 f"MB")
+        print(f"N={n:>8} {path:>8} {mode:>8}: first episode {row['first_s']:8.2f}"
+              f" s | "
+              + (f"{1e3 / med:9.1f} steps/s | {1e3 / med * edges:.3e} "
+                 f"edges/s | {med:9.4f} ms/step (median of {args.repeats}, "
+                 f"{min(ms):.4f}..{max(ms):.4f}) | " if valid else
+                 "INVALID: rates withheld | ")
+              + f"overflow={max_ovf} nonfinite_eps={bad}" + graph,
+              flush=True)
+        if valid:
+            from torch.profiler import ProfilerActivity, profile
 
-        # the device's activity alone on the card: host operations would
-        # add events that no number here reads
-        acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
-                else [ProfilerActivity.CPU])
-        with profile(activities=acts) as prof:
-            _, s = timed(lambda: chain(99, 1), device)
-        summary = summarize_trace(trace_events(prof), args.steps, med,
-                                  1e3 * s / args.steps, top=TOP)
-        if summary:
-            row.update(busy_ms=summary["busy_ms"], idle=summary["idle"],
-                       ops=summary["ops_per_step"])
-    row.update(steps_per_s=1e3 / med if valid else None,
-               edges_per_s=1e3 / med * edges if valid else None)
-    return row
+            # the device's activity alone on the card: host operations
+            # would add events that no number here reads
+            acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
+                    else [ProfilerActivity.CPU])
+            with profile(activities=acts) as prof:
+                _, s = timed(lambda: chain(mode, 99, 1), device)
+            summary = summarize_trace(trace_events(prof), args.steps, med,
+                                      1e3 * s / args.steps, top=TOP)
+            if summary:
+                row.update(busy_ms=summary["busy_ms"], idle=summary["idle"],
+                           ops=summary["ops_per_step"])
+        row.update(steps_per_s=1e3 / med if valid else None,
+                   edges_per_s=1e3 / med * edges if valid else None)
+    return list(rows.values())
 
 
 def main(argv=None) -> int:
@@ -137,6 +174,11 @@ def main(argv=None) -> int:
                     help="cell slot capacity (default 16 pcells, 12 cells, "
                          "32 binned)")
     ap.add_argument("--k", type=int, default=3, help="the policy's K")
+    ap.add_argument("--graphs", nargs="+", default=["eager", "graph"],
+                    choices=("eager", "graph"),
+                    help="pcells modes, timed in turn: the eager loop of "
+                         "steps, and the episode program's CUDA graph (on "
+                         "the card only)")
     add_device_arg(ap)
     args = ap.parse_args(argv)
     device = device_of(args.device)
@@ -152,17 +194,20 @@ def main(argv=None) -> int:
                     print(f"N={n:>8} {path:>8}: skipped (above N = "
                           f"{MAX_N[path]} on this path)", flush=True)
                     continue
-                rows.append(bench_one(n, path, args, actor, acfg, device))
+                rows += bench_one(n, path, args, actor, acfg, device)
     sync(device)
-    print(f"# summary ({time.perf_counter() - t0:.1f} s): N, path, median "
-          f"ms/step, spread, steps/s, busy ms/step, idle share, device "
-          f"ops/step", flush=True)
+    print(f"# summary ({time.perf_counter() - t0:.1f} s): N, path, mode, "
+          f"median ms/step, spread, steps/s, busy ms/step, idle share, "
+          f"device ops/step, capture s, instantiate s, pool MB", flush=True)
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
     for r in rows:
-        print(f"#   {r['n']:>8} {r['path']:>8} {r['median_ms']:.4f} "
-              f"{min(r['ms']):.4f}..{max(r['ms']):.4f} "
+        print(f"#   {r['n']:>8} {r['path']:>8} {r['mode']:>8} "
+              f"{r['median_ms']:.4f} {min(r['ms']):.4f}..{max(r['ms']):.4f} "
               f"{fmt(r['steps_per_s'], '.1f')} {fmt(r['busy_ms'], '.4f')} "
-              f"{fmt(r['idle'], '.4f')} {fmt(r['ops'], '.2f')}", flush=True)
+              f"{fmt(r['idle'], '.4f')} {fmt(r['ops'], '.2f')}"
+              + ("" if r["mode"] == "eager" else
+                 f" {r['capture_s']:.4f} {r['instantiate_s']:.4f} "
+                 f"{r['pool_mb']:.1f}"), flush=True)
     bad = [r for r in rows if r["overflow"] or r["nonfinite"]]
     return 1 if bad else 0
 

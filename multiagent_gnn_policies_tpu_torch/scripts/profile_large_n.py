@@ -12,6 +12,11 @@ by self time: ms over the episode, share of the device time, and count.
 K1, K2 and K3 appear under their kernel names (``frame_kernel``,
 ``apply_deg_kernel<...>``, ``apply_kernel<...>``) on the pcells path;
 ``--path`` profiles another graph backend (``rollout_large``'s paths).
+These episodes run the eager loop of steps (``graph=False``). On the card
+on the pcells path the same three episodes then run through the episode
+program's CUDA graph (its capture in the first), the third traced into
+``--out/graph/trace.json``: ms per step, device busy ms and idle share,
+device operations per step; its reward must equal the eager one's.
 
     python -m multiagent_gnn_policies_tpu_torch.scripts.profile_large_n \\
         [--n 100000] [--path pcells] [--steps 25] [--edge-mult 2 --cap 32] \\
@@ -75,13 +80,13 @@ def main(argv=None) -> int:
     p = FlockingParams(n_agents=args.n, episode_steps=args.steps,
                        max_resets=2)
 
-    def run(seed):
+    def run(seed, graph=False):
         gen = torch.Generator(device=device).manual_seed(seed)
         r, _, ovf = ln.rollout_large(actor, acfg, gen, p,
                                      return_overflow=True,
                                      cell_edge_mult=args.edge_mult,
                                      cap=args.cap, device=device,
-                                     path=args.path)
+                                     path=args.path, graph=graph)
         return float(r.sum()), int(ovf)
 
     with torch.no_grad():
@@ -110,6 +115,24 @@ def main(argv=None) -> int:
                                       key=lambda kv: -kv[1][0])[:TOP]:
             print(f"{name[:64]:64s} {us / 1e3:9.4f} "
                   f"{100 * us / max(grand, 1e-9):6.2f} {cnt:6d}", flush=True)
+    if device.type == "cuda" and args.path == "pcells":
+        with torch.no_grad():
+            (gtot, govf), s = timed(lambda: run(3, True), device)
+            print(f"graph: first episode {s:.2f} s (capture included)",
+                  flush=True)
+            (gtot, govf), s = timed(lambda: run(4, True), device)
+            g_ms = 1e3 * s / args.steps
+            with trace(os.path.join(args.out, "graph")) as gprof:
+                (gtot, govf), s = timed(lambda: run(5, True), device)
+        g = summarize_trace(trace_events(gprof), args.steps, g_ms,
+                            1e3 * s / args.steps, top=0)
+        print(f"graph episode: {g_ms:.4f} ms/step (overflow={govf}, reward "
+              f"{'equal to' if gtot == tot else 'UNLIKE'} the eager "
+              f"episode's); traced: "
+              + (f"device busy {g['busy_ms']:.4f} ms/step, idle "
+                 f"{g['idle']:.4f}, {g['ops_per_step']:.2f} device ops/step"
+                 if g else "not measured"), flush=True)
+        ovf, tot = max(ovf, govf), tot if gtot == tot else math.nan
     return 0 if ovf == 0 and math.isfinite(tot) else 1
 
 

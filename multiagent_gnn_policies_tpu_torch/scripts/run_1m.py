@@ -6,20 +6,25 @@ FlockingRelative-v0 at N = 1,000,000 for T = 200 steps (the reference
 horizon) through the pcells path, with cells of twice the minimum edge and
 32 slots (``--edge-mult 2 --cap 32``, the JAX defaults): a first episode,
 then a steady one. Each prints its reward sum, grid overflow, ms per step
-(the host clock, synchronised once per episode) and the kernels' launches
-(the counters zeroed just before it). ``--traj out.npz`` writes the steady
-episode's ``x (T, M, 4)`` for M = 2,000 evenly spaced agents, ``reward
-(T,)``, ``final_x (N, 4)`` and ``subset_indices (M,)``, the JAX file's
-schema.
+(the host clock, synchronised once per episode) and the wrappers' calls
+(the counters zeroed just before it; a CUDA graph's replay calls none).
+On the card the steady episode runs once more under torch.profiler, and
+the kernels' launches are read from its trace. ``--traj out.npz`` writes
+the steady episode's ``x (T, M, 4)`` for M = 2,000 evenly spaced agents,
+``reward (T,)``, ``final_x (N, 4)`` and ``subset_indices (M,)``, the JAX
+file's schema.
 
 Exit 1 unless both episodes have overflow 0 and finite rewards, and, on
-the card, launched K1 T+1 times and K2 and K3 T times each.
+the card, the traced episode launched K1 T+1 times and K2 and K3 T times
+each on the device.
 
     python -m multiagent_gnn_policies_tpu_torch.scripts.run_1m \\
-        [--n 1000000] [--steps 200] [--traj out.npz] [--device cpu]
+        [--n 1000000] [--steps 200] [--chunks 4] [--traj out.npz] \\
+        [--device cpu]
 
-The JAX script's ``--chunks`` bounds a TPU program's memory; the port's
-episode is a host loop of steps, so it has no counterpart.
+``--chunks`` (the JAX script's, default 4) runs each episode as that many
+chunks of steps (``rollout_large(scan_chunks=)``): on the card one CUDA
+graph of T/4 steps replayed 4 times, captured in the first episode.
 """
 
 from __future__ import annotations
@@ -57,6 +62,8 @@ def main(argv=None) -> int:
                     help="pcells cell-edge multiple (make_pcell_spec)")
     ap.add_argument("--cap", type=int, default=32,
                     help="cell slot capacity")
+    ap.add_argument("--chunks", type=int, default=4,
+                    help="chunks of steps per episode (scan_chunks)")
     ap.add_argument("--traj", default=None,
                     help="write a 2000-agent subset trajectory .npz here")
     add_device_arg(ap)
@@ -69,6 +76,8 @@ def main(argv=None) -> int:
     traj_agents = min(TRAJ_AGENTS, args.n) if args.traj else 0
     t = args.steps
     want = {"frame_sweep": t + 1, "apply_deg_sweep": t, "apply_sweep": t}
+    mode = ("CUDA graph" if device.type == "cuda"
+            else "program body on the CPU")
 
     def episode(seed):
         gen = torch.Generator(device=device).manual_seed(seed)
@@ -76,19 +85,18 @@ def main(argv=None) -> int:
         out, s = timed(lambda: ln.rollout_large(
             actor, acfg, gen, p, return_overflow=True,
             cell_edge_mult=args.edge_mult, cap=args.cap, device=device,
-            traj_agents=traj_agents), device)
+            traj_agents=traj_agents, scan_chunks=args.chunks), device)
         launches = cc.launch_counts()
         r, final_x, ovf = out[:3]
         tot = float(r.sum())
         ok = int(ovf) == 0 and math.isfinite(tot)
-        if device.type == "cuda":
-            ok = ok and launches == want
         return out, tot, int(ovf), s, launches, ok
 
     with torch.no_grad():
         _, tot, ovf, s, launches, ok1 = episode(11)
         print(f"N={args.n} pcells POLICY k=3 T={t} edge_mult="
-              f"{args.edge_mult} cap={args.cap}: first episode "
+              f"{args.edge_mult} cap={args.cap} chunks={args.chunks} "
+              f"{mode}: first episode "
               f"reward_sum={tot:.4f} overflow={ovf} ({s:.2f} s, "
               f"{1e3 * s / t:.4f} ms/step, build and reset included) "
               f"launches {launches}", flush=True)
@@ -96,6 +104,13 @@ def main(argv=None) -> int:
         print(f"steady: {1e3 * s / t:.4f} ms/step reward={tot2:.4f} "
               f"overflow={ovf2} launches {launches} ({s:.3f} s, reset "
               f"included)", flush=True)
+        if device.type == "cuda":
+            (_, tot3, _, _, _, ok3), by_cols = cc.device_launches(
+                lambda: episode(12))
+            on_device = {w: sum(by.values()) for w, by in by_cols.items()}
+            print(f"traced: reward={tot3:.4f}, launches on the device "
+                  f"{on_device}", flush=True)
+            ok2 = ok2 and ok3 and tot3 == tot2 and on_device == want
     if args.traj:
         r, final_x, _, traj = out
         np.savez(args.traj, x=traj.cpu().numpy(), reward=r.cpu().numpy(),
@@ -105,7 +120,8 @@ def main(argv=None) -> int:
         print(f"trajectory -> {args.traj}", flush=True)
     ok = ok1 and ok2
     if device.type == "cuda":
-        print(f"launches wanted per episode {want}", flush=True)
+        print(f"launches wanted on the device per episode {want}",
+              flush=True)
     print(f"rc={0 if ok else 1}", flush=True)
     return 0 if ok else 1
 

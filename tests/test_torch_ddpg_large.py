@@ -11,6 +11,7 @@ per episode; adjacencies and resumes exactly.
 """
 
 import dataclasses
+import pathlib
 from functools import partial
 
 import numpy as np
@@ -26,12 +27,15 @@ from multiagent_gnn_policies_tpu.models import actor as jac
 from multiagent_gnn_policies_tpu.models import critic as jcr
 from multiagent_gnn_policies_tpu.ops import blocked as jbl
 from multiagent_gnn_policies_tpu.parallel import large_n as jln
+from multiagent_gnn_policies_tpu.utils import config as jconf
+from multiagent_gnn_policies_tpu_torch.algos import ddpg as tdd
 from multiagent_gnn_policies_tpu_torch.algos import ddpg_large as tdl
 from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
 from multiagent_gnn_policies_tpu_torch.models import actor as tac
 from multiagent_gnn_policies_tpu_torch.models import critic as tcr
 from multiagent_gnn_policies_tpu_torch.models import torch_import as tti
 from multiagent_gnn_policies_tpu_torch.ops import graph as tgr
+from multiagent_gnn_policies_tpu_torch.utils import config as tconf
 
 from test_torch_ddpg import (
     REL,
@@ -46,6 +50,7 @@ from test_torch_ddpg import (
 )
 
 N = 48
+ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 
 def _large_cfgs(gn=False, k=2, **kw):
@@ -274,3 +279,25 @@ def test_resume_matches_uninterrupted(tmp_path):
     assert sorted(a) == sorted(b)
     for key in a:
         np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+
+
+@pytest.mark.parametrize("env", ["FlockingLeader-v0", "FlockingStochastic-v0"])
+def test_env_params_are_the_jax_learners(tmp_path, env):
+    """The JAX ``DDPGLarge`` steps, resets and evaluates ``cfg.env`` as it
+    is (``algos/ddpg_large.py:203, 278, 352, 402``): the env id's variant
+    (two leaders, velocity noise) is not applied. A ``cfg/ddpg_n4k.cfg``
+    section under either id (N cut to 48) gives the port's learner the
+    JAX config's ``FlockingParams``, field for field."""
+    text = (ROOT / "cfg" / "ddpg_n4k.cfg").read_text()
+    assert "env = FlockingRelative-v0" in text and "n_agents = 4096" in text
+    path = tmp_path / "ddpg.cfg"
+    path.write_text(text.replace("env = FlockingRelative-v0", f"env = {env}")
+                    .replace("n_agents = 4096", f"n_agents = {N}"))
+    jcfg = jdd.DDPGConfig.from_experiment(jconf.ExperimentConfig.from_section(
+        jconf.load_ini(str(path))["n4k"]))
+    tcfg = tdd.DDPGConfig.from_experiment(tconf.ExperimentConfig.from_section(
+        tconf.load_ini(str(path))["n4k"]))
+    assert tcfg.env_name == jcfg.env_name == env
+    tl = tdl.DDPGLarge(tcfg, device="cpu")
+    assert dataclasses.asdict(tl.params) == dataclasses.asdict(jcfg.env)
+    assert tl.params.n_leaders == 0 and tl.params.dynamics_noise == 0.0

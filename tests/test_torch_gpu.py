@@ -33,6 +33,10 @@ def _close(got, want, what, exact=()):
         assert float(err[q]) == 0.0, (what, q, float(err[q]))
 
 
+def _totals(by_cols):
+    return {w: sum(by.values()) for w, by in by_cols.items()}
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_versions_on_gpu():
     """Each CUDA kernel against its plain PyTorch version on the card, on a
@@ -491,11 +495,15 @@ def test_blocked_path_launches_no_cell_kernel():
     x0 = _init_candidate(torch.Generator(device=dev).manual_seed(2), p, dev)
     out = {}
     for path in ("blocked", "pcells"):
-        tcc.reset_launch_counts()
+        run = lambda: tln.rollout_large(actor, acfg, None, p, x0=x0,
+                                        return_overflow=True, path=path)
         with torch.no_grad():
-            r, _, ovf = tln.rollout_large(actor, acfg, None, p, x0=x0,
-                                          return_overflow=True, path=path)
-        out[path] = (r, int(ovf), tcc.launch_counts())
+            run()         # pcells: the episode program's capture
+            tcc.reset_launch_counts()
+            (r, _, ovf), launched = tcc.device_launches(run)
+        out[path] = (r, int(ovf), _totals(launched))
+        if path == "blocked":
+            assert set(tcc.launch_counts().values()) == {0}
     assert out["blocked"][1:] == (0, {"frame_sweep": 0, "apply_deg_sweep": 0,
                                       "apply_sweep": 0})
     assert out["pcells"][1:] == (0, {"frame_sweep": steps + 1,
@@ -659,3 +667,180 @@ def test_trace_events_summarize_as_the_event_list_on_gpu():
     assert {k: n for k, (_, n) in got["by_name"].items()} == {
         k: n for k, (_, n) in want["by_name"].items()}
     assert abs(got["busy_ms"] - want["busy_ms"]) <= 1e-3 * want["busy_ms"]
+
+
+# --- the episode program: the episode as a CUDA graph ----------------------
+
+GRAPH_N, GRAPH_T = 4096, 13   # 13 steps: chunks of 4 or 3 end shorter
+
+
+def _graph_case(case):
+    """``(params, rollout_large keywords, K)`` of a graph-against-eager
+    case at N = 4,096 (the lattice regime: the reset never waits for the
+    device)."""
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import ENV_REGISTRY
+
+    env = "FlockingStochastic-v0" if case == "stochastic" else \
+        "FlockingRelative-v0"
+    p = ENV_REGISTRY[env](FlockingParams(n_agents=GRAPH_N,
+                                         episode_steps=GRAPH_T))
+    kw = {"k1": ({}, 1), "k2": ({}, 2), "k3": ({}, 3), "k4": ({}, 4),
+          "expert": (dict(expert_mode=True), 3), "stochastic": ({}, 3),
+          "n_episodes": (dict(n_episodes=3), 3),
+          "scan_chunks": (dict(scan_chunks=4), 3),
+          "traj_agents": (dict(traj_agents=64, scan_chunks=5), 4),
+          "expert_chunks": (dict(expert_mode=True, scan_chunks=3), 3)}[case]
+    return p, kw[0], kw[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k1", "k2", "k3", "k4", "expert",
+                                  "stochastic", "n_episodes", "scan_chunks",
+                                  "traj_agents", "expert_chunks"])
+def test_graph_episode_equals_the_eager_loop_on_gpu(case):
+    """``rollout_large`` through its episode program (a CUDA graph) against
+    the eager loop (``graph=False``) on the same generator: every output
+    bit for bit, the generator left in the same state (the stochastic
+    variant draws its noise inside the graph). The replay launches on the
+    device what the eager loop launches (profiler traces), and its
+    wrappers count only the resets' K1: the replay calls none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p, kw, k = _graph_case(case)
+    acfg, actor = seeded_actor(k, 0, dev)
+    tln.clear_programs()
+    out, host, device, states = [], [], [], []
+    for graph in (False, True, True):      # eager, capture, replay
+        gen = torch.Generator(device=dev).manual_seed(5)
+        tcc.reset_launch_counts()
+        res, launched = tcc.device_launches(lambda: tln.rollout_large(
+            actor, acfg, gen, p, device=dev, return_overflow=True,
+            graph=graph, **kw))
+        out.append(res)
+        host.append(tcc.launch_counts_by_cols())
+        device.append(launched)
+        states.append(gen.get_state())
+    for graphed in out[1:]:
+        for a, b in zip(out[0], graphed, strict=True):
+            assert torch.equal(a, b), case
+    assert int(out[2][2]) == 0
+    assert device[2] == device[0], (device[0], device[2])
+    assert device[0] == host[0]
+    resets = kw.get("n_episodes", 1)
+    assert host[2] == {"frame_sweep": {10: resets}, "apply_deg_sweep": {},
+                       "apply_sweep": {}}, host[2]
+    assert torch.equal(states[0], states[1])
+    assert torch.equal(states[0], states[2])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["cloning", "dagger"])
+def test_graph_collection_equals_the_eager_loop_on_gpu(mode):
+    """The large learner's collection episode through its program against
+    the eager loop on the same generator (the reset, coins and subsample
+    drawn before the episode, the stochastic variant's noise inside it):
+    records, reward and overflow bit for bit, K1 T+1 and K2 and K3 T
+    launches on the device each (profiler traces), the generator left
+    where the loop leaves it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as til
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import ENV_REGISTRY
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p = ENV_REGISTRY["FlockingStochastic-v0"](
+        FlockingParams(n_agents=GRAPH_N, episode_steps=GRAPH_T))
+    cfg = tln.make_config(p, need_expert=True)
+    acfg, actor = seeded_actor(3, 0, dev)
+    out = {}
+    for graph in (False, True, True):      # eager, capture, replay
+        gen = torch.Generator(device=dev).manual_seed(8)
+        (samples, r, ovf), launched = tcc.device_launches(
+            lambda: til.collect_episode(cfg, actor, acfg, mode, 256, gen,
+                                        0.5, dev, graph=graph))
+        out[graph] = (samples, r, ovf, _totals(launched), gen.get_state())
+    (sa, ra, oa, la, ga), (sb, rb, ob, lb, gb) = out[False], out[True]
+    assert all(torch.equal(sa[key], sb[key]) for key in ("agg", "act"))
+    assert torch.equal(ra, rb) and int(oa) == int(ob) == 0
+    assert la == lb == {"frame_sweep": GRAPH_T + 1,
+                        "apply_deg_sweep": GRAPH_T,
+                        "apply_sweep": GRAPH_T}
+    assert torch.equal(ga, gb)
+
+
+@pytest.mark.gpu
+def test_graph_replay_never_waits_for_the_device():
+    """Once captured, an episode through the program (the eager reset in
+    the lattice regime, the copies into the static buffers, the replay,
+    the generator's state moved in and out) issues no operation that
+    synchronises the host; the capture itself ran under the same mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the host-sync check is CUDA's)")
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p, kw, k = _graph_case("stochastic")
+    acfg, actor = seeded_actor(k, 0, dev)
+    tln.clear_programs()
+    outs = []
+    for _ in range(2):        # the first call captures, the second replays
+        gen = torch.Generator(device=dev).manual_seed(2)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            outs.append(tln.rollout_large(actor, acfg, gen, p, device=dev,
+                                          return_overflow=True, graph=True))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+
+@pytest.mark.gpu
+def test_graph_reads_the_callers_weights_on_gpu():
+    """The program copies the caller's parameters before each replay: an
+    in-place change of the actor's weights (as Adam makes them) and a
+    second actor of the same widths both reach the replay, and each
+    episode equals the eager loop with those weights; an actor of other
+    widths raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p = FlockingParams(n_agents=GRAPH_N, episode_steps=GRAPH_T)
+    acfg, actor = seeded_actor(3, 0, dev)
+    _, other = seeded_actor(3, 1, dev)
+
+    def both(a):
+        x0 = _init_candidate(torch.Generator(device=dev).manual_seed(3), p,
+                             dev)
+        return [tln.rollout_large(a, acfg, None, p, x0=x0, device=dev,
+                                  graph=g)[0] for g in (False, True)]
+
+    first = both(actor)
+    with torch.no_grad():
+        for w in actor.parameters():
+            w.mul_(0.5)
+    halved = both(actor)
+    second = both(other)
+    for eager, graphed in (first, halved, second):
+        assert torch.equal(eager, graphed)
+    assert not torch.equal(first[1], halved[1])
+    assert not torch.equal(first[1], second[1])
+    _, wide = seeded_actor(3, 0, dev, hidden=(16, 16))
+    with pytest.raises(ValueError, match="widths"):
+        tln.rollout_large(wide, acfg, None, p, x0=torch.zeros(GRAPH_N, 4,
+                                                              device=dev),
+                          device=dev, graph=True)
