@@ -58,7 +58,9 @@ are counted).
    one CUDA graph (no layer ranges inside a replay): ms per step, busy,
    idle share and device operations per step;
 6. dense eval: the dense N = 100 path (no cell kernel: its (K, N, N)
-   products are float32 cuBLAS matmuls). The in-repo
+   products are float32 cuBLAS matmuls; its episodes' steps and its Adam
+   updates run as the entry points' default, the programs of
+   ``algos/imitation.py``, CUDA graphs, phases 6-8 and 11). The in-repo
    ``models/actor_FlockingRelative-v0_dagger_k3.npz``, read by the port's
    loader into the DAGGER learner of ``cfg/dagger.cfg [test]``, scores 20
    greedy episodes at N = 100, K = 3 as one batch; the mean must land in
@@ -264,6 +266,28 @@ are counted).
     setup (S = 4,096, beta 0.5) through the graph (capture, then replay)
     and eagerly, each counted: records, reward and overflow bit for bit,
     the launches as (a)'s; the same numbers as (a);
+21. round: the compiled imitation round (``algos/imitation.py``: the
+    update program and the dense episode program) against the eager
+    loops (``graph=False``), the oracle of phases 6-8 and 11. For
+    ``cfg/dagger.cfg [test]`` (N = 100) and ``cfg/dagger_n32k.cfg
+    [n32k]`` cut as phase 11 (LARGE_BUFFER records, 1 eval episode): two
+    DAGGER rounds, the eval at episode 0 included, through the programs
+    and eagerly: the whole training state bit for bit (parameters, Adam's
+    state, buffer, generator, best eval) and the loss sums; then round
+    1's state file, saved by the eager learner, loaded into the learner
+    whose programs were captured, and its round 2 run again: bit for bit
+    again, with no new capture. Printed: the update program's capture,
+    instantiate seconds and pool (and the dense DAGGER episode
+    program's), each learner's rollout ms per env step
+    and ms per Adam update, and ms per update and per dense DAGGER
+    episode step (reset included) with device busy ms, idle share and
+    device ops per step of one more run of each loop (the graph's top 5
+    device operations); the dense episode graph against eager bit for
+    bit; a one-env reset's and the batched eval's walls (graph and
+    eager, 3 calls each). Then each ``cfg/baseline.cfg`` section's expert
+    episode through the program and eagerly, bit for bit, and the
+    baseline trainer's stats (its wall printed) equal to the eager
+    rewards';
 17. budget, run last: the run, build included, must finish in BUDGET_S; a
     watchdog ends it with a non-zero exit after WATCHDOG_S.
 
@@ -636,9 +660,10 @@ def dense_eval_phase(torch, im, tfl, load_actor_npz, actor_params_from_numpy,
     return mean, std, 1e3 * eval_s / steps, err
 
 
-def _dense_episode(im, env, actor, acfg, x0, coins):
+def _dense_episode(im, env, actor, acfg, x0, coins, graph=None):
     samples, rewards = im.rollout_episode(actor, None, 0.5, env, acfg,
-                                          mode="dagger", x0=x0, coins=coins)
+                                          mode="dagger", x0=x0, coins=coins,
+                                          graph=graph)
     return {"agg": samples["agg"].reshape(-1, samples["agg"].shape[-1]),
             "act": samples["act"].reshape(-1, samples["act"].shape[-1]),
             "reward": rewards.reshape(-1, 1)}
@@ -666,9 +691,9 @@ def dense_parity(torch, im, tfl, learner, icfg):
     errs = {k: check_close(f"dense episode card vs CPU, {k}", got[k].cpu(),
                            want[k], REL_EPISODE) for k in want}
     torch.backends.cuda.matmul.allow_tf32 = True
-    try:
+    try:   # eagerly: a graph replays the kernels it captured under fp32
         tf32 = _dense_episode(im, env, learner.actor, icfg.actor,
-                              state.x, coins)
+                              state.x, coins, graph=False)
     finally:
         tfl.strict_fp32()
     rel = max(float(((tf32[k].cpu().double() - want[k].double()).abs()
@@ -760,8 +785,9 @@ def dagger_phase(torch, im, load_actor_npz, actor_params_from_numpy, Actor,
     steps = icfg.env.episode_steps
     wall_ms = 1e3 * (full.timing["rollout_s"] + full.timing["update_s"]) / (
         full.timing["rollout_steps"])
-    layers = _Annotated(record_function, ((im, "rollout_episode", "rollout"),
-                                          (im, "adam_update", "Adam update")))
+    layers = _Annotated(record_function, (
+        (im, "rollout_episode", "rollout"),
+        (im.UpdateProgram, "run", "Adam updates")))
     with layers, profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -942,7 +968,7 @@ def large_dagger_phase(torch, im, il, cc, ExperimentConfig, load_ini,
         full.timing["rollout_steps"])
     layers = _Annotated(record_function, (
         (il, "collect_episode", "collection"),
-        (im, "adam_update", "Adam update")))
+        (im.UpdateProgram, "run", "Adam updates")))
     with layers, profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -1527,11 +1553,11 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
     return out
 
 
-def _episode_stats(torch, run, steps):
+def _episode_stats(torch, run, steps, top=0):
     """``run()`` timed by the host clock (synchronised) and then once more
-    under torch.profiler: ``(ms per step, busy ms per step, idle share,
-    device ops per step)``; the last three None when the profiler records
-    no device activity."""
+    under torch.profiler (its ``top`` device operations printed): ``(ms
+    per step, busy ms per step, idle share, device ops per step)``; the
+    last three None when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1544,7 +1570,8 @@ def _episode_stats(torch, run, steps):
         run()
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t) / steps
-    summary = summarize_trace(trace_events(prof), steps, ms, prof_ms, top=0)
+    summary = summarize_trace(trace_events(prof), steps, ms, prof_ms,
+                              top=top)
     if summary is None:
         return ms, None, None, None
     return ms, summary["busy_ms"], summary["idle"], summary["ops_per_step"]
@@ -1665,6 +1692,153 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
     return out
 
 
+def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
+                n_agents):
+    """Phase 21: the compiled imitation round (``algos/imitation.py``'s
+    update and dense episode programs), the default of phases 6-8 and 11,
+    against the eager loops (``graph=False``). Returns what the phase line
+    prints."""
+    import numpy as np
+
+    canon = ExperimentConfig.from_section(load_ini(CONFIG)["n32k"])
+    learners = {
+        "dense": lambda graph: im.ImitationLearner(
+            im.ImitationConfig.from_experiment(dcfg, mode="dagger"),
+            device=DEVICE, graph=graph),
+        "n32k": lambda graph: il.LargeNImitationLearner(
+            il.LargeNImitationConfig.from_experiment(dataclasses.replace(
+                canon, n_agents=n_agents, buffer_size=LARGE_BUFFER,
+                n_test_episodes=1), mode="dagger"),
+            device=DEVICE, graph=graph)}
+    out = {}
+    for name, make in learners.items():
+        graphed, eager = make(None), make(False)
+        with tempfile.TemporaryDirectory() as tmp:
+            state = os.path.join(tmp, "state.npz")
+            eager.train(stop_after=1)
+            eager.save_training_state(state)
+            eager.train(stop_after=2)
+            _, launched = _counted(cc, lambda: graphed.train(stop_after=2))
+            same = _same_training_state(torch, graphed, eager)
+            graphed.load_training_state(state)
+            captures = (im.UpdateProgram.captures,
+                        im.DenseEpisodeProgram.captures)
+            graphed.train(stop_after=2)
+            resumed = (_same_training_state(torch, graphed, eager)
+                       and captures == (im.UpdateProgram.captures,
+                                        im.DenseEpisodeProgram.captures))
+        losses = [float(lrn.last_loss_sum) for lrn in (graphed, eager)]
+        g = graphed._updates
+        print(f"#   round [{name}]: 2 DAGGER rounds and the eval at episode "
+              f"0, graph against eager: training state bit for bit {same}; "
+              f"a resume of round 1's state into the learner that captured,"
+              f" its round 2 again: bit for bit {resumed}; loss sums "
+              f"{losses}; update program capture {g.capture_s:.3f} s, "
+              f"instantiate {g.instantiate_s:.3f} s, pool "
+              f"{g.pool_mb:.1f} MB; launches {launched}", flush=True)
+        if not (same and resumed) or losses[0] != losses[1]:
+            raise AssertionError(f"round [{name}] differs from the eager "
+                                 f"loop")
+        if any(launched.host.values()) and name == "dense":
+            raise AssertionError(f"the dense round launched cell kernels: "
+                                 f"{launched}")
+        for what, learner in (("graph", graphed), ("eager", eager)):
+            tm = learner.timing_summary()
+            print(f"#   round [{name}] {what}: learner's timing over its "
+                  f"rounds (first capture included): rollout "
+                  f"{tm['rollout_ms_per_step']:.4f} ms per env step, "
+                  f"{tm['update_ms_per_update']:.4f} ms per Adam update",
+                  flush=True)
+        # per Adam update, and per dense env step, each loop alone
+        n_up = graphed.cfg.updates_per_episode
+        b = graphed.cfg.batch_size
+
+        def updates(graph):
+            if graph:
+                return graphed._updates.run(n_up, graphed.gen)
+            for _ in range(n_up):
+                im.adam_update(eager.actor, eager.opt,
+                               eager.buffer.sample(eager.gen, b))
+
+        out.update(_eager_and_graph_stats(torch, f"{name}_adam", updates,
+                                          n_up, "update", top=5))
+        if name == "dense":
+            icfg = graphed.cfg
+            steps = icfg.env.episode_steps
+
+            def episode(graph):
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED + 50)
+                return im.rollout_episode(
+                    graphed.actor, gen, 0.5, graphed.env, icfg.actor,
+                    mode="dagger", graph=graph)
+
+            out.update(_eager_and_graph_stats(torch, "dense_episode",
+                                              episode, steps, top=5))
+            prog = im.dense_program(graphed.env, icfg.actor, "dagger",
+                                    icfg.n_rollout_envs, True, True,
+                                    graphed._updates.device)
+            print(f"#   round [dense] DAGGER episode program: capture "
+                  f"{prog.capture_s:.3f} s, instantiate "
+                  f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB",
+                  flush=True)
+            # the round's other costs: a one-env reset, a batched eval
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 51)
+            for what, run in (
+                    ("one-env reset", lambda: graphed.env.reset(gen, (1,))),
+                    (f"{icfg.n_test_episodes}-episode eval, graph",
+                     graphed.eval_rewards),
+                    (f"{icfg.n_test_episodes}-episode eval, eager",
+                     eager.eval_rewards)):
+                walls = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    walls.append(1e3 * (time.perf_counter() - t))
+                print(f"#   round [dense] {what}: {walls} ms (3 calls)",
+                      flush=True)
+            runs = [episode(g) for g in (False, True)]
+            if not (torch.equal(runs[0][1], runs[1][1]) and all(
+                    torch.equal(runs[0][0][k], runs[1][0][k])
+                    for k in runs[0][0])):
+                raise AssertionError("dense episode differs from the eager "
+                                     "loop")
+        out[f"{name}_bit_for_bit"] = same and resumed
+        del graphed, eager
+    # the baseline's expert episode, each cfg/baseline.cfg section
+    from multiagent_gnn_policies_tpu_torch.algos.baseline import (
+        train_baseline)
+    from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
+
+    ini = load_ini(BASELINE_CONFIG)
+    for section in ini.sections():
+        bcfg = ExperimentConfig.from_section(ini[section])
+        env = tfl.make_env(bcfg.env, tfl.FlockingParams(
+            n_agents=bcfg.n_agents, comm_radius=bcfg.comm_radius,
+            dt=bcfg.dt, v_max=bcfg.v_max, episode_steps=bcfg.episode_steps))
+        rewards = [im.rollout_episode(
+            None, torch.Generator(device=DEVICE).manual_seed(bcfg.seed), 0.0,
+            env, None, mode="expert", collect=False,
+            n_envs=bcfg.n_test_episodes, centralized=bcfg.centralized,
+            graph=graph).cpu().numpy() for graph in (False, True)]
+        t = time.perf_counter()
+        stats = train_baseline(bcfg, device=DEVICE)    # ends on the host
+        wall = time.perf_counter() - t
+        want = {"mean": float(rewards[0].mean()),
+                "std": float(rewards[0].std())}
+        same = np.array_equal(*rewards) and stats == want
+        print(f"#   round: baseline [{section}] expert episode, graph against"
+              f" eager: bit for bit {same} ({stats['mean']}); the trainer "
+              f"replaying it {wall:.3f} s", flush=True)
+        if not same:
+            raise AssertionError(f"baseline [{section}] differs from the "
+                                 f"eager loop")
+        kind = "centralized" if bcfg.centralized else "decentralized"
+        out[f"baseline_{kind}_bit_for_bit"] = same
+    return out
+
+
 def _check_graph_launches(capture, replay, eager):
     """One 200-step K = 3 episode's launches (:func:`_counted`): through
     the graph at its capture (the reset, the warm-up and the replay on the
@@ -1683,21 +1857,22 @@ def _check_graph_launches(capture, replay, eager):
                                  f"host {host}, {captures} captures")
 
 
-def _eager_and_graph_stats(torch, what, run, steps):
-    """ms per step (reset included), device busy ms, idle share and device
+def _eager_and_graph_stats(torch, what, run, steps,
+                           unit="step (reset included)", top=0):
+    """ms per step (or ``unit``), device busy ms, idle share and device
     ops per step of one more ``run(graph)`` eagerly and one through the
-    graph (:func:`_episode_stats`), printed; returns the phase line's
-    fields."""
+    graph (:func:`_episode_stats`; the graph's ``top`` device operations
+    printed), printed; returns the phase line's fields."""
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
     out = {}
     for name, graph in (("eager", False), ("graph", True)):
         ms, busy, idle, ops = _episode_stats(torch, lambda: run(graph),
-                                             steps)
-        print(f"#   graph: {what}, {name}: {ms:.4f} ms per step (reset "
-              f"included), device busy {fmt(busy, '.4f')} ms per step, idle "
-              f"{fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops per step",
-              flush=True)
-        out[f"{what}_{name}_ms_per_step"] = f"{ms:.4f}"
+                                             steps, top if graph else 0)
+        print(f"#   graph: {what}, {name}: {ms:.4f} ms per {unit}, device "
+              f"busy {fmt(busy, '.4f')} ms per {unit.split()[0]}, idle "
+              f"{fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops per "
+              f"{unit.split()[0]}", flush=True)
+        out[f"{what}_{name}_ms_per_{unit.split()[0]}"] = f"{ms:.4f}"
         out[f"{what}_{name}_idle"] = fmt(idle, ".4f")
     return out
 
@@ -2657,6 +2832,12 @@ def main():
     graph = graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, N,
                         reward)
     phase("graph", t, **graph)
+
+    # 21. the compiled imitation round: graph against the eager loops
+    t = time.perf_counter()
+    rounds = round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
+                         N)
+    phase("round", t, **rounds)
 
     # 17. budget, last
     total = time.perf_counter() - T0

@@ -3,7 +3,10 @@
 The counterpart of the JAX package's ``algos/baseline.py``: the analytic
 expert (centralized or not, per the ``centralized`` key) drives
 ``n_test_episodes`` episodes, run as one batch of envs, and the mean and
-population std of their summed rewards are reported.
+population std of their summed rewards are reported. The episode is
+``rollout_episode``'s "expert" mode: its steps run as the setup's dense
+episode program (a CUDA graph on the card, ``centralized`` part of the
+setup), the reset eagerly.
 """
 
 from __future__ import annotations
@@ -11,6 +14,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from multiagent_gnn_policies_tpu_torch.algos.imitation import (
+    rollout_episode,
+)
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     FlockingParams,
     make_env,
@@ -27,14 +33,9 @@ def train_baseline(cfg: ExperimentConfig, logger=None, save_path=None,
         v_max=cfg.v_max, episode_steps=cfg.episode_steps))
     gen = torch.Generator(device=torch.device(device))
     gen.manual_seed(cfg.seed)
-    with torch.no_grad():
-        state, _ = env.reset(gen, (cfg.n_test_episodes,))
-        total = torch.zeros(cfg.n_test_episodes, device=state.x.device)
-        for _ in range(cfg.episode_steps):
-            u = env.controller(state, centralized=cfg.centralized)
-            state, _, r, _ = env.step(state, u, gen)
-            total += r
-    rewards = total.cpu().numpy()
+    rewards = rollout_episode(
+        None, gen, 0.0, env, None, mode="expert", collect=False,
+        n_envs=cfg.n_test_episodes, centralized=cfg.centralized).cpu().numpy()
     stats = {"mean": float(rewards.mean()), "std": float(rewards.std())}
     if logger is not None:
         logger.log("baseline_eval", centralized=cfg.centralized, **stats)

@@ -8,6 +8,15 @@ updates per episode. The host waits on the device only where the JAX
 learner fetches a value: once per reset block, at the round's timing
 points, and where an eval is read.
 
+What the JAX learner compiles into one program runs as CUDA graphs on
+one card: the T steps behind an episode's reset
+(:class:`DenseEpisodeProgram`, one per static setup, cached; the reset
+and the DAGGER coins stay eager) and one Adam update with its replay
+sample (:class:`UpdateProgram`, one per learner, replayed once per
+update).
+Each equals its eager loop (``graph=False``) bit for bit; on the CPU
+each runs its body eagerly.
+
 Semantics kept:
   * DAGGER: a per-step expert coin per episode with probability ``beta``;
     the expert's action is stored as the label whatever the coin says;
@@ -36,6 +45,7 @@ resumed run continues the same stream.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import time
 from typing import Dict, Optional, Tuple
@@ -49,6 +59,7 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     EnvState,
     FlockingEnv,
     FlockingParams,
+    Obs,
     make_env,
     strict_fp32,
 )
@@ -68,9 +79,13 @@ from multiagent_gnn_policies_tpu_torch.ops.graph import (
 from multiagent_gnn_policies_tpu_torch.parallel.distributed import (
     process_info,
 )
-from multiagent_gnn_policies_tpu_torch.utils import checkpoint
+from multiagent_gnn_policies_tpu_torch.utils import checkpoint, graphs
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
 from multiagent_gnn_policies_tpu_torch.utils.debug import check_finite
+from multiagent_gnn_policies_tpu_torch.utils.graphs import (
+    PROGRAMS_KEPT,
+    WARMUP_STEPS,
+)
 from multiagent_gnn_policies_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -124,23 +139,169 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def rollout_episode(actor: Actor, gen: Optional[torch.Generator], beta,
-                    env: FlockingEnv, acfg: ActorConfig, *, mode: str,
-                    collect: bool = True, n_envs: int = 1,
+MODES = ("eval", "cloning", "dagger", "expert")
+
+
+def _episode_steps(env: FlockingEnv, actor, k: int, mode: str,
+                   state: EnvState, obs, coins, gen, total: torch.Tensor,
+                   collect: bool, centralized: bool, steps: int):
+    """``steps`` env steps of :func:`rollout_episode` from ``state`` and
+    its observation ``obs``, each step's reward added into ``total`` in
+    place. Returns the per-step pre-aggregated features and expert actions
+    (empty lists without ``collect``). The eager loop and the episode
+    program both run it."""
+    gs = (None if mode == "expert"
+          else initial_graph_state(obs.values, obs.network, k))
+    aggs, acts = [], []
+    for t in range(steps):
+        agg = None if gs is None else aggregate(gs.delay_gso, gs.delay_state)
+        if mode == "eval":
+            act, expert = actor(agg), None
+        else:
+            expert = env.controller(state, centralized)
+            act = (torch.where(coins[t][:, None, None], expert, actor(agg))
+                   if mode == "dagger" else expert)
+        state, obs, r, _ = env.step(state, act, gen)
+        if gs is not None:
+            gs = update_graph_state(gs, obs.values, obs.network)
+        total += r
+        if collect:
+            aggs.append(agg)
+            acts.append(expert)
+    return aggs, acts
+
+
+class DenseEpisodeProgram:
+    """The ``T`` steps behind a dense episode's reset, for one static setup
+    (env, actor widths, mode, ``n_envs``, ``collect``, ``centralized``), as
+    one CUDA graph: the counterpart of the JAX package's ``lax.scan`` of
+    ``rollout_episode`` (vmapped inside ``_round_impl``, and
+    ``_eval_impl``) and of the baseline's jitted episode.
+
+    The graph reads static inputs, copied in before each replay: the
+    initial states (E, N, 4), their observation, DAGGER's coins (T, E),
+    and its own copy of the actor's parameters. It writes static outputs:
+    the summed rewards (E,) and, with ``collect``, the records
+    ``agg`` (E, T, K, N, F) and ``act`` (E, T, N, n_a), valid until the
+    next run. On the CPU the same body runs eagerly over the static
+    buffers with the caller's generator and actor. On the card the first
+    run warms the body up for ``WARMUP_STEPS`` steps (it overwrites only
+    the outputs, which every run rewrites), then captures; the stochastic
+    variant's noise comes from the program's own generator, handed over
+    as ``utils/graphs.py`` says. ``DenseEpisodeProgram.captures`` counts
+    the captures of the process."""
+
+    captures = 0
+
+    def __init__(self, env: FlockingEnv, acfg: Optional[ActorConfig],
+                 mode: str, n_envs: int, collect: bool, centralized: bool,
+                 device):
+        self.env, self.acfg, self.mode = env, acfg, mode
+        self.collect, self.centralized = collect, centralized
+        self.device = dev = graphs.device_of(device)
+        p = env.params
+        self.rewards = torch.zeros(n_envs, device=dev)
+        self.agg = self.act = None
+        if collect:
+            self.agg = torch.zeros((n_envs, p.episode_steps, acfg.k,
+                                    p.n_agents, acfg.n_s), device=dev)
+            self.act = torch.zeros((n_envs, p.episode_steps, p.n_agents,
+                                    acfg.n_a), device=dev)
+        self._inputs = None
+        self._gen = graphs.program_generator(dev, p.dynamics_noise > 0)
+        self._graph = self._actor = None
+        self.capture_s = self.instantiate_s = self.pool_mb = None
+
+    def _body(self, actor, gen, steps: int) -> None:
+        x, *rest = self._inputs
+        obs = None if self.mode == "expert" else Obs(*rest[:2])
+        coins = rest[-1] if self.mode == "dagger" else None
+        self.rewards.zero_()
+        aggs, acts = _episode_steps(
+            self.env, actor, None if self.acfg is None else self.acfg.k,
+            self.mode, EnvState(x, 0), obs, coins, gen, self.rewards,
+            self.collect, self.centralized, steps)
+        if self.collect:
+            torch.stack(aggs, 1, out=self.agg[:, :steps])
+            torch.stack(acts, 1, out=self.act[:, :steps])
+
+    def run(self, x: torch.Tensor, obs: Optional[Obs],
+            coins: Optional[torch.Tensor], actor: Optional[torch.nn.Module],
+            gen: Optional[torch.Generator]) -> None:
+        """One episode from the states ``x`` (E, N, 4) and their
+        observation ``obs`` (None for the expert), with DAGGER's ``coins``
+        (T, E): its outputs in ``rewards``, ``agg`` and ``act``."""
+        if actor is None and self.mode in ("eval", "dagger"):
+            raise ValueError(f"a {self.mode} episode needs an actor")
+        steps = self.env.params.episode_steps
+        inputs = [x, *(obs or ()), *(() if coins is None else (coins,))]
+        with torch.no_grad():
+            if self._inputs is None:
+                self._inputs = [t.clone() for t in inputs]
+            else:
+                for d, t in zip(self._inputs, inputs, strict=True):
+                    d.copy_(t)
+            if self.device.type != "cuda":
+                self._body(actor, gen, steps)
+                return
+            if self.mode in ("eval", "dagger"):
+                self._actor = graphs.actor_copy(self._actor, actor)
+            if self._graph is None:
+                (self._graph, self.capture_s, self.instantiate_s,
+                 self.pool_mb) = graphs.capture(
+                    self.device,
+                    lambda: self._body(self._actor, self._gen,
+                                       min(WARMUP_STEPS, steps)),
+                    lambda: self._body(self._actor, self._gen, steps),
+                    self._gen)
+                DenseEpisodeProgram.captures += 1
+            with graphs.generator_handover(self._gen, gen, self.device):
+                self._graph.replay()
+
+
+@functools.lru_cache(maxsize=PROGRAMS_KEPT)
+def dense_program(env: FlockingEnv, acfg: Optional[ActorConfig], mode: str,
+                  n_envs: int, collect: bool, centralized: bool,
+                  device: torch.device) -> DenseEpisodeProgram:
+    """The :class:`DenseEpisodeProgram` of this static setup, made at its
+    first use and kept (``device`` with its index)."""
+    return DenseEpisodeProgram(env, acfg, mode, n_envs, collect, centralized,
+                               device)
+
+
+def rollout_episode(actor: Optional[Actor], gen: Optional[torch.Generator],
+                    beta, env: FlockingEnv, acfg: Optional[ActorConfig], *,
+                    mode: str, collect: bool = True, n_envs: int = 1,
                     x0: Optional[torch.Tensor] = None,
-                    coins: Optional[torch.Tensor] = None):
+                    coins: Optional[torch.Tensor] = None,
+                    centralized: bool = True, graph=None):
     """``n_envs`` episodes of ``episode_steps`` steps, run as one batch.
 
-    ``mode`` is "eval" (greedy policy), "cloning" (expert actions) or
+    ``mode`` is "eval" (greedy policy), "cloning" (expert actions),
     "dagger" (per step and episode, the expert's action where the coin
-    ``rand < beta`` falls, else the policy's). Returns ``(samples,
-    rewards)``, where ``samples`` holds per step the pre-aggregated delayed
-    features ``"agg"`` ``(n_envs·T, K, N, F)`` and the expert action
-    ``"act"`` ``(n_envs·T, N, n_a)``, episode-major, and ``rewards`` is each
-    episode's summed reward ``(n_envs,)``; with ``collect=False`` only the
-    rewards. ``x0`` ``(n_envs, N, 4)`` replaces the reset's draw (and sets
-    ``n_envs``) and ``coins`` ``(T, n_envs)`` the coin draws, for tests.
+    ``rand < beta`` falls, else the policy's) or "expert" (the analytic
+    expert, ``centralized`` or not, with no graph state and no records:
+    the baseline's episode; ``actor`` and ``acfg`` may be None). Returns
+    ``(samples, rewards)``, where ``samples`` holds per step the
+    pre-aggregated delayed features ``"agg"`` ``(n_envs·T, K, N, F)`` and
+    the expert action ``"act"`` ``(n_envs·T, N, n_a)``, episode-major, and
+    ``rewards`` is each episode's summed reward ``(n_envs,)``; with
+    ``collect=False`` only the rewards. ``x0`` ``(n_envs, N, 4)`` replaces
+    the reset's draw (and sets ``n_envs``) and ``coins`` ``(T, n_envs)``
+    the coin draws, for tests.
+
+    The reset (whose rejection loop waits on the host once per candidate
+    block) and the coins run eagerly; the steps run as the setup's cached
+    :class:`DenseEpisodeProgram` (``graph`` None: a CUDA graph on the
+    card, its body eagerly on the CPU; on a data-parallel rank's slice of
+    the envs the eager loop), or as the eager loop with ``graph=False``
+    (the program's oracle); ``graph=True`` asks for the CUDA graph and
+    raises ValueError on the CPU and on a slice.
     """
+    if mode not in MODES:
+        raise ValueError(f"unknown episode mode {mode!r}; known: {MODES}")
+    if collect and mode in ("eval", "expert"):
+        raise ValueError(f"a {mode} episode collects no records")
     T = env.params.episode_steps
     with torch.no_grad():
         if x0 is None:
@@ -150,33 +311,36 @@ def rollout_episode(actor: Actor, gen: Optional[torch.Generator], beta,
             obs = env.observe(state)
             n_envs = x0.shape[0]
         device = state.x.device
-        gs = initial_graph_state(obs.values, obs.network, acfg.k)
         if mode == "dagger" and coins is None:
             coins = torch.rand((T, n_envs), generator=gen,
                                device=device) < beta
-        total = torch.zeros(n_envs, device=device)
-        aggs, acts = [], []
-        for t in range(T):
-            agg = aggregate(gs.delay_gso, gs.delay_state)     # (E, K, N, F)
-            if mode == "eval":
-                act, expert = actor(agg), None
-            else:
-                expert = env.controller(state)
-                if mode == "cloning":
-                    act = expert
-                else:
-                    act = torch.where(coins[t][:, None, None], expert,
-                                      actor(agg))
-            state, obs, r, _ = env.step(state, act, gen)
-            gs = update_graph_state(gs, obs.values, obs.network)
-            total += r
+        if mode != "dagger":
+            coins = None
+        if mode == "expert":
+            acfg = actor = obs = None
+        program = graphs.use_program(
+            device, graph, None if env.env_range is None
+            else "on a slice of the envs", "the episode",
+            "one batch of envs on one card")
+        if program:
+            prog = dense_program(env, acfg, mode, n_envs, collect,
+                                 centralized, graphs.device_of(device))
+            prog.run(state.x, obs, coins,
+                     None if mode == "cloning" else actor, gen)
+            total = prog.rewards.clone()
             if collect:
-                aggs.append(agg)
-                acts.append(expert)
+                samples = {"agg": prog.agg.flatten(0, 1).clone(),
+                           "act": prog.act.flatten(0, 1).clone()}
+        else:
+            total = torch.zeros(n_envs, device=device)
+            aggs, acts = _episode_steps(
+                env, actor, None if acfg is None else acfg.k, mode, state,
+                obs, coins, gen, total, collect, centralized, T)
+            if collect:
+                samples = {"agg": torch.stack(aggs, 1).flatten(0, 1),
+                           "act": torch.stack(acts, 1).flatten(0, 1)}
     if not collect:
         return total
-    samples = {"agg": torch.stack(aggs, 1).flatten(0, 1),
-               "act": torch.stack(acts, 1).flatten(0, 1)}
     return samples, total
 
 
@@ -215,9 +379,96 @@ def adam_update(actor: Actor, opt: torch.optim.Optimizer,
     return loss.detach()
 
 
+class UpdateProgram:
+    """A learner's Adam update, ``replay sample -> forward -> MSE ->
+    backward -> Adam -> loss_sum += loss`` (:func:`adam_update` on
+    ``buffer.sample``), as one CUDA graph replayed once per update: the
+    counterpart of the JAX learners' ``lax.scan`` of updates
+    (``_round_impl``).
+
+    The graph reads the actor's parameters, Adam's state (``opt`` must be
+    built with ``capturable=True``) and the buffer by address; all are
+    updated or loaded in place, so a replay costs no copy. The sample
+    masks with the buffer's device size, so the buffer may grow between
+    rounds. Each update adds its loss into the static ``loss_sum``. On
+    the CPU the same body runs eagerly with the caller's generator. On
+    the card the first run warms the body up for ``WARMUP_STEPS`` updates
+    (Adam allocates its state lazily, cuBLAS its workspace), restores the
+    parameters and Adam's state in place (zeros at step 0 where Adam had
+    none yet), drops every gradient so that the captured backward
+    allocates its own, then captures. The samples come from the program's
+    own generator, handed over around a run's replays as
+    ``utils/graphs.py`` says. ``UpdateProgram.captures`` counts the
+    captures of the process."""
+
+    captures = 0
+
+    def __init__(self, actor: Actor, opt: torch.optim.Optimizer,
+                 buffer: ReplayBuffer, batch: int, device):
+        self.actor, self.opt, self.buffer, self.batch = (actor, opt, buffer,
+                                                         batch)
+        self.device = graphs.device_of(device)
+        self.loss_sum = torch.zeros((), device=self.device)
+        self._gen = graphs.program_generator(self.device, True)
+        self._graph = None
+        self.capture_s = self.instantiate_s = self.pool_mb = None
+
+    def _body(self, gen: torch.Generator) -> None:
+        self.loss_sum += adam_update(self.actor, self.opt,
+                                     self.buffer.sample(gen, self.batch))
+
+    def run(self, n: int, gen: torch.Generator) -> torch.Tensor:
+        """``n`` updates drawing their samples from ``gen``; returns their
+        summed loss."""
+        if self.device.type == "cuda" and self._graph is None:
+            self._capture()
+        self.loss_sum.zero_()
+        if self.device.type != "cuda":
+            for _ in range(n):
+                self._body(gen)
+        else:
+            with graphs.generator_handover(self._gen, gen, self.device):
+                for _ in range(n):
+                    self._graph.replay()
+        return self.loss_sum.clone()
+
+    def _capture(self) -> None:
+        params = list(self.actor.parameters())
+        state = self.opt.state
+        saved = [p.detach().clone() for p in params]
+        moments = {p: {k: v.clone() for k, v in state[p].items()}
+                   for p in params if p in state}
+
+        def warmup():
+            for _ in range(WARMUP_STEPS):
+                self._body(self._gen)
+            with torch.no_grad():
+                for p, v in zip(params, saved, strict=True):
+                    p.copy_(v)
+                    for k, st in state[p].items():
+                        if p in moments:
+                            st.copy_(moments[p][k])
+                        else:
+                            st.zero_()
+            self.opt.zero_grad(set_to_none=True)
+
+        (self._graph, self.capture_s, self.instantiate_s,
+         self.pool_mb) = graphs.capture(
+            self.device, warmup, lambda: self._body(self._gen), self._gen)
+        UpdateProgram.captures += 1
+
+
 class ImitationLearner:
     """Cloning/DAGGER trainer: owns the actor, Adam, the buffer and the
     generator, all on ``device``.
+
+    ``graph``: None (default) runs the round's loops as programs on one
+    device: the collection and eval episodes as their
+    :class:`DenseEpisodeProgram` and the Adam updates as the learner's
+    :class:`UpdateProgram` (CUDA graphs on the card, their bodies eagerly
+    on the CPU), and the eager loops on a mesh; False the eager loops (the
+    programs' oracle); True the programs, raising ValueError on a mesh or
+    on the CPU.
 
     On a mesh (a subclass sets ``mesh`` and ``_env_axis`` before this
     class's ``__init__``) every rank holds the same actor, Adam state,
@@ -231,7 +482,8 @@ class ImitationLearner:
     _env_axis = None            # the mesh's "env" AxisGroup
 
     def __init__(self, cfg: ImitationConfig,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda",
+                 graph=None):
         if cfg.mode not in ("dagger", "cloning"):
             raise ValueError(f"unknown imitation mode {cfg.mode!r}")
         strict_fp32()
@@ -243,8 +495,20 @@ class ImitationLearner:
         self.gen = torch.Generator(device=self.device)
         self.gen.manual_seed(cfg.seed)
         self.actor = init_actor_(Actor(cfg.actor).to(self.device), self.gen)
-        self.opt = torch.optim.Adam(self.actor.parameters(), lr=cfg.actor_lr)
+        # capturable: Adam's step count and bias correction on the device,
+        # so that an update can be captured (PyTorch allows it on the card
+        # only); the eager loop on the card steps the same optimizer
+        self.opt = torch.optim.Adam(self.actor.parameters(), lr=cfg.actor_lr,
+                                    capturable=self.device.type == "cuda")
         self.buffer = ReplayBuffer(cfg.buffer_size, self._example_record())
+        programs = graphs.use_program(
+            self.device, graph, None if self.mesh is None else "with a mesh",
+            "the round", "one device")
+        # what the round's episodes are given: None runs their programs
+        self._graph = None if programs else False
+        self._updates = (UpdateProgram(self.actor, self.opt, self.buffer,
+                                       cfg.batch_size, self.device)
+                         if programs else None)
         # training-loop state (checkpointed, see training_state())
         self._rnd = 0
         self._beta = 1.0
@@ -270,7 +534,7 @@ class ImitationLearner:
         cfg = self.cfg
         return rollout_episode(
             self.actor, self.gen, self._beta, self.env, cfg.actor,
-            mode=cfg.mode, n_envs=cfg.n_rollout_envs)
+            mode=cfg.mode, n_envs=cfg.n_rollout_envs, graph=self._graph)
 
     def _gather_envs(self, samples: Dict[str, torch.Tensor],
                      rewards: torch.Tensor):
@@ -302,9 +566,12 @@ class ImitationLearner:
         n_up = 0
         if self.buffer.size > cfg.batch_size:
             n_up = cfg.updates_per_episode * n_envs
-            for _ in range(n_up):
-                loss_sum += self._update(
-                    self.buffer.sample(self.gen, cfg.batch_size))
+            if self._updates is not None:
+                loss_sum = self._updates.run(n_up, self.gen)
+            else:
+                for _ in range(n_up):
+                    loss_sum += self._update(
+                        self.buffer.sample(self.gen, cfg.batch_size))
         _sync(self.device)
         t2 = time.perf_counter()
         self.timing["rollout_s"] += t1 - t0
@@ -319,7 +586,7 @@ class ImitationLearner:
         as one batch."""
         rewards = rollout_episode(
             self.actor, self.gen, 0.0, self.env, self.cfg.actor, mode="eval",
-            collect=False, n_envs=self.cfg.n_test_episodes)
+            collect=False, n_envs=self.cfg.n_test_episodes, graph=self._graph)
         return rewards.cpu().numpy()
 
     def evaluate(self) -> Tuple[float, float]:

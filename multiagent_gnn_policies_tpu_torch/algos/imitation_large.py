@@ -26,7 +26,9 @@ a round here collects through the O(N) cell sweeps of
   against 26.2 GB for whole-swarm records.
 * **Updates, resume, schedule and export** are the dense learner's
   (``algos/imitation.py``): ``updates_per_episode · n_rollout_envs`` Adam
-  updates a round once the buffer holds more than one batch.
+  updates a round once the buffer holds more than one batch, as the
+  update program's replays on one device (a CUDA graph on the card, at
+  this learner's (K, S, F) record), the eager loop on a mesh.
 * **Exactness gate**: a round whose collection dropped a radius neighbour
   (grid overflow > 0) raises before anything is stored, and an eval
   episode with overflow or a non-finite reward raises. On a mesh the
@@ -209,12 +211,14 @@ class LargeNImitationLearner(ImitationLearner):
     """Cloning/DAGGER trainer at large N: cell-sweep collection and an
     agent-subsampled buffer, everything else the dense learner's. With
     ``mesh``, the mesh modes of the module docstring: ``axis`` names the
-    mesh axis the sweeps are banded over. Its collection and eval
-    episodes take ``rollout_large``'s default: a CUDA graph on one card on
-    the pcells path, the eager loop on a mesh."""
+    mesh axis the sweeps are banded over. ``graph`` as the dense
+    learner's: by default its Adam updates run as the update program and
+    its collection and eval episodes as their episode programs on one
+    device on the pcells path (CUDA graphs on the card), the eager loops
+    on a mesh; ``graph=False`` runs every loop eagerly."""
 
     def __init__(self, cfg: LargeNImitationConfig, logger=None,
-                 device="cuda", mesh=None, axis: str = "agents"):
+                 device="cuda", mesh=None, axis: str = "agents", graph=None):
         if cfg.graph_path != "auto" and cfg.graph_path not in ln.PATHS:
             raise ValueError(f"unknown graph_path {cfg.graph_path!r}")
         if cfg.actor.ind_agg != 0 or cfg.actor.k < 2:
@@ -236,7 +240,7 @@ class LargeNImitationLearner(ImitationLearner):
             cap=self._cap, cell_margin=cfg.cell_margin,
             cell_edge_mult=cfg.cell_edge_mult, centralized=True,
             need_expert=True, mesh=mesh, axis=axis)
-        super().__init__(cfg, logger, device)
+        super().__init__(cfg, logger, device, graph)
 
     @property
     def store_agents(self) -> int:
@@ -276,7 +280,7 @@ class LargeNImitationLearner(ImitationLearner):
         cfg = self.cfg
         runs = [collect_episode(self._lcfg, self.actor, cfg.actor, cfg.mode,
                                 self.store_agents, gen, self._beta,
-                                self.device)
+                                self.device, graph=self._graph)
                 for gen in self._episode_generators()]
         ovf = int(self._mesh_max(
             torch.stack([o for _, _, o in runs]).max().reshape(1)))
@@ -303,7 +307,7 @@ class LargeNImitationLearner(ImitationLearner):
                 cap=self._cap, cell_margin=cfg.cell_margin,
                 cell_edge_mult=cfg.cell_edge_mult, return_overflow=True,
                 device=self.device, path=self._lcfg.path, mesh=self.mesh,
-                axis=self.axis)
+                axis=self.axis, graph=self._graph)
             tot = r.sum()
             bad = self._mesh_max(torch.stack([
                 ovf.to(tot.dtype), (~torch.isfinite(tot)).to(tot.dtype)]))

@@ -3,13 +3,16 @@
 The counterpart of the JAX package's ``algos/replay.py``: a preallocated
 tensor per record field with leading dim ``capacity``, filled as a ring.
 ``size`` and ``cursor`` are Python ints, so the trainers' update gate
-``size > batch_size`` never waits on the device.
+``size > batch_size`` never waits on the device; ``size`` also has a
+device copy, set with it, which the sample reads, so that a sample
+captured into a CUDA graph masks with the size of each replay, not the
+size at capture.
 
 Sampling is uniform without replacement over the filled prefix: a uniform
 per slot, slots past ``size`` masked to ``-inf``, and the top ``batch``
-slots taken. The imitation trainers store the pre-aggregated delayed
-features ``delay_gso^T · delay_state`` ((K, N, F) per step) and the expert
-action.
+slots taken (the JAX ``replay_sample``). The imitation trainers store the
+pre-aggregated delayed features ``delay_gso^T · delay_state`` ((K, N, F)
+per step) and the expert action.
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ class ReplayBuffer:
 
     Attributes:
       data: field -> ``(capacity, ...)`` tensor.
-      size: number of filled slots.
+      size: number of filled slots (setting it sets its device copy).
       cursor: next slot to write.
     """
 
@@ -33,8 +36,20 @@ class ReplayBuffer:
         ``example``'s fields."""
         self.data = {k: v.new_zeros((capacity, *v.shape))
                      for k, v in example.items()}
+        dev = next(iter(self.data.values())).device
+        self._slots = torch.arange(capacity, device=dev)
+        self._size_dev = torch.zeros((), dtype=torch.int64, device=dev)
         self.size = 0
         self.cursor = 0
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    @size.setter
+    def size(self, value: int) -> None:
+        self._size = int(value)
+        self._size_dev.fill_(self._size)
 
     @property
     def capacity(self) -> int:
@@ -58,7 +73,7 @@ class ReplayBuffer:
                batch: int) -> Dict[str, torch.Tensor]:
         """``batch`` distinct filled records, uniformly, drawn from ``gen``."""
         u = torch.rand(self.capacity, generator=gen, device=gen.device)
-        u[self.size:] = float("-inf")
+        u = torch.where(self._slots < self._size_dev, u, float("-inf"))
         return self.gather(torch.topk(u, batch).indices)
 
     def gather(self, idx: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -16,7 +16,8 @@ hidden 32x2 with seeded random weights, T = 200-step episodes, beta 0.7,
 graph, 6-feature observation, expert, delayed-GSO recursion, policy
 forward and the DAGGER coin, through the port's
 ``algos/imitation.py:rollout_episode`` (which keeps the collected
-samples). It is timed for a single env, for a batch of ``--n-envs``
+samples; its steps replay the setup's dense episode program, a CUDA
+graph captured at the first call of each batch size). It is timed for a single env, for a batch of ``--n-envs``
 (128) envs per synchronised call (``--reps`` calls each), and
 "sustained": 8 consecutive batches with one synchronisation at the end
 (``--chains`` such chains), the headline ``value``. ``--n-envs`` and

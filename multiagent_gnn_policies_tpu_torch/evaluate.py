@@ -36,7 +36,9 @@ and ``subset_indices (M,)``.
 
 On one card the large-N route runs each episode's steps as one CUDA graph
 per static setup, captured at its first episode (``parallel/large_n.py``'s
-episode program).
+episode program), and the dense route its batch's steps
+(``algos/imitation.py``'s dense episode program); the resets stay
+eager.
 
 ``--mesh D`` shares the large-N route's sweeps over the ``agents`` axis of
 D processes, one per device (``parallel/large_n.py``), and implies that

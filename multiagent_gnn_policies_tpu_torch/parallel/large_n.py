@@ -77,9 +77,7 @@ table and 4·N·6 of the historical apply reduced, 16·N of the state and
 
 from __future__ import annotations
 
-import copy
 import functools
-import time
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -108,6 +106,11 @@ from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as cc
 from multiagent_gnn_policies_tpu_torch.parallel.distributed import AxisGroup
 from multiagent_gnn_policies_tpu_torch.parallel.mesh import (
     axis_group as mesh_axis_group,
+)
+from multiagent_gnn_policies_tpu_torch.utils import graphs
+from multiagent_gnn_policies_tpu_torch.utils.graphs import (
+    PROGRAMS_KEPT,
+    WARMUP_STEPS,
 )
 
 
@@ -438,20 +441,6 @@ def _scan_steps(cfg: LargeNConfig, actor: Optional[torch.nn.Module],
 
 # --- the episode program: the JAX package's compiled scan as a CUDA graph --
 
-PROGRAMS_KEPT = 16    # programs cached per process, least recently used out
-WARMUP_STEPS = 2      # steps of the body run on scratch copies before capture
-_STREAMS: dict = {}   # per device: the stream every program captures on
-_POOLS: dict = {}     # per device: the programs' shared memory pool
-
-
-def _device(device) -> torch.device:
-    """``device`` with its index (the current card's when it has none)."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return device
-
-
 def _tensors(t) -> list:
     """The tensors of a nested tuple (NamedTuples too), in order; None
     leaves are skipped."""
@@ -531,13 +520,11 @@ class EpisodeProgram:
     (the default generator's with ``gen`` None), replays, and hands the
     advanced state back, so an episode draws the eager loop's noise and
     leaves the generator where the loop would. A failure to capture or to
-    replay raises; nothing falls back to the eager loop. Every program of
-    a device captures on one stream and into one memory pool: a graph
-    keeps no value in the pool from one replay to the next (its outputs
-    are static buffers), and replays run one at a time on the caller's
-    stream, so they may share it. ``capture_s``, ``instantiate_s`` and
-    ``pool_mb`` (the reserved memory's growth over the capture) record
-    the capture."""
+    replay raises; nothing falls back to the eager loop. The capture
+    stream, the memory pool every program of a device shares and the
+    generator's hand-over are ``utils/graphs.py``'s. ``capture_s``,
+    ``instantiate_s`` and ``pool_mb`` (the reserved memory's growth over
+    the capture) record the capture."""
 
     captures = 0          # programs captured in this process
 
@@ -548,7 +535,7 @@ class EpisodeProgram:
             raise ValueError("the episode program runs the pcells path on "
                              "one device")
         self.cfg, self.acfg, self.steps = cfg, acfg, steps
-        self.step, self.device = step or _step, _device(device)
+        self.step, self.device = step or _step, graphs.device_of(device)
         self.capture_s = self.instantiate_s = self.pool_mb = None
         self._graph = self._static = self._actor = None
         dev = self.device
@@ -564,9 +551,8 @@ class EpisodeProgram:
         self._traj_idx = (traj_subset_indices(cfg.params.n_agents,
                                               traj_agents, dev)
                           if traj_agents else None)
-        self._gen = (torch.Generator(device=dev)
-                     if dev.type == "cuda" and cfg.params.dynamics_noise > 0
-                     else None)
+        self._gen = graphs.program_generator(dev,
+                                             cfg.params.dynamics_noise > 0)
 
     rewards = property(lambda self: self._buf.rewards)
     traj = property(lambda self: self._buf.traj)
@@ -605,61 +591,23 @@ class EpisodeProgram:
                 self._body(self._static, self._static, self._buf, actor, gen,
                            self.steps)
                 return self._static
-            self._load(actor)
+            self._actor = graphs.actor_copy(self._actor, actor)
             if self._graph is None:
                 self._capture()
-            if self._gen is not None:
-                src = gen or torch.cuda.default_generators[self.device.index]
-                self._gen.set_state(src.get_state())
-            self._graph.replay()
-            if self._gen is not None:
-                src.set_state(self._gen.get_state())
+            with graphs.generator_handover(self._gen, gen, self.device):
+                self._graph.replay()
         return self._static
 
-    def _load(self, actor: Optional[torch.nn.Module]) -> None:
-        """The caller's parameters copied into the program's actor."""
-        if actor is None:
-            return
-        if self._actor is None:
-            self._actor = copy.deepcopy(actor).requires_grad_(False)
-        for d, s in zip(self._actor.parameters(), actor.parameters(),
-                        strict=True):
-            if d.shape != s.shape:
-                raise ValueError(f"the actor's widths differ from the "
-                                 f"program's: {tuple(s.shape)} against "
-                                 f"{tuple(d.shape)}")
-            d.copy_(s)
-
     def _capture(self) -> None:
-        strict_fp32()
-        dev = self.device
-        if dev not in _STREAMS:
-            _STREAMS[dev] = torch.cuda.Stream(dev)
-        stream = _STREAMS[dev]
-        scratch, sbuf = _clone(self._static), _clone(self._buf)
-        stream.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(stream):
+        def warmup():
+            scratch, sbuf = _clone(self._static), _clone(self._buf)
             self._body(scratch, scratch, sbuf, self._actor, self._gen,
                        min(WARMUP_STEPS, self.steps))
-        torch.cuda.current_stream(dev).wait_stream(stream)
-        del scratch, sbuf
-        graph = torch.cuda.CUDAGraph()
-        if self._gen is not None:
-            graph.register_generator_state(self._gen)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        if dev not in _POOLS:
-            _POOLS[dev] = torch.cuda.graph_pool_handle()
-        t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=_POOLS[dev], stream=stream):
-            self._body(self._static, self._static, self._buf, self._actor,
-                       self._gen, self.steps)
-            t1 = time.perf_counter()
-        self.instantiate_s = time.perf_counter() - t1
-        self.capture_s = t1 - t0
-        self.pool_mb = (torch.cuda.memory_reserved(dev) - reserved) / 2**20
-        self._graph = graph
+
+        self._graph, self.capture_s, self.instantiate_s, self.pool_mb = (
+            graphs.capture(self.device, warmup, lambda: self._body(
+                self._static, self._static, self._buf, self._actor,
+                self._gen, self.steps), self._gen))
         EpisodeProgram.captures += 1
 
 
@@ -676,7 +624,7 @@ def episode_program(cfg: LargeNConfig, acfg: Optional[ActorConfig],
                     ) -> EpisodeProgram:
     """The :class:`EpisodeProgram` of this static setup, made at its first
     use and kept (the JAX package's ``lru_cache`` of jitted episodes)."""
-    return _cached_program(cfg, acfg, steps, _device(device), traj_agents,
+    return _cached_program(cfg, acfg, steps, graphs.device_of(device), traj_agents,
                            step or _step, tuple(inputs), tuple(records))
 
 
@@ -684,32 +632,18 @@ def clear_programs() -> None:
     """Drop every cached episode program, its graph and the shared pool
     (the next capture starts a new one)."""
     _cached_program.cache_clear()
-    _POOLS.clear()
+    graphs.clear_pools()
 
 
 def use_program(path: str, device, graph=None, on_mesh: bool = False) -> bool:
     """Whether an episode on ``path`` on ``device`` (banded over a mesh
     with ``on_mesh``) runs its steps as an :class:`EpisodeProgram` (else
-    the eager loop). ``graph``: None runs the program where it applies
-    (the pcells path on one device: captured on the card, its body eagerly
-    on the CPU) and the eager loop elsewhere; False the eager loop; True a
-    CUDA graph, which raises ValueError with a mesh, off the pcells path
-    or on the CPU."""
-    if graph is False:
-        return False
+    the eager loop): ``utils/graphs.use_program``'s answer, a program
+    applying to the pcells path on one device."""
     refusal = ("with a mesh" if on_mesh
-               else f"on the {path} path" if path != "pcells"
-               else "on the CPU" if torch.device(device).type != "cuda"
-               else None)
-    if graph is None:
-        return refusal in (None, "on the CPU")
-    if graph is not True:
-        raise ValueError(f"graph must be None, False or True, got {graph!r}")
-    if refusal:
-        raise ValueError(f"a CUDA graph of the episode was asked for "
-                         f"{refusal}: it runs the pcells path on one card "
-                         f"(graph=False runs the eager loop)")
-    return True
+               else f"on the {path} path" if path != "pcells" else None)
+    return graphs.use_program(device, graph, refusal, "the episode",
+                              "the pcells path on one card")
 
 
 def make_config(p: FlockingParams, *, path: str = "pcells",

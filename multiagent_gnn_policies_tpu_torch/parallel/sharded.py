@@ -54,11 +54,14 @@ class ShardedImitationLearner(ImitationLearner):
       gradients and the loss; then the same Adam step on every rank.
 
     Ranks of one env group (the ``agents`` axis) do the same work, as the
-    JAX learner replicates over that axis. Raises ValueError when the
-    ``env`` axis does not divide ``n_rollout_envs``."""
+    JAX learner replicates over that axis. The round's loops run eagerly
+    (the update's ``all_reduce`` stays outside any graph); ``graph=True``
+    raises. Raises ValueError when the ``env`` axis does not divide
+    ``n_rollout_envs``."""
 
     def __init__(self, cfg: ImitationConfig, mesh,
-                 logger: Optional[MetricsLogger] = None, device="cuda"):
+                 logger: Optional[MetricsLogger] = None, device="cuda",
+                 graph=None):
         env_axis = axis_group(mesh, "env")
         if cfg.n_rollout_envs % env_axis.n_dev:
             raise ValueError(
@@ -66,7 +69,7 @@ class ShardedImitationLearner(ImitationLearner):
                 f"env axis {env_axis.n_dev} (the episodes must divide "
                 f"evenly over it)")
         self.mesh, self._env_axis = mesh, env_axis
-        super().__init__(cfg, logger, device)
+        super().__init__(cfg, logger, device, graph)
 
     def _collect(self):
         cfg, total = self.cfg, self.cfg.n_rollout_envs

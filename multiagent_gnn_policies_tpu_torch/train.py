@@ -15,7 +15,9 @@ with ``trainer = large``, or ``trainer = auto`` and ``n_agents > 1024``,
 train through the large-N learners: DAGGER and cloning through
 ``algos/imitation_large.py`` (cell-sweep collection, agent-subsampled
 replay), DDPG through ``algos/ddpg_large.py`` (the positions record); the
-others through the dense ones.
+others through the dense ones. On one card the imitation learners and
+the baseline run their episodes' steps and their Adam updates as CUDA
+graphs (``algos/imitation.py``'s programs); DDPG runs eagerly.
 
 Actor exports go to ``runs/torch/models/actor_{env}_{fname}[.npz]`` under
 the working directory, never over the checkpoints in ``models/``; DDPG

@@ -136,7 +136,8 @@ def save_actor_torch_format(path: str, layers: List[dict]) -> None:
 def adam_state_tree(params, opt: torch.optim.Optimizer) -> dict:
     """``opt``'s per-parameter Adam state for the parameters ``params``, in
     their order, zeros before the first step (the state Adam starts from),
-    so the tree's structure never changes."""
+    so the tree's structure never changes (the step count is a float32
+    scalar on the host, or on the device for a ``capturable`` Adam)."""
     out = {}
     for i, p in enumerate(params):
         st = opt.state.get(p, {})
@@ -150,7 +151,17 @@ def adam_state_tree(params, opt: torch.optim.Optimizer) -> dict:
 
 def load_adam_state_tree(opt: torch.optim.Optimizer, tree: dict) -> None:
     """Load a tree of :func:`adam_state_tree` (as numpy arrays) into
-    ``opt``, whose one parameter group holds the same parameters."""
+    ``opt``, whose one parameter group holds the same parameters. State
+    that Adam already holds is written in place (a CUDA graph that steps
+    ``opt`` reads it by address); an optimizer that has not stepped yet
+    takes it through ``load_state_dict``."""
+    params = opt.param_groups[0]["params"]
+    if all(opt.state.get(p) for p in params):
+        with torch.no_grad():
+            for i, p in enumerate(params):
+                for k, v in tree[str(i)].items():
+                    opt.state[p][k].copy_(torch.as_tensor(v))
+        return
     sd = opt.state_dict()
     sd["state"] = {
         int(i): {"step": torch.tensor(float(s["step"])),

@@ -1,0 +1,162 @@
+"""CUDA graph capture shared by the port's programs.
+
+The port compiles what the JAX package compiles into one program (a
+jitted ``lax.scan``) as CUDA graphs: the large-N episode
+(``parallel/large_n.py:EpisodeProgram``), the dense episode and the
+learners' Adam update (``algos/imitation.py``). Each program captures its
+body once and replays it; this module holds what they share:
+
+* one capture stream and one memory pool per device. A graph keeps no
+  value in the pool from one replay to the next (its outputs are static
+  buffers allocated outside it), and replays run one at a time on the
+  caller's stream, so every program of a device may share the pool;
+* :func:`capture`: a warm-up on the capture stream (cuBLAS's workspace,
+  the kernels' first loads, Adam's lazy state; a capture without it is
+  invalidated), then the capture, timed;
+* :func:`generator_handover`: a program draws from a generator of its
+  own, registered with its graph; the caller's state is copied in before
+  the replays and the advanced state handed back after, so the draws are
+  the eager loop's and the caller's generator ends where the loop leaves
+  it;
+* :func:`actor_copy`: a program that reads a policy keeps its own copy of
+  the parameters (a graph reads them by address), refreshed from the
+  caller's actor before each replay.
+
+A failure to capture or to replay raises; nothing falls back to the eager
+loop.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import time
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from multiagent_gnn_policies_tpu_torch.envs.flocking import strict_fp32
+
+PROGRAMS_KEPT = 16    # programs cached per setup kind, least recently used out
+WARMUP_STEPS = 2      # steps (updates) of a body run before its capture
+_STREAMS: dict = {}   # per device: the stream every program captures on
+_POOLS: dict = {}     # per device: the programs' shared memory pool
+
+
+def device_of(device) -> torch.device:
+    """``device`` with its index (the current card's when it has none)."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def use_program(device, graph=None, refusal: Optional[str] = None,
+                what: str = "a program", where: str = "on one card") -> bool:
+    """Whether a loop runs as its program (else the eager loop).
+    ``refusal`` says why no program applies here ("with a mesh", ...), or
+    is None. ``graph``: None runs the program where it applies (captured
+    on the card, its body eagerly on the CPU) and the eager loop
+    elsewhere; False the eager loop; True a CUDA graph, which raises
+    ValueError where a program does not apply and on the CPU."""
+    if graph is False:
+        return False
+    if graph is not None and graph is not True:
+        raise ValueError(f"graph must be None, False or True, got {graph!r}")
+    if graph is None:
+        return refusal is None
+    refusal = refusal or ("on the CPU" if torch.device(device).type != "cuda"
+                          else None)
+    if refusal:
+        raise ValueError(f"a CUDA graph of {what} was asked for {refusal}: "
+                         f"it runs {where} (graph=False runs the eager "
+                         f"loop)")
+    return True
+
+
+def program_generator(device, draws: bool) -> Optional[torch.Generator]:
+    """A program's own generator, for a program that ``draws`` on the
+    card (None otherwise: on the CPU the body draws from the caller's)."""
+    device = torch.device(device)
+    return (torch.Generator(device=device)
+            if draws and device.type == "cuda" else None)
+
+
+class Captured(NamedTuple):
+    """A captured graph, with the capture's and the instantiation's
+    seconds and the pool's growth over them (the reserved memory's)."""
+
+    graph: torch.cuda.CUDAGraph
+    capture_s: float
+    instantiate_s: float
+    pool_mb: float
+
+
+def capture(device, warmup: Callable[[], None], body: Callable[[], None],
+            gen: Optional[torch.Generator] = None) -> Captured:
+    """Run ``warmup()`` on the capture stream, then capture ``body()``
+    into a graph on the device's shared pool, ``gen`` registered with it.
+    ``warmup`` must leave the program's state as it found it; what it
+    allocates is freed when it returns."""
+    strict_fp32()
+    device = device_of(device)
+    if device not in _STREAMS:
+        _STREAMS[device] = torch.cuda.Stream(device)
+    stream = _STREAMS[device]
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        warmup()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    if gen is not None:
+        graph.register_generator_state(gen)
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(device)
+    if device not in _POOLS:
+        _POOLS[device] = torch.cuda.graph_pool_handle()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
+        body()
+        t1 = time.perf_counter()
+    return Captured(graph, t1 - t0, time.perf_counter() - t1,
+                    (torch.cuda.memory_reserved(device) - reserved) / 2**20)
+
+
+def clear_pools() -> None:
+    """Forget the shared pools: the next capture starts a new one (a graph
+    keeps its own pool alive)."""
+    _POOLS.clear()
+
+
+@contextlib.contextmanager
+def generator_handover(own: Optional[torch.Generator],
+                       gen: Optional[torch.Generator], device):
+    """Around replays that draw from ``own``: its state set to ``gen``'s
+    (the device's default generator's when ``gen`` is None) before, and
+    handed back to it after. Nothing when ``own`` is None."""
+    if own is None:
+        yield
+        return
+    src = gen or torch.cuda.default_generators[device_of(device).index]
+    own.set_state(src.get_state())
+    yield
+    src.set_state(own.get_state())
+
+
+def actor_copy(own: Optional[torch.nn.Module],
+               actor: Optional[torch.nn.Module]
+               ) -> Optional[torch.nn.Module]:
+    """``own`` (made from ``actor`` when None) with ``actor``'s parameters
+    copied in; raises ValueError for an actor of other widths."""
+    if actor is None:
+        return own
+    if own is None:
+        own = copy.deepcopy(actor).requires_grad_(False)
+    for d, s in zip(own.parameters(), actor.parameters(), strict=True):
+        if d.shape != s.shape:
+            raise ValueError(f"the actor's widths differ from the "
+                             f"program's: {tuple(s.shape)} against "
+                             f"{tuple(d.shape)}")
+        d.copy_(s)
+    return own

@@ -844,3 +844,245 @@ def test_graph_reads_the_callers_weights_on_gpu():
         tln.rollout_large(wide, acfg, None, p, x0=torch.zeros(GRAPH_N, 4,
                                                               device=dev),
                           device=dev, graph=True)
+
+
+# --- the compiled imitation round: the update and dense episode programs ---
+
+def _round_cfg(large, seed=3, **kw):
+    """A small DAGGER learner's config: dense at N = 512 (the lattice
+    regime: its reset never waits for the device) or large-N at N =
+    4,096, S = 256, both of the canonical widths."""
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as til
+    from multiagent_gnn_policies_tpu_torch.models.actor import ActorConfig
+
+    d = dict(mode="dagger", actor=ActorConfig(n_s=6, n_a=2, hidden=(32, 32),
+                                              k=3),
+             env_name="FlockingStochastic-v0", batch_size=8, buffer_size=64,
+             updates_per_episode=6, actor_lr=1e-3, n_train_episodes=6,
+             test_interval=4, n_test_episodes=2, seed=seed)
+    d.update(kw)
+    if large:
+        return til.LargeNImitationConfig(
+            env=FlockingParams(n_agents=GRAPH_N, episode_steps=GRAPH_T),
+            store_agents=256, **d)
+    return tim.ImitationConfig(
+        env=FlockingParams(n_agents=512, episode_steps=GRAPH_T), **d)
+
+
+def _learner(large, graph=None, **kw):
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as til
+
+    cls = til.LargeNImitationLearner if large else tim.ImitationLearner
+    return cls(_round_cfg(large, **kw), device="cuda", graph=graph)
+
+
+def _learner_state(lrn):
+    """A learner's whole training state, flattened, on the host."""
+    out = {}
+
+    def walk(tree, path):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{path}/{k}")
+            else:
+                out[f"{path}/{k}"] = (v.detach().cpu() if isinstance(
+                    v, torch.Tensor) else torch.as_tensor(v))
+    walk(lrn.training_state(), "")
+    return out
+
+
+def _same_learners(a, b):
+    sa, sb = _learner_state(a), _learner_state(b)
+    assert sa.keys() == sb.keys()
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("large", [False, True], ids=["dense", "large"])
+def test_update_program_equals_the_eager_loop_on_gpu(large):
+    """``n`` Adam updates through the update program (a CUDA graph
+    replayed per update) against the loop of ``adam_update`` on the same
+    learner state, at the dense (K, N, F) and the subsampled (K, S, F)
+    record: parameters, Adam's state, the loss sum and the generator bit
+    for bit; and the capturable Adam the learners build on the card
+    against the Adam without it (the optimizer before the programs,
+    whose bias correction is computed on the host) on the same batches,
+    within 1e-6 of each tensor's largest magnitude (the tolerance
+    ``tests/test_torch_imitation.py`` holds Adam to against
+    optax.adam)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    import copy
+
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+
+    lrns = [_learner(large, graph) for graph in (None, False)]
+    record = lrns[0]._example_record()
+    fill = torch.Generator(device="cuda").manual_seed(1)
+    for lrn in lrns:
+        fill.manual_seed(1)
+        lrn.buffer.insert({k: torch.randn((40, *v.shape), generator=fill,
+                                          device="cuda")
+                           for k, v in record.items()})
+    prog, eager = lrns
+    host_actor = copy.deepcopy(eager.actor)
+    host_opt = torch.optim.Adam(host_actor.parameters(), lr=1e-3)
+    assert eager.opt.defaults["capturable"] and not host_opt.defaults[
+        "capturable"]
+    n, b = 7, prog.cfg.batch_size
+    for rnd in range(2):     # the first run captures, the second replays
+        draws = torch.Generator(device="cuda")
+        draws.set_state(eager.gen.get_state())
+        batches = [eager.buffer.sample(draws, b) for _ in range(n)]
+        got = prog._updates.run(n, prog.gen)
+        want = torch.zeros((), device="cuda")
+        for _ in range(n):
+            want += tim.adam_update(eager.actor, eager.opt,
+                                    eager.buffer.sample(eager.gen, b))
+        assert torch.equal(got, want), rnd
+        _same_learners(prog, eager)
+        for batch in batches:
+            tim.adam_update(host_actor, host_opt, batch)
+    for g, w in zip(prog.actor.parameters(), host_actor.parameters()):
+        err = float((g - w).abs().max() / w.abs().max())
+        assert err <= 1e-6, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode,env,centralized", [
+    ("dagger", "FlockingRelative-v0", True),
+    ("cloning", "FlockingRelative-v0", True),
+    ("eval", "FlockingRelative-v0", True),
+    ("expert", "FlockingRelative-v0", True),
+    ("expert", "FlockingRelative-v0", False),
+    ("dagger", "FlockingStochastic-v0", True),
+    ("eval", "FlockingStochastic-v0", True),
+], ids=["dagger", "cloning", "eval", "baseline", "baseline_decentralized",
+        "stochastic_dagger", "stochastic_eval"])
+def test_dense_program_equals_the_eager_loop_on_gpu(mode, env, centralized):
+    """``rollout_episode`` at N = 100 through its dense episode program (a
+    CUDA graph: a capture, then a replay) against the eager loop
+    (``graph=False``) from the same generator: records, rewards and the
+    generator's state after the episode bit for bit (the stochastic
+    variant draws its noise inside the graph)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import make_env
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    acfg, actor = seeded_actor(3, 0, dev)
+    e = make_env(env, FlockingParams(n_agents=100, episode_steps=GRAPH_T))
+    collect = mode in ("dagger", "cloning")
+    tim.dense_program.cache_clear()
+    out = []
+    for graph in (False, True, True):      # eager, capture, replay
+        gen = torch.Generator(device=dev).manual_seed(4)
+        res = tim.rollout_episode(actor, gen, 0.5, e, acfg, mode=mode,
+                                  collect=collect, n_envs=4,
+                                  centralized=centralized, graph=graph)
+        res = res if collect else ({}, res)
+        out.append((res, gen.get_state()))
+    (want, want_gen) = out[0]
+    for got, got_gen in out[1:]:
+        assert all(torch.equal(got[0][k], want[0][k]) for k in want[0])
+        assert torch.equal(got[1], want[1]) and bool(
+            torch.isfinite(got[1]).all())
+        assert torch.equal(got_gen, want_gen)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("large", [False, True], ids=["dense", "large"])
+def test_program_rounds_equal_eager_rounds_on_gpu(large):
+    """Three DAGGER rounds (the first with its eval) through the programs
+    against ``graph=False``'s eager loops: the whole training state bit for bit
+    (parameters, Adam's state, buffer, generator). The third round's
+    replays run under CUDA's sync debug mode "error": the dense round
+    whole (its lattice reset, the episode's replay, the insert, the
+    updates' replays; the round's timing points synchronise explicitly),
+    the large learner's updates (its collection ends in the overflow
+    gate, a read on the host by design)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    prog, eager = _learner(large), _learner(large, False)
+    prog.train(stop_after=2)
+    eager.train(stop_after=3)
+
+    def no_sync(fn, *args, **kw):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return fn(*args, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    if large:
+        run = prog._updates.run
+        prog._updates.run = lambda *a: no_sync(run, *a)
+        prog.train(stop_after=3)
+    else:
+        no_sync(prog.train, stop_after=3)
+    assert torch.equal(prog.last_loss_sum, eager.last_loss_sum)
+    _same_learners(prog, eager)
+
+
+@pytest.mark.gpu
+def test_resume_into_a_learner_that_captured_on_gpu(tmp_path):
+    """A learner whose programs were captured before ``load_training_state``
+    resumes a state file in place (parameters, Adam's state, buffer and
+    its size, generator) and replays the graphs it had, captured again
+    never: its next round equals the uninterrupted run's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+
+    state = str(tmp_path / "state.npz")
+    full = _learner(False)
+    full.train(stop_after=3)
+    part = _learner(False)
+    part.train(state_path=state, stop_after=2)
+    rest = _learner(False, seed=9)
+    rest.train(stop_after=2)
+    captures = (tim.UpdateProgram.captures, tim.DenseEpisodeProgram.captures)
+    rest.load_training_state(state)
+    rest.train(stop_after=3)
+    assert (tim.UpdateProgram.captures,
+            tim.DenseEpisodeProgram.captures) == captures
+    _same_learners(full, rest)
+
+
+@pytest.mark.gpu
+def test_graph_true_raises_on_a_one_rank_mesh_on_gpu():
+    """On a mesh the round's loops stay eager (the update's all_reduce):
+    ``graph=True`` raises, ``graph=None`` builds no program. A one-rank
+    gloo group, destroyed after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import socket
+
+    import torch.distributed as dist
+
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel.mesh import make_mesh
+    from multiagent_gnn_policies_tpu_torch.parallel.sharded import (
+        ShardedImitationLearner)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0,
+                                       platform="cpu")
+    try:
+        mesh = make_mesh(device_type="cpu")
+        with pytest.raises(ValueError, match="with a mesh"):
+            ShardedImitationLearner(_round_cfg(False), mesh, device="cuda",
+                                    graph=True)
+        lrn = ShardedImitationLearner(_round_cfg(False), mesh, device="cuda")
+        assert lrn._updates is None and lrn._graph is False
+    finally:
+        dist.destroy_process_group()
