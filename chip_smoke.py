@@ -147,7 +147,11 @@ are counted).
     (-39.44 +- 4.33, -39.75 +- 4.38, -40.79 +- 4.81, -44.29 +- 5.95), no
     cell kernel launched, one ``--save-trajectory`` file checked;
 14. ddpg (no cell kernel on its paths; the counters, zeroed before,
-    must read 0 after). (a) The in-repo DDPG checkpoints through the
+    must read 0 after). Its evals and training episodes run as the
+    entry points' default, the CUDA graphs of ``algos/ddpg.py`` and
+    ``algos/ddpg_large.py`` (an eval's steps as its episode program, a
+    training episode's steps with its gradient steps as one graph per
+    step at which the update gate opens). (a) The in-repo DDPG checkpoints through the
     evaluate CLI's DDPG route, 100 greedy episodes as one batch each:
     ``ddpg_toy_k2`` under ``cfg/ddpg_toy.cfg [test]`` within -23.45 +-
     6.4, ``ddpg_k2`` under ``cfg/ddpg.cfg [test]`` within -1302.7 +- 39.0
@@ -167,11 +171,24 @@ are counted).
     routes: ``ddpg_toy.cfg [test]`` 4 episodes (gradient steps from
     episode 3), ``ddpg.cfg [test]`` 2, ``ddpg_n4k.cfg [n4k]`` 3 (N =
     4,096, positions record); finite rewards, losses and evals, ms per env
-    step with its gradient step; for toy and n4k a run stopped one
-    episode early with its state saved to a temporary directory and
-    resumed by a fresh learner must equal the uninterrupted run's training
-    state bit for bit; then one more episode under torch.profiler, read
-    as phase 8 reads its round;
+    step with its gradient step; for toy and n4k the state of an eager
+    run stopped one episode early, saved to a temporary directory, resumed
+    by a fresh learner and by the learner that captured (no new capture):
+    each must equal the uninterrupted run's training state bit for bit;
+    then one more episode under torch.profiler, read as phase 8 reads its
+    round (a replay calls none of the step's functions: the layers are
+    the program's run and the eager reset). (d) Each of those learners
+    against an eager twin (``graph=False``) that ran the same episodes,
+    which cover every gate step of the config (toy: the gate opens after
+    episodes 0 and 1 and at episode 2's first step; ``ddpg.cfg``: at step
+    100, then 0; n4k: at step 8, then 0): the training state and the
+    summed reward and losses bit for bit; each program's capture and
+    instantiate seconds and pool MB; ms per env step with its gradient
+    steps, busy ms, idle share and device ops per step of one more
+    episode of each loop; the eval's wall through its program and
+    eagerly, bit for bit; last, one more episode's replay behind its
+    eager reset under CUDA's sync debug mode "error" (finite sums, no new
+    capture);
 15. tools: each measurement tool's ``main(argv)`` in-process on the
     card, its output printed indented; a non-zero exit, a ``[FAIL]`` or a
     SUSPECT line fails the phase. Cut in depth: ``bench --reps 1 --chains
@@ -2413,14 +2430,21 @@ def _same_training_state(torch, a, b):
 
 def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
                      section, episodes, resume):
-    """Phase 14 (c): ``episodes`` training episodes of ``config`` at full
-    width through the learner's ``train`` (routed as the train CLI
-    routes), finite rewards and losses per episode and a finite eval; ms
-    per env step with its gradient steps; with ``resume``, a run stopped
-    after ``episodes - 1`` episodes with its state saved to a temporary
-    directory, resumed by a fresh learner: its training state (networks,
-    targets, Adam, buffer, generator) equals the uninterrupted run's bit
-    for bit; then one more episode under torch.profiler."""
+    """Phase 14 (c) and (d). (c) ``episodes`` training episodes of
+    ``config`` at full width through the learner's ``train`` (routed as
+    the train CLI routes; the episodes through the learner's CUDA graphs,
+    the default), finite rewards and losses per episode and a finite
+    eval; ms per env step with its gradient steps; with ``resume``, the
+    state of a run stopped after ``episodes - 1`` episodes (saved to a
+    temporary directory by an eager learner) resumed by a fresh learner
+    and by the learner whose graphs were captured: each one's training
+    state (networks, targets, Adam, buffer, generator) equals the
+    uninterrupted run's bit for bit, and the second captures nothing
+    new; then one more episode under torch.profiler, the program's
+    replay and the reset annotated. (d) :func:`ddpg_graph_check` against
+    the eager twin. Returns (ms per step, resumed, (d)'s fields)."""
+    from multiagent_gnn_policies_tpu_torch.utils import graphs
+
     xcfg = ExperimentConfig.from_section(load_ini(DDPG_CONFIGS[config])[
         section])
     dcfg = dd.DDPGConfig.from_experiment(xcfg)
@@ -2429,6 +2453,7 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
     cls = dl.DDPGLarge if large else dd.DDPG
     log = _Events()
     full = cls(dcfg, log, device=DEVICE)
+    eager = cls(dcfg, device=DEVICE, graph=False)
     per = []
     for e in range(1, episodes + 1):
         s0, n0 = full.timing["s"], full.timing["steps"]
@@ -2437,11 +2462,12 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
         ep["ms_per_step"] = 1e3 * (full.timing["s"] - s0) / (
             full.timing["steps"] - n0)
         per.append(ep)
+    eager.train(stop_after=episodes)
     same = None
     if resume:
         with tempfile.TemporaryDirectory() as tmp:
             state = os.path.join(tmp, "state.npz")
-            part = cls(dcfg, device=DEVICE)
+            part = cls(dcfg, device=DEVICE, graph=False)
             if not part.train(state_path=state,
                               stop_after=episodes - 1)["interrupted"]:
                 raise AssertionError("the stopped run did not stop")
@@ -2449,13 +2475,23 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
             del part
             rest = cls(dcfg, device=DEVICE)
             rest.train(state_path=state, stop_after=episodes)
-            same = _same_training_state(torch, rest, full)
-            print(f"#   ddpg train: {config}: resumed episode {episodes} "
+            fresh = _same_training_state(torch, rest, eager)
+            del rest
+            captures = graphs.Program.captures
+            full.load_training_state(state)
+            full.train(stop_after=episodes)
+            captured = (_same_training_state(torch, full, eager)
+                        and graphs.Program.captures == captures)
+            same = fresh and captured
+            print(f"#   ddpg train: {config}: episode {episodes} resumed "
+                  f"from the state of an eager run stopped before it, "
                   f"against the uninterrupted run: training state bit for "
-                  f"bit {same} (state file {state_mb:.1f} MiB)", flush=True)
+                  f"bit {fresh} in a fresh learner, {captured} in the "
+                  f"learner that captured (no new capture) (state file "
+                  f"{state_mb:.1f} MiB)", flush=True)
             if not same:
                 raise AssertionError(f"{config}: the resumed run differs")
-            del rest
+    graph = ddpg_graph_check(torch, config, full, eager, per)
     # an eval draws from the generator: after the resume check
     mean, std = full.evaluate()
     evals = [f for ev_, f in log.events if ev_ == "eval"]
@@ -2470,7 +2506,7 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
         print(f"#   ddpg train: episode {i}: reward {ep['reward']:.4f}, "
               f"critic loss sum {ep['critic_loss']:.6g}, actor loss sum "
               f"{ep['actor_loss']:.6g}, {ep['ms_per_step']:.4f} ms per env "
-              f"step", flush=True)
+              f"step (a capture's included)", flush=True)
     if not all(math.isfinite(v) for ep in per for v in ep.values()) or not (
             math.isfinite(mean) and math.isfinite(evals[0]["reward_mean"])):
         raise AssertionError(f"{config}: non-finite episode or eval {per}")
@@ -2479,37 +2515,104 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
                              f"episode")
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    mod = dl if large else dd
-    targets = [(dd.DDPG, "gradient_step", "gradient step"),
-               (mod, "ou_step", "OU noise"),
-               (type(full.buffer), "insert", "replay insert")]
-    if large:
-        targets += [(dl, "dense_adj_from_pos", "adjacency from positions"),
-                    (dl, "actor_forward_adj", "actor"),
-                    (dl, "dynamics", "dynamics"),
-                    (dl, "blocked_frame", "frame (blocked)")]
-    else:
-        targets += [(tfl.FlockingEnv, "step", "env step"),
-                    (dd, "update_graph_state", "graph state")]
+    # a replay calls none of the step's functions: the program's run and
+    # the eager reset before it are the episode's layers
+    targets = [(dd.DDPG, "_run_program", "episode program (replay)"),
+               (cls, "_start", "reset")]
     with _Annotated(record_function, targets), profile(
             activities=[ProfilerActivity.CPU,
                         ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        full.train(stop_after=episodes + 1)
+        full.train(stop_after=full._ep + 1)
         torch.cuda.synchronize()
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     print(f"#   ddpg trace: {config}.cfg, one episode, per env step with its "
           f"gradient step", flush=True)
-    summarize_trace(trace_events(prof), steps, per[-1]["ms_per_step"],
-                    prof_wall_ms)
-    return per[-1]["ms_per_step"], same
+    summarize_trace(trace_events(prof), steps,
+                    float(graph[f"{config}_graph_ms_per_step"]), prof_wall_ms)
+    return per[-1]["ms_per_step"], same, graph
+
+
+def ddpg_graph_check(torch, config, full, eager, per):
+    """Phase 14 (d): the learner's CUDA graphs (``full``, after (c)'s
+    episodes: one program per gate step the run met) against its eager
+    twin (``graph=False``) that ran the same episodes: the last episode's
+    summed reward and losses and the training state bit for bit; each
+    program's capture and instantiate seconds and pool MB; ms per env
+    step with its gradient steps, busy ms, idle share and device ops per
+    step of one more episode of each loop (:func:`_eager_and_graph_stats`),
+    bit for bit after; the eval (``n_test_episodes`` episodes) through its
+    program and eagerly, its wall and rewards bit for bit; then one more
+    episode's replay behind its eager reset under CUDA's sync debug mode
+    "error": finite sums, no new capture. Returns the phase line's
+    fields."""
+    from multiagent_gnn_policies_tpu_torch.utils import graphs
+
+    steps = full.cfg.env.episode_steps
+    sums = [torch.stack([lrn.last_episode[k] for k in (
+        "reward", "critic_loss", "actor_loss")]) for lrn in (full, eager)]
+    same = (torch.equal(*sums)
+            and _same_training_state(torch, full, eager))
+    print(f"#   ddpg graph: {config}: {len(per)} episodes through the graphs "
+          f"and eagerly: summed reward and losses {sums[0].tolist()} and "
+          f"the training state bit for bit {same}", flush=True)
+    for key, prog in full._programs.items():
+        print(f"#   ddpg graph: {config}: program of gate step {key[0]} "
+              f"(T = {steps}): capture {prog.capture_s:.3f} s, instantiate "
+              f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB",
+              flush=True)
+    if not same:
+        raise AssertionError(f"{config}: the graphs differ from the eager "
+                             f"loop")
+    out = _eager_and_graph_stats(
+        torch, config, lambda graph: (full if graph else eager).episode(),
+        steps,
+        "step (reset included)", top=5)
+    if not _same_training_state(torch, full, eager):
+        raise AssertionError(f"{config}: the timed episodes differ")
+    import numpy as np
+
+    walls, rewards = {}, {}
+    for what, lrn in (("graph", full), ("eager", eager)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rewards[what] = lrn.eval_rewards()
+        walls[what] = 1e3 * (time.perf_counter() - t)
+    same_eval = np.array_equal(rewards["graph"], rewards["eager"])
+    print(f"#   ddpg graph: {config}: {full.cfg.n_test_episodes}-episode "
+          f"eval (resets included), graph {walls['graph']:.3f} ms (captured "
+          f"at episode 0's eval), eager {walls['eager']:.3f} ms; rewards bit "
+          f"for bit {same_eval}", flush=True)
+    if not same_eval:
+        raise AssertionError(f"{config}: the eval graph differs")
+    # last: the eager twin runs no more episodes
+    captures = graphs.Program.captures
+    start = full._start()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = full._run_program(start, None, None, full._gate_opens())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    synced = (bool(torch.isfinite(got).all())
+              and graphs.Program.captures == captures)
+    print(f"#   ddpg graph: {config}: one more episode's replay under sync "
+          f"debug mode \"error\" (behind its eager reset): {got.tolist()}, "
+          f"no new capture {synced}", flush=True)
+    if not synced:
+        raise AssertionError(f"{config}: the replay under sync debug mode")
+    out.update({f"{config}_graph_bit_for_bit": same and same_eval,
+                f"{config}_eval_graph_ms": f"{walls['graph']:.3f}",
+                f"{config}_eval_eager_ms": f"{walls['eager']:.3f}"})
+    return out
 
 
 def ddpg_phase(torch, ev, cc, ExperimentConfig, load_ini):
     """Phase 14: DDPG on the card. (a) the in-repo checkpoints, (b) one
     gradient step card vs CPU for each learner and critic kind, (c)
-    training at full width with resumes and a profiled episode. The cell
-    kernels' counters, zeroed before, must read 0 after."""
+    training at full width with resumes and a profiled episode, (d) the
+    learners' CUDA graphs against their eager twins. The cell kernels'
+    counters, zeroed before, must read 0 after."""
     from multiagent_gnn_policies_tpu_torch.algos import ddpg as dd
     from multiagent_gnn_policies_tpu_torch.algos import ddpg_large as dl
     from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
@@ -2527,16 +2630,17 @@ def ddpg_phase(torch, ev, cc, ExperimentConfig, load_ini):
             ("ddpg_toy", "test", "ddpg_toy_k2", False),
             ("ddpg", "test", "ddpg_k2", False),
             ("ddpg_n4k", "n4k", "ddpg_toy_k2", True)))
-    speed, resumed = {}, {}
+    speed, resumed, graph = {}, {}, {}
     for config, section, episodes, resume in DDPG_TRAIN:
-        speed[config], resumed[config] = ddpg_train_phase(
+        speed[config], resumed[config], fields = ddpg_train_phase(
             torch, dd, dl, tfl, ExperimentConfig, load_ini, config, section,
             episodes, resume)
+        graph.update(fields)
     launches = cc.launch_counts()
     if any(launches.values()):
         raise AssertionError(f"the DDPG paths launched cell kernels: "
                              f"{launches}")
-    return means, parity, speed, resumed
+    return means, parity, speed, resumed, graph
 
 
 def main():
@@ -2795,13 +2899,13 @@ def main():
 
     # 14. DDPG: no cell kernel on its paths
     t = time.perf_counter()
-    means, parity, speed, resumed = ddpg_phase(torch, ev, cc,
-                                               ExperimentConfig, load_ini)
+    means, parity, speed, resumed, graph = ddpg_phase(
+        torch, ev, cc, ExperimentConfig, load_ini)
     phase("ddpg", t, **{f"{k}_mean": v for k, v in means.items()},
           card_vs_cpu_max_rel_err=f"{parity:.3g}",
           **{f"{k}_ms_per_step": f"{v:.4f}" for k, v in speed.items()},
           resume_bit_for_bit=all(v for v in resumed.values()
-                                 if v is not None))
+                                 if v is not None), **graph)
 
     # 15. the measurement tools, at cut depth
     t = time.perf_counter()

@@ -12,7 +12,8 @@ The counterpart of the JAX package's ``algos/ddpg.py``:
   (:func:`soft_update_`); Adam on both networks;
 * ``updates_per_step`` gradient steps inside every env step, once the
   buffer holds more than one batch (``size`` is a host int, so the gate
-  never waits on the device);
+  never waits on the device: an episode's gate opens at a step the host
+  knows before the episode, :meth:`DDPG._gate_opens`);
 * a gradient step (:meth:`DDPG.gradient_step`): the critic's Adam step on
   the MSE to ``y = reward_scale · r + gamma · notdone · Q'(s', pi'(s'))``,
   then the actor's Adam step on ``-mean Q(s, pi(s))`` against the critic
@@ -27,6 +28,15 @@ An eval (:func:`eval_episodes`) runs ``n_test_episodes`` greedy episodes
 as one batch and passes the policy's output to the env as it is (the env
 clips it to ``max_accel``).
 
+What the JAX learner compiles into one program runs as CUDA graphs on one
+card: a training episode's T steps behind its reset, the gradient steps
+included, as one graph per step at which the update gate opens
+(:meth:`DDPG._run_program`, at most three per run), and an eval's steps
+behind its batched reset as the dense episode program of
+``algos/imitation.py``. The resets stay eager (their rejection loop waits
+on the host). Each equals its eager loop (``graph=False``) bit for bit;
+on the CPU each runs its body eagerly.
+
 Random draws come from one ``torch.Generator`` on the device, seeded from
 ``seed``: the actor's and the critic's init, every reset, the OU noise,
 the replay samples and the evals. Its state is part of the training state,
@@ -36,6 +46,7 @@ one bit for bit.
 
 from __future__ import annotations
 
+import collections
 import copy
 import dataclasses
 import os
@@ -45,6 +56,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from multiagent_gnn_policies_tpu_torch.algos.imitation import rollout_episode
 from multiagent_gnn_policies_tpu_torch.algos.replay import ReplayBuffer
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     EnvState,
@@ -74,9 +86,13 @@ from multiagent_gnn_policies_tpu_torch.ops.graph import (
     initial_graph_state,
     update_graph_state,
 )
-from multiagent_gnn_policies_tpu_torch.utils import checkpoint
+from multiagent_gnn_policies_tpu_torch.utils import checkpoint, graphs
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
 from multiagent_gnn_policies_tpu_torch.utils.debug import check_finite
+from multiagent_gnn_policies_tpu_torch.utils.graphs import (
+    PROGRAMS_KEPT,
+    WARMUP_STEPS,
+)
 from multiagent_gnn_policies_tpu_torch.utils.metrics import MetricsLogger
 
 Batch = Dict[str, torch.Tensor]
@@ -165,27 +181,30 @@ def _sync(device: torch.device) -> None:
 
 
 def eval_episodes(actor: Actor, env: FlockingEnv, acfg: ActorConfig,
-                  gen: torch.Generator, n_episodes: int) -> torch.Tensor:
+                  gen: torch.Generator, n_episodes: int,
+                  graph=None) -> torch.Tensor:
     """The summed rewards (n_episodes,) of greedy episodes run as one
-    batch; the policy's output goes to the env unclipped."""
-    with torch.no_grad():
-        state, obs = env.reset(gen, (n_episodes,))
-        gs = initial_graph_state(obs.values, obs.network, acfg.k)
-        total = torch.zeros(n_episodes, device=state.x.device)
-        for _ in range(env.params.episode_steps):
-            mu = actor(gs.delay_state, gs.delay_gso)
-            state, obs, r, _ = env.step(state, mu, gen)
-            gs = update_graph_state(gs, obs.values, obs.network)
-            total += r
-    return total
+    batch; the policy's output goes to the env unclipped. The batched
+    reset runs eagerly, the steps as ``rollout_episode``'s eval: the
+    setup's dense episode program (``graph`` None: a CUDA graph on the
+    card, its body on the CPU), the eager loop with ``graph=False``;
+    ``graph=True`` raises ValueError on the CPU."""
+    return rollout_episode(actor, gen, 0.0, env, acfg, mode="eval",
+                           collect=False, n_envs=n_episodes, graph=graph)
 
 
 class DDPG:
     """The dense DDPG learner: actor, critic, their targets and Adam
-    states, the replay buffer and the generator, all on ``device``."""
+    states, the replay buffer and the generator, all on ``device``.
+
+    ``graph``: None (default) runs each training episode's steps through
+    its training-episode program (:meth:`_run_program`) and each eval's
+    through its episode program (CUDA graphs on the card, their bodies
+    eagerly on the CPU); False the eager loops (the programs' oracle);
+    True the programs, raising ValueError on the CPU."""
 
     def __init__(self, cfg: DDPGConfig, logger: Optional[MetricsLogger] = None,
-                 device="cuda"):
+                 device="cuda", graph=None):
         strict_fp32()
         self.cfg = cfg
         self.device = torch.device(device)
@@ -198,12 +217,26 @@ class DDPG:
         # hard copies at init; the targets never take a gradient
         self.actor_target = copy.deepcopy(self.actor).requires_grad_(False)
         self.critic_target = copy.deepcopy(self.critic).requires_grad_(False)
+        # capturable: Adam's step count and bias correction on the device,
+        # so that a gradient step can be captured (PyTorch allows it on the
+        # card only); the eager loop on the card steps the same optimizers
+        capturable = self.device.type == "cuda"
         self.actor_opt = torch.optim.Adam(self.actor.parameters(),
-                                          lr=cfg.actor_lr)
+                                          lr=cfg.actor_lr,
+                                          capturable=capturable)
         self.critic_opt = torch.optim.Adam(self.critic.parameters(),
-                                           lr=cfg.critic_lr)
+                                           lr=cfg.critic_lr,
+                                           capturable=capturable)
         self._init_env()
         self.buffer = ReplayBuffer(cfg.buffer_size, self._example_record())
+        programs = graphs.use_program(self.device, graph, None,
+                                      "the DDPG episode", "one device")
+        # what the episodes are given: None runs their programs
+        self._graph = None if programs else False
+        # the training episode's programs by (gate step, injected noise,
+        # injected indices), the least recently used first
+        self._programs: Dict[tuple, graphs.Program] = (
+            collections.OrderedDict())
         self._ep = 0
         # the last training episode's summed reward and losses (device)
         self.last_episode: Optional[Dict[str, torch.Tensor]] = None
@@ -277,23 +310,152 @@ class DDPG:
         soft_update_(self.critic_target, self.critic, cfg.tau)
         return c_loss.detach(), a_loss.detach()
 
-    def _updates(self, indices: Optional[torch.Tensor]):
-        """The step's ``updates_per_step`` gradient steps, once the buffer
-        holds more than one batch; ``indices`` (updates_per_step, B) names
-        the records (tests). Returns the summed losses or None."""
-        cfg = self.cfg
-        if self.buffer.size <= cfg.batch_size:
-            return None
-        c_sum = a_sum = 0.0
-        for u in range(cfg.updates_per_step):
-            batch = (self.buffer.sample(self.gen, cfg.batch_size)
-                     if indices is None else self.buffer.gather(indices[u]))
-            c, a = self.gradient_step(batch)
-            c_sum, a_sum = c_sum + c, a_sum + a
-        self.timing["updates"] += cfg.updates_per_step
-        return c_sum, a_sum
+    def _batch(self, gen, indices: Optional[torch.Tensor], t: int,
+               u: int) -> Batch:
+        """Step ``t``'s ``u``-th replay batch: drawn from ``gen``, or the
+        records ``indices[t, u]`` names (tests)."""
+        if indices is None:
+            return self.buffer.sample(gen, self.cfg.batch_size)
+        return self.buffer.gather(indices[t, u])
 
     # --- episodes ---
+
+    def _start(self, x0: Optional[torch.Tensor] = None):
+        """The tensors an episode starts from, the reset's (drawn from the
+        learner's generator) or ``x0``'s: the state (N, 4) and its
+        observation's values and network."""
+        with torch.no_grad():
+            if x0 is None:
+                state, obs = self.env.reset(self.gen)
+            else:
+                state = EnvState(x0.to(self.device), 0)
+                obs = self.env.observe(state)
+        return state.x, obs.values, obs.network
+
+    def _carry(self, start):
+        """The step loop's carry at the episode's start."""
+        x, values, network = start
+        return EnvState(x, 0), initial_graph_state(values, network,
+                                                   self.cfg.actor.k)
+
+    def _transition(self, carry, ou: torch.Tensor, gen):
+        """One env step under ``clip(mu + ou_scale · ou, ±1)``: the next
+        carry, the step's replay record and its reward."""
+        cfg = self.cfg
+        state, gs = carry
+        mu = self.actor(gs.delay_state, gs.delay_gso)
+        action = torch.clamp(mu + cfg.ou_scale * ou, -1.0, 1.0)
+        state, obs, r, done = self.env.step(state, action, gen)
+        # done depends on the step index alone (a host int), so a capture
+        # of the whole episode records each step's notdone as it is
+        record = {"delay_state": gs.delay_state, "delay_gso": gs.delay_gso,
+                  "network": gs.network, "next_network": obs.network,
+                  "next_values": obs.values, "action": action, "reward": r,
+                  "notdone": torch.full((), 0.0 if done else 1.0,
+                                        device=self.device)}
+        return (state, update_graph_state(gs, obs.values, obs.network)), \
+            record, r
+
+    def _steps(self, start, gen, gate, insert, sums: torch.Tensor,
+               noise: Optional[torch.Tensor] = None,
+               indices: Optional[torch.Tensor] = None,
+               steps: Optional[int] = None) -> int:
+        """A training episode's ``steps`` (all T by default) from
+        :meth:`_start`'s tensors: per step the OU step, the transition, its
+        record stored by ``insert`` and, where ``gate(t)`` holds once it
+        is stored, the step's ``updates_per_step`` gradient steps, drawing
+        from ``gen``; the reward and both losses are added into ``sums``
+        (3,) in place. ``noise`` (T, N, n_a) and ``indices`` (T,
+        updates_per_step, B) replace the OU draws and the replay samples
+        (tests). Returns the number of steps that updated. The eager loop
+        and the training-episode program both run it."""
+        cfg = self.cfg
+        with torch.no_grad():
+            carry = self._carry(start)
+            ou = ou_reset(cfg.env.n_agents, cfg.actor.n_a, self.device)
+        opened = 0
+        for t in range(cfg.env.episode_steps if steps is None else steps):
+            with torch.no_grad():
+                ou = ou_step(ou, gen, cfg.ou_theta, cfg.ou_sigma,
+                             None if noise is None else noise[t])
+                carry, record, r = self._transition(carry, ou, gen)
+                insert({k: v[None] for k, v in record.items()})
+                sums[0] += r
+            if gate(t):
+                losses = [torch.stack(self.gradient_step(
+                    self._batch(gen, indices, t, u)))
+                    for u in range(cfg.updates_per_step)]
+                sums[1:] += torch.stack(losses).sum(0)
+                opened += 1
+        return opened
+
+    def _gate_opens(self) -> int:
+        """The first step of the next episode that runs gradient steps:
+        the gate ``size > batch_size`` opens once ``batch_size - size + 1``
+        more records are stored (T: not in this episode; never while the
+        capacity is at most one batch)."""
+        cfg, b = self.cfg, self.buffer
+        T = cfg.env.episode_steps
+        if b.capacity <= cfg.batch_size:
+            return T
+        return min(max(cfg.batch_size - b.size, 0), T)
+
+    def _run_program(self, start, noise, indices, t_open: int
+                     ) -> torch.Tensor:
+        """The episode's steps from ``start`` through the training-episode
+        program of its gate step ``t_open`` (and of injected draws): the
+        counterpart of the JAX ``_episode_impl``'s scan, its
+        ``lax.cond`` on the buffer's size resolved on the host. Each key's
+        program is made at its first use and kept (PROGRAMS_KEPT, least
+        recently used out). Returns the summed reward and losses (3,).
+
+        The graph reads the reset's tensors (and the injected draws) as
+        static inputs and writes the sums as its static output; the four
+        networks, both Adam states and the buffer (its rows, device size
+        and cursor) it reads by address, so they are updated and loaded in
+        place. The record goes in by ``ReplayBuffer.insert_device`` and
+        the host ints advance by T after the run. On the card the first
+        run warms the body up for ``min(WARMUP_STEPS, T)`` steps with the
+        capture's gate pattern (the steps before the gate, then those
+        after it), restores what the warm-up wrote, then captures; the
+        draws come from the program's own generator, handed over as
+        ``utils/graphs.py`` says."""
+        T = self.cfg.env.episode_steps
+        key = (t_open, noise is not None, indices is not None)
+        prog = self._programs.pop(key, None) or graphs.Program(
+            self.device, True, [torch.zeros(3, device=self.device)])
+        self._programs[key] = prog
+        if len(self._programs) > PROGRAMS_KEPT:
+            self._programs.popitem(last=False)
+        n = len(start)
+
+        def body(gen, steps, opens):
+            start_, draws = prog.inputs[:n], iter(prog.inputs[n:])
+            sums = prog.outputs[0]
+            sums.zero_()
+            self._steps(start_, gen, lambda t: t >= opens,
+                        self.buffer.insert_device, sums,
+                        next(draws) if key[1] else None,
+                        next(draws) if key[2] else None, steps)
+
+        def warmup(gen):
+            b, w = self.buffer, min(WARMUP_STEPS, T)
+            saved = graphs.Snapshot(
+                [p for m in self._modules().values() for p in m.parameters()]
+                + [b._size_dev, b._cursor_dev],
+                [self.actor_opt, self.critic_opt])
+            idx = (torch.arange(w, device=self.device) + b.cursor) % (
+                b.capacity)
+            rows = {k: d.index_select(0, idx) for k, d in b.data.items()}
+            body(gen, w, min(t_open, w - 1) if t_open < T else w)
+            saved.restore()
+            for k, d in b.data.items():
+                d.index_copy_(0, idx, rows[k])
+
+        prog.run([*start, *(d for d in (noise, indices) if d is not None)],
+                 self.gen, lambda gen: body(gen, T, t_open), warmup)
+        self.buffer.advance(T)
+        return prog.outputs[0].clone()
 
     def episode(self, x0: Optional[torch.Tensor] = None,
                 noise: Optional[torch.Tensor] = None,
@@ -303,51 +465,33 @@ class DDPG:
         the summed reward and the summed critic and actor losses (on the
         device). ``x0`` (N, 4), ``noise`` (T, N, n_a) and ``indices`` (T,
         updates_per_step, B) replace the reset, the OU draws and the
-        replay samples (tests)."""
+        replay samples (tests). The steps run through
+        :meth:`_run_program`, or with ``graph=False`` as the eager loop,
+        whose gate reads the buffer's host size after each insert."""
         cfg = self.cfg
         T = cfg.env.episode_steps
-        dev = self.device
         t0 = time.perf_counter()
-        with torch.no_grad():
-            if x0 is None:
-                state, obs = self.env.reset(self.gen)
-            else:
-                state = EnvState(x0.to(dev), 0)
-                obs = self.env.observe(state)
-            gs = initial_graph_state(obs.values, obs.network, cfg.actor.k)
-        ou = ou_reset(cfg.env.n_agents, cfg.actor.n_a, dev)
-        zero = torch.zeros((), device=dev)
-        total, c_total, a_total = zero, zero, zero
-        for t in range(T):
-            with torch.no_grad():
-                ou = ou_step(ou, self.gen, cfg.ou_theta, cfg.ou_sigma,
-                             None if noise is None else noise[t])
-                mu = self.actor(gs.delay_state, gs.delay_gso)
-                action = torch.clamp(mu + cfg.ou_scale * ou, -1.0, 1.0)
-                state, obs, r, done = self.env.step(state, action, self.gen)
-                record = {"delay_state": gs.delay_state,
-                          "delay_gso": gs.delay_gso,
-                          "network": gs.network,
-                          "next_network": obs.network,
-                          "next_values": obs.values,
-                          "action": action, "reward": r,
-                          "notdone": torch.full((), 0.0 if done else 1.0,
-                                                device=dev)}
-                self.buffer.insert({k: v[None] for k, v in record.items()})
-                gs = update_graph_state(gs, obs.values, obs.network)
-            losses = self._updates(None if indices is None else indices[t])
-            total = total + r
-            if losses is not None:
-                c_total, a_total = c_total + losses[0], a_total + losses[1]
-        _sync(dev)
+        start = self._start(x0)
+        if self._graph is None:
+            t_open = self._gate_opens()
+            sums = self._run_program(start, noise, indices, t_open)
+            opened = T - t_open
+        else:
+            sums = torch.zeros(3, device=self.device)
+            opened = self._steps(
+                start, self.gen, lambda t: self.buffer.size > cfg.batch_size,
+                self.buffer.insert, sums, noise, indices)
+        self.timing["updates"] += opened * cfg.updates_per_step
+        _sync(self.device)
         self.timing["s"] += time.perf_counter() - t0
         self.timing["steps"] += T
-        return total, c_total, a_total
+        return tuple(sums)
 
     def eval_rewards(self) -> np.ndarray:
         """Summed rewards of ``n_test_episodes`` greedy episodes."""
         return eval_episodes(self.actor, self.env, self.cfg.actor, self.gen,
-                             self.cfg.n_test_episodes).cpu().numpy()
+                             self.cfg.n_test_episodes,
+                             self._graph).cpu().numpy()
 
     def evaluate(self) -> Tuple[float, float]:
         """Mean and population std of :meth:`eval_rewards`."""

@@ -22,8 +22,11 @@ grid, so no capacity and no overflow. Resets below the lattice regime take
 the first of up to ``1 + max_resets`` candidates with min separation and
 min degree met (the last one otherwise). The eval runs
 ``n_test_episodes`` episodes one after another and clips the policy's
-output to ±1. Losses, the gradient step, the OU process, resume and
-export are the dense learner's (``algos/ddpg.py``).
+output to ±1. Losses, the gradient step, the OU process, the training
+episode's programs, resume and export are the dense learner's
+(``algos/ddpg.py``). On one card an eval episode's steps run as one
+captured graph (:meth:`DDPGLarge._eval_program`), replayed after each
+episode's eager reset (whose candidate loop waits on the host).
 
 The products are float32 ``torch.matmul`` calls (cuBLAS on the card, TF32
 off); the JAX package computes them with XLA outside any Pallas kernel.
@@ -31,7 +34,6 @@ off); the JAX package computes them with XLA outside any Pallas kernel.
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -41,9 +43,6 @@ from multiagent_gnn_policies_tpu_torch.algos.ddpg import (
     DDPG,
     DDPGConfig,
     Batch,
-    _sync,
-    ou_reset,
-    ou_step,
 )
 from multiagent_gnn_policies_tpu_torch.envs.flocking import (
     FlockingParams,
@@ -61,7 +60,9 @@ from multiagent_gnn_policies_tpu_torch.ops.blocked import (
     pick_block,
 )
 from multiagent_gnn_policies_tpu_torch.ops.graph import normalized_adjacency
+from multiagent_gnn_policies_tpu_torch.utils import graphs
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
+from multiagent_gnn_policies_tpu_torch.utils.graphs import WARMUP_STEPS
 
 # Rows per block of the episode's O(N²) frames: the largest divisor of N up
 # to this (a block's ~25 (rows, N) temporaries take ~400 MB at N = 4,096).
@@ -139,6 +140,7 @@ class DDPGLarge(DDPG):
         # JAX DDPGLarge steps, resets and evaluates cfg.env itself
         self.params: FlockingParams = cfg.env
         self.block = frame_block(cfg.env.n_agents)
+        self._eval_prog: Optional[graphs.Program] = None
 
     def _example_record(self) -> Batch:
         cfg = self.cfg
@@ -196,15 +198,16 @@ class DDPGLarge(DDPG):
         seeding their graph sources with the current positions changes
         nothing."""
         cfg = self.cfg
-        if x0 is None:
-            x, fq = self.reset(self.gen)
-        else:
-            x = x0.to(self.device)
-            fq = self._frame(x)
-        k, n = cfg.actor.k, cfg.env.n_agents
-        hist = _shift_in(fq.values, torch.zeros((k, n, cfg.actor.n_s),
-                                                device=self.device), k)
-        pos = x[None, :, :2].expand(max(k - 1, 1), n, 2).clone()
+        with torch.no_grad():
+            if x0 is None:
+                x, fq = self.reset(self.gen)
+            else:
+                x = x0.to(self.device)
+                fq = self._frame(x)
+            k, n = cfg.actor.k, cfg.env.n_agents
+            hist = _shift_in(fq.values, torch.zeros(
+                (k, n, cfg.actor.n_s), device=self.device), k)
+            pos = x[None, :, :2].expand(max(k - 1, 1), n, 2).clone()
         return x, hist, pos
 
     def _advance(self, x2, fq2, hist, pos):
@@ -214,65 +217,74 @@ class DDPGLarge(DDPG):
             pos = _shift_in(x2[:, :2], pos, k - 1)
         return _shift_in(fq2.values, hist, k), pos
 
-    def episode(self, x0: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None,
-                indices: Optional[torch.Tensor] = None):
-        """One training episode (see ``DDPG.episode``; ``x0``, ``noise``
-        and ``indices`` replace the reset, the OU draws and the replay
-        samples in tests)."""
-        cfg = self.cfg
-        p, dev = self.params, self.device
-        t0 = time.perf_counter()
+    def _carry(self, start):
+        return tuple(start)
+
+    def _transition(self, carry, ou: torch.Tensor, gen):
+        """One step of the O(N) state under ``clip(mu + ou_scale · ou,
+        ±1)``: the next carry, the positions record and the reward."""
+        cfg, p = self.cfg, self.params
+        x, hist, pos = carry
+        adjs = dense_adj_from_pos(pos, p.comm_radius)
+        mu = actor_forward_adj(self.actor, hist, adjs)
+        action = torch.clamp(mu + cfg.ou_scale * ou, -1.0, 1.0)
+        x2 = dynamics(x, action, p, gen)
+        fq2 = self._frame(x2)
+        r = reward(x2)
+        record = {"hist": hist, "pos": pos, "next_values": fq2.values,
+                  "next_pos": x2[:, :2], "action": action, "reward": r,
+                  "notdone": torch.ones((), device=self.device)}
+        return (x2, *self._advance(x2, fq2, hist, pos)), record, r
+
+    def _greedy_steps(self, start, gen, total: torch.Tensor,
+                      steps: int) -> None:
+        """``steps`` greedy steps from :meth:`_start`'s tensors, the policy
+        clipped to ±1, each reward added into ``total`` in place."""
+        p = self.params
+        x, hist, pos = start
         with torch.no_grad():
-            x, hist, pos = self._start(x0)
-        ou = ou_reset(cfg.env.n_agents, cfg.actor.n_a, dev)
-        one = torch.ones((), device=dev)
-        zero = torch.zeros((), device=dev)
-        total, c_total, a_total = zero, zero, zero
-        for t in range(p.episode_steps):
-            with torch.no_grad():
+            for _ in range(steps):
                 adjs = dense_adj_from_pos(pos, p.comm_radius)
-                ou = ou_step(ou, self.gen, cfg.ou_theta, cfg.ou_sigma,
-                             None if noise is None else noise[t])
-                mu = actor_forward_adj(self.actor, hist, adjs)
-                action = torch.clamp(mu + cfg.ou_scale * ou, -1.0, 1.0)
-                x2 = dynamics(x, action, p, self.gen)
-                fq2 = self._frame(x2)
-                r = reward(x2)
-                record = {"hist": hist, "pos": pos,
-                          "next_values": fq2.values, "next_pos": x2[:, :2],
-                          "action": action, "reward": r, "notdone": one}
-                self.buffer.insert({k: v[None] for k, v in record.items()})
-                hist, pos = self._advance(x2, fq2, hist, pos)
-                x = x2
-            losses = self._updates(None if indices is None else indices[t])
-            total = total + r
-            if losses is not None:
-                c_total, a_total = c_total + losses[0], a_total + losses[1]
-        _sync(dev)
-        self.timing["s"] += time.perf_counter() - t0
-        self.timing["steps"] += p.episode_steps
-        return total, c_total, a_total
+                act = torch.clamp(actor_forward_adj(self.actor, hist, adjs),
+                                  -1.0, 1.0)
+                x = dynamics(x, act, p, gen)
+                fq = self._frame(x)
+                hist, pos = self._advance(x, fq, hist, pos)
+                total += reward(x)
+
+    def _eval_program(self) -> graphs.Program:
+        """The eval episode's steps as one program (its summed reward the
+        static output), reading the learner's actor by address; made at
+        its first use."""
+        if self._eval_prog is None:
+            self._eval_prog = graphs.Program(
+                self.device, self.params.dynamics_noise > 0,
+                [torch.zeros((), device=self.device)])
+        return self._eval_prog
 
     def eval_rewards(self) -> np.ndarray:
         """Summed rewards of ``n_test_episodes`` greedy episodes run one
         after another (a batch would multiply the O(N²) peak), the
-        policy's output clipped to ±1."""
-        p = self.params
+        policy's output clipped to ±1: each reset eager, its steps through
+        :meth:`_eval_program` (the eager loop with ``graph=False``)."""
+        T = self.params.episode_steps
+        prog = None if self._graph is False else self._eval_program()
+
+        def body(gen, steps):
+            prog.outputs[0].zero_()
+            self._greedy_steps(prog.inputs, gen, prog.outputs[0], steps)
+
         out = []
-        with torch.no_grad():
-            for _ in range(self.cfg.n_test_episodes):
-                x, hist, pos = self._start()
+        for _ in range(self.cfg.n_test_episodes):
+            start = self._start()
+            if prog is None:
                 total = torch.zeros((), device=self.device)
-                for _ in range(p.episode_steps):
-                    adjs = dense_adj_from_pos(pos, p.comm_radius)
-                    act = torch.clamp(
-                        actor_forward_adj(self.actor, hist, adjs), -1.0, 1.0)
-                    x = dynamics(x, act, p, self.gen)
-                    fq = self._frame(x)
-                    hist, pos = self._advance(x, fq, hist, pos)
-                    total = total + reward(x)
-                out.append(total)
+                self._greedy_steps(start, self.gen, total, T)
+            else:
+                prog.run(start, self.gen, lambda gen: body(gen, T),
+                         lambda gen: body(gen, min(WARMUP_STEPS, T)))
+                total = prog.outputs[0].clone()
+            out.append(total)
         return torch.stack(out).cpu().numpy()
 
 

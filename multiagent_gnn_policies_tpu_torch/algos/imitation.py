@@ -142,21 +142,28 @@ def _sync(device: torch.device) -> None:
 MODES = ("eval", "cloning", "dagger", "expert")
 
 
-def _episode_steps(env: FlockingEnv, actor, k: int, mode: str,
-                   state: EnvState, obs, coins, gen, total: torch.Tensor,
-                   collect: bool, centralized: bool, steps: int):
+def _episode_steps(env: FlockingEnv, actor, acfg: Optional[ActorConfig],
+                   mode: str, state: EnvState, obs, coins, gen,
+                   total: torch.Tensor, collect: bool, centralized: bool,
+                   steps: int):
     """``steps`` env steps of :func:`rollout_episode` from ``state`` and
     its observation ``obs``, each step's reward added into ``total`` in
     place. Returns the per-step pre-aggregated features and expert actions
     (empty lists without ``collect``). The eager loop and the episode
     program both run it."""
     gs = (None if mode == "expert"
-          else initial_graph_state(obs.values, obs.network, k))
+          else initial_graph_state(obs.values, obs.network, acfg.k))
+    # an actor that aggregates past its first layer (DDPG's, ind_agg > 0)
+    # reads the delayed pair itself
+    inner = acfg is not None and acfg.ind_agg > 0
     aggs, acts = [], []
     for t in range(steps):
-        agg = None if gs is None else aggregate(gs.delay_gso, gs.delay_state)
+        agg = (None if gs is None or inner
+               else aggregate(gs.delay_gso, gs.delay_state))
         if mode == "eval":
-            act, expert = actor(agg), None
+            act = (actor(gs.delay_state, gs.delay_gso) if inner
+                   else actor(agg))
+            expert = None
         else:
             expert = env.controller(state, centralized)
             act = (torch.where(coins[t][:, None, None], expert, actor(agg))
@@ -171,7 +178,7 @@ def _episode_steps(env: FlockingEnv, actor, k: int, mode: str,
     return aggs, acts
 
 
-class DenseEpisodeProgram:
+class DenseEpisodeProgram(graphs.Program):
     """The ``T`` steps behind a dense episode's reset, for one static setup
     (env, actor widths, mode, ``n_envs``, ``collect``, ``centralized``), as
     one CUDA graph: the counterpart of the JAX package's ``lax.scan`` of
@@ -189,17 +196,18 @@ class DenseEpisodeProgram:
     the outputs, which every run rewrites), then captures; the stochastic
     variant's noise comes from the program's own generator, handed over
     as ``utils/graphs.py`` says. ``DenseEpisodeProgram.captures`` counts
-    the captures of the process."""
+    the captures of the process (``graphs.Program.captures`` counts them
+    with every other program's)."""
 
     captures = 0
 
     def __init__(self, env: FlockingEnv, acfg: Optional[ActorConfig],
                  mode: str, n_envs: int, collect: bool, centralized: bool,
                  device):
+        super().__init__(device, env.params.dynamics_noise > 0)
         self.env, self.acfg, self.mode = env, acfg, mode
         self.collect, self.centralized = collect, centralized
-        self.device = dev = graphs.device_of(device)
-        p = env.params
+        dev, p = self.device, env.params
         self.rewards = torch.zeros(n_envs, device=dev)
         self.agg = self.act = None
         if collect:
@@ -207,20 +215,16 @@ class DenseEpisodeProgram:
                                     p.n_agents, acfg.n_s), device=dev)
             self.act = torch.zeros((n_envs, p.episode_steps, p.n_agents,
                                     acfg.n_a), device=dev)
-        self._inputs = None
-        self._gen = graphs.program_generator(dev, p.dynamics_noise > 0)
-        self._graph = self._actor = None
-        self.capture_s = self.instantiate_s = self.pool_mb = None
+        self._actor = None
 
     def _body(self, actor, gen, steps: int) -> None:
-        x, *rest = self._inputs
+        x, *rest = self.inputs
         obs = None if self.mode == "expert" else Obs(*rest[:2])
         coins = rest[-1] if self.mode == "dagger" else None
         self.rewards.zero_()
         aggs, acts = _episode_steps(
-            self.env, actor, None if self.acfg is None else self.acfg.k,
-            self.mode, EnvState(x, 0), obs, coins, gen, self.rewards,
-            self.collect, self.centralized, steps)
+            self.env, actor, self.acfg, self.mode, EnvState(x, 0), obs,
+            coins, gen, self.rewards, self.collect, self.centralized, steps)
         if self.collect:
             torch.stack(aggs, 1, out=self.agg[:, :steps])
             torch.stack(acts, 1, out=self.act[:, :steps])
@@ -236,27 +240,15 @@ class DenseEpisodeProgram:
         steps = self.env.params.episode_steps
         inputs = [x, *(obs or ()), *(() if coins is None else (coins,))]
         with torch.no_grad():
-            if self._inputs is None:
-                self._inputs = [t.clone() for t in inputs]
-            else:
-                for d, t in zip(self._inputs, inputs, strict=True):
-                    d.copy_(t)
-            if self.device.type != "cuda":
-                self._body(actor, gen, steps)
-                return
-            if self.mode in ("eval", "dagger"):
-                self._actor = graphs.actor_copy(self._actor, actor)
-            if self._graph is None:
-                (self._graph, self.capture_s, self.instantiate_s,
-                 self.pool_mb) = graphs.capture(
-                    self.device,
-                    lambda: self._body(self._actor, self._gen,
-                                       min(WARMUP_STEPS, steps)),
-                    lambda: self._body(self._actor, self._gen, steps),
-                    self._gen)
-                DenseEpisodeProgram.captures += 1
-            with graphs.generator_handover(self._gen, gen, self.device):
-                self._graph.replay()
+            if self.device.type == "cuda":
+                if self.mode in ("eval", "dagger"):
+                    self._actor = graphs.actor_copy(self._actor, actor)
+                actor = self._actor
+            captures = graphs.Program.captures
+            super().run(
+                inputs, gen, lambda g: self._body(actor, g, steps),
+                lambda g: self._body(actor, g, min(WARMUP_STEPS, steps)))
+            DenseEpisodeProgram.captures += graphs.Program.captures - captures
 
 
 @functools.lru_cache(maxsize=PROGRAMS_KEPT)
@@ -277,7 +269,8 @@ def rollout_episode(actor: Optional[Actor], gen: Optional[torch.Generator],
                     centralized: bool = True, graph=None):
     """``n_envs`` episodes of ``episode_steps`` steps, run as one batch.
 
-    ``mode`` is "eval" (greedy policy), "cloning" (expert actions),
+    ``mode`` is "eval" (greedy policy; an actor with ``ind_agg > 0``,
+    DDPG's, reads the delayed pair), "cloning" (expert actions),
     "dagger" (per step and episode, the expert's action where the coin
     ``rand < beta`` falls, else the policy's) or "expert" (the analytic
     expert, ``centralized`` or not, with no graph state and no records:
@@ -334,8 +327,8 @@ def rollout_episode(actor: Optional[Actor], gen: Optional[torch.Generator],
         else:
             total = torch.zeros(n_envs, device=device)
             aggs, acts = _episode_steps(
-                env, actor, None if acfg is None else acfg.k, mode, state,
-                obs, coins, gen, total, collect, centralized, T)
+                env, actor, acfg, mode, state, obs, coins, gen, total,
+                collect, centralized, T)
             if collect:
                 samples = {"agg": torch.stack(aggs, 1).flatten(0, 1),
                            "act": torch.stack(acts, 1).flatten(0, 1)}
@@ -433,24 +426,11 @@ class UpdateProgram:
         return self.loss_sum.clone()
 
     def _capture(self) -> None:
-        params = list(self.actor.parameters())
-        state = self.opt.state
-        saved = [p.detach().clone() for p in params]
-        moments = {p: {k: v.clone() for k, v in state[p].items()}
-                   for p in params if p in state}
-
         def warmup():
+            saved = graphs.Snapshot(list(self.actor.parameters()), [self.opt])
             for _ in range(WARMUP_STEPS):
                 self._body(self._gen)
-            with torch.no_grad():
-                for p, v in zip(params, saved, strict=True):
-                    p.copy_(v)
-                    for k, st in state[p].items():
-                        if p in moments:
-                            st.copy_(moments[p][k])
-                        else:
-                            st.zero_()
-            self.opt.zero_grad(set_to_none=True)
+            saved.restore()
 
         (self._graph, self.capture_s, self.instantiate_s,
          self.pool_mb) = graphs.capture(

@@ -17,7 +17,8 @@ train through the large-N learners: DAGGER and cloning through
 replay), DDPG through ``algos/ddpg_large.py`` (the positions record); the
 others through the dense ones. On one card the imitation learners and
 the baseline run their episodes' steps and their Adam updates as CUDA
-graphs (``algos/imitation.py``'s programs); DDPG runs eagerly.
+graphs (``algos/imitation.py``'s programs), and DDPG its training
+episodes, gradient steps included, and its evals (``algos/ddpg.py``).
 
 Actor exports go to ``runs/torch/models/actor_{env}_{fname}[.npz]`` under
 the working directory, never over the checkpoints in ``models/``; DDPG

@@ -3,8 +3,10 @@
 The port compiles what the JAX package compiles into one program (a
 jitted ``lax.scan``) as CUDA graphs: the large-N episode
 (``parallel/large_n.py:EpisodeProgram``), the dense episode and the
-learners' Adam update (``algos/imitation.py``). Each program captures its
-body once and replays it; this module holds what they share:
+learners' Adam update (``algos/imitation.py``), and DDPG's training
+episode and eval (``algos/ddpg.py``, ``algos/ddpg_large.py``). Each
+program captures its body once and replays it; this module holds what
+they share:
 
 * one capture stream and one memory pool per device. A graph keeps no
   value in the pool from one replay to the next (its outputs are static
@@ -20,7 +22,11 @@ body once and replays it; this module holds what they share:
   it;
 * :func:`actor_copy`: a program that reads a policy keeps its own copy of
   the parameters (a graph reads them by address), refreshed from the
-  caller's actor before each replay.
+  caller's actor before each replay;
+* :class:`Snapshot`: what a warm-up writes of a learner's state
+  (parameters, Adam's state, ...), restored in place after it;
+* :class:`Program`: a body over static inputs and outputs, captured at
+  its first run on the card and replayed, run eagerly on the CPU.
 
 A failure to capture or to replay raises; nothing falls back to the eager
 loop.
@@ -31,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import time
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -160,3 +166,86 @@ def actor_copy(own: Optional[torch.nn.Module],
                              f"{tuple(d.shape)}")
         d.copy_(s)
     return own
+
+
+def _opt_params(opt: torch.optim.Optimizer) -> list:
+    return [p for g in opt.param_groups for p in g["params"]]
+
+
+class Snapshot:
+    """Copies of what a warm-up writes, restored in place after it: the
+    ``tensors`` (parameters, a buffer's device size, ...) and the Adam
+    states of ``optimizers``, zeros where Adam had no state yet (the state
+    it starts from). The restore also drops every gradient of the
+    optimizers' parameters, so that a captured backward allocates its
+    own."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor],
+                 optimizers: Sequence[torch.optim.Optimizer] = ()):
+        # opt.state is a defaultdict: read it with get, which inserts no
+        # empty state
+        self._tensors = [(t, t.detach().clone()) for t in tensors]
+        self._opts = [(opt, {p: {k: v.clone() for k, v in st.items()}
+                             for p in _opt_params(opt)
+                             if (st := opt.state.get(p))})
+                      for opt in optimizers]
+
+    def restore(self) -> None:
+        with torch.no_grad():
+            for t, v in self._tensors:
+                t.copy_(v)
+            for opt, saved in self._opts:
+                for p in _opt_params(opt):
+                    for k, st in opt.state.get(p, {}).items():
+                        if p in saved:
+                            st.copy_(saved[p][k])
+                        else:
+                            st.zero_()
+        for opt, _ in self._opts:
+            opt.zero_grad(set_to_none=True)
+
+
+class Program:
+    """A body that reads the static ``inputs`` and writes the static
+    ``outputs``: the inputs are copied in before each run; everything else
+    it reads or writes (parameters, Adam's state, a buffer) it reads by
+    address, so the caller updates or loads those in place. On the CPU
+    :meth:`run` runs the body eagerly with the caller's generator. On the
+    card the first run captures it (:func:`capture`, after its warm-up)
+    and every run replays it, drawing from the program's own generator
+    when it ``draws`` (:func:`generator_handover`). ``Program.captures``
+    counts the captures of the process."""
+
+    captures = 0
+
+    def __init__(self, device, draws: bool,
+                 outputs: Sequence[torch.Tensor] = ()):
+        self.device = device_of(device)
+        self.inputs: Optional[list] = None
+        self.outputs = list(outputs)
+        self._gen = program_generator(self.device, draws)
+        self._graph = None
+        self.capture_s = self.instantiate_s = self.pool_mb = None
+
+    def run(self, inputs: Sequence[torch.Tensor],
+            gen: Optional[torch.Generator],
+            body: Callable[[Optional[torch.Generator]], None],
+            warmup: Callable[[Optional[torch.Generator]], None]) -> None:
+        """``body(gen)`` on ``inputs``; ``warmup(gen)`` runs before the
+        capture and must leave the state as it found it."""
+        with torch.no_grad():
+            if self.inputs is None:
+                self.inputs = [t.to(self.device, copy=True) for t in inputs]
+            else:
+                for d, t in zip(self.inputs, inputs, strict=True):
+                    d.copy_(t)
+        if self.device.type != "cuda":
+            body(gen)
+            return
+        if self._graph is None:
+            (self._graph, self.capture_s, self.instantiate_s,
+             self.pool_mb) = capture(self.device, lambda: warmup(self._gen),
+                                     lambda: body(self._gen), self._gen)
+            Program.captures += 1
+        with generator_handover(self._gen, gen, self.device):
+            self._graph.replay()

@@ -1086,3 +1086,187 @@ def test_graph_true_raises_on_a_one_rank_mesh_on_gpu():
         assert lrn._updates is None and lrn._graph is False
     finally:
         dist.destroy_process_group()
+
+
+# --- the compiled DDPG episode ----------------------------------------------
+
+# Each config cut in depth (T, batch, buffer) so that three episodes open
+# the update gate after the episode, mid-episode and at the first step,
+# and the buffer wraps in the third.
+DDPG_GRAPH_CUTS = {("ddpg_toy", "test"): (40, 60, 100),
+                   ("ddpg", "test"): (60, 100, 150),
+                   ("ddpg_n4k", "n4k"): (6, 8, 16)}
+
+
+def _ddpg_learner(config, graph=None, seed=None):
+    """The learner of a ``cfg/ddpg*.cfg`` section at its full width, cut in
+    depth as DDPG_GRAPH_CUTS says, routed as the train CLI routes it."""
+    import dataclasses
+    import pathlib
+
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg import DDPG, DDPGConfig
+    from multiagent_gnn_policies_tpu_torch.algos.ddpg_large import DDPGLarge
+    from multiagent_gnn_policies_tpu_torch.utils.config import (
+        ExperimentConfig, load_ini)
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "cfg" / (
+        f"{config[0]}.cfg")
+    xcfg = ExperimentConfig.from_section(load_ini(str(path))[config[1]])
+    steps, batch, cap = DDPG_GRAPH_CUTS[config]
+    cfg = DDPGConfig.from_experiment(xcfg)
+    cfg = dataclasses.replace(
+        cfg, batch_size=batch, buffer_size=cap,
+        seed=cfg.seed if seed is None else seed,
+        env=dataclasses.replace(cfg.env, episode_steps=steps))
+    cls = DDPGLarge if xcfg.n_agents > 1024 else DDPG
+    return cls(cfg, device="cuda", graph=graph)
+
+
+def _no_sync(fn, *args):
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("config", list(DDPG_GRAPH_CUTS),
+                         ids=[c[0] for c in DDPG_GRAPH_CUTS])
+def test_ddpg_graph_episodes_equal_the_eager_loop_on_gpu(config):
+    """Three training episodes through the CUDA graphs (one per gate step:
+    after the episode, mid-episode, the first step; the buffer wraps in
+    the third) against the eager loop (``graph=False``): each episode's
+    summed reward and losses, then the whole training state (networks,
+    targets, both Adam states, the buffer, the generator) bit for bit; a
+    fourth episode's replay (behind its eager reset) under CUDA's sync
+    debug mode "error", bit for bit again."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.utils import graphs
+
+    prog, eager = _ddpg_learner(config, True), _ddpg_learner(config, False)
+    steps, batch, _ = DDPG_GRAPH_CUTS[config]
+    opens = []
+    for ep in range(3):
+        opens.append(prog._gate_opens())
+        got, want = prog.episode(), eager.episode()
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), ep
+    assert opens == [steps, batch - steps, 0]
+    assert float(got[1]) > 0.0 and prog.buffer.cursor < steps
+    _same_learners(prog, eager)
+    captures = graphs.Program.captures
+    start = prog._start()
+    got = _no_sync(prog._run_program, start, None, None, 0)
+    assert graphs.Program.captures == captures
+    want = eager.episode()
+    assert torch.equal(got, torch.stack(want))
+    _same_learners(prog, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env", ["FlockingRelative-v0",
+                                 "FlockingStochastic-v0"])
+def test_ddpg_eval_programs_equal_the_eager_loops_on_gpu(env):
+    """The dense eval (``eval_episodes``, 10 episodes as one batch) through
+    its episode program, a capture and a replay, and the positions
+    record's eval (3 episodes, each replayed behind its reset) against the
+    eager loops: rewards and the generator's state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    import dataclasses
+
+    from multiagent_gnn_policies_tpu_torch.algos import ddpg as tdd
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import make_env
+
+    lrn = _ddpg_learner(("ddpg", "test"), False)
+    e = make_env(env, lrn.cfg.env)
+    out = []
+    for graph in (False, True, True):        # eager, capture, replay
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        r = tdd.eval_episodes(lrn.actor, e, lrn.cfg.actor, gen, 10,
+                              graph=graph)
+        out.append((r, gen.get_state()))
+    for r, g in out[1:]:
+        assert torch.equal(r, out[0][0]) and torch.equal(g, out[0][1])
+    large = [_ddpg_learner(("ddpg_n4k", "n4k"), graph) for graph in
+             (True, False)]
+    noise = 0.1 if env == "FlockingStochastic-v0" else 0.0
+    for lrn in large:
+        lrn.params = dataclasses.replace(lrn.params, dynamics_noise=noise)
+    for _ in range(2):
+        got, want = (lrn.eval_rewards() for lrn in large)
+        assert (got == want).all() and torch.equal(
+            large[0].gen.get_state(), large[1].gen.get_state())
+
+
+@pytest.mark.gpu
+def test_ddpg_resume_into_a_learner_that_captured_on_gpu(tmp_path):
+    """A learner whose episode graphs were captured (another seed's three
+    episodes) loads a state file saved after two episodes in place and
+    replays the graph it has, captured again never: its third episode
+    equals the uninterrupted run's training state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+    from multiagent_gnn_policies_tpu_torch.utils import graphs
+
+    config = ("ddpg_toy", "test")
+    state = str(tmp_path / "state.npz")
+    full = _ddpg_learner(config)
+    full.train(stop_after=3)
+    part = _ddpg_learner(config)
+    assert part.train(state_path=state, stop_after=2)["interrupted"]
+    rest = _ddpg_learner(config, seed=9)
+    rest.train(stop_after=3)
+    captures = (graphs.Program.captures, tim.DenseEpisodeProgram.captures)
+    rest.load_training_state(state)
+    rest.train(stop_after=3)
+    assert (graphs.Program.captures,
+            tim.DenseEpisodeProgram.captures) == captures
+    _same_learners(full, rest)
+
+
+@pytest.mark.gpu
+def test_ddpg_capturable_adam_against_adam_on_gpu():
+    """The capturable Adam the learner builds on the card against the Adam
+    without it, five gradient steps on the same batches of the buffer an
+    episode filled: every network and target within 1e-6 of each tensor's
+    largest magnitude (the tolerance ``tests/test_torch_imitation.py``
+    holds Adam to against optax.adam) plus what the capturable Adam's
+    float32 bias corrections allow. It computes ``1 - beta2 ** t`` in
+    float32 on the device (as optax does), the Adam without it in double
+    on the host: at t = 1 the float32 difference ``1 - 0.999`` is
+    1.3e-5 off, which moves an update (at most ADAM_STEP_MAX · lr) by
+    that share. A small tensor (the critic's output bias, ~1e-3) shows
+    it: 2e-6 to 2e-5 of its magnitude per step on the card, where two
+    capturable Adams agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import numpy as np
+
+    config = ("ddpg_toy", "test")
+    lrn, ref = _ddpg_learner(config, False), _ddpg_learner(config, False)
+    assert lrn.actor_opt.defaults["capturable"]
+    ref.actor_opt = torch.optim.Adam(ref.actor.parameters(),
+                                     lr=ref.cfg.actor_lr)
+    ref.critic_opt = torch.optim.Adam(ref.critic.parameters(),
+                                      lr=ref.cfg.critic_lr)
+    lrn.episode()                  # 40 records; the gate stays closed
+    draws = torch.Generator(device="cuda").manual_seed(2)
+    steps = 5
+    for _ in range(steps):
+        batch = lrn.buffer.sample(draws, 30)
+        lrn.gradient_step(batch)
+        ref.gradient_step(batch)
+    bc_rel = abs(float(np.float32(1.0) - np.float32(0.999)) / 0.001 - 1.0)
+    adam_step_max = (1 - 0.9) / (1 - 0.999) ** 0.5
+    for name, m in lrn._modules().items():
+        lr = lrn.cfg.actor_lr if name.startswith("actor") else (
+            lrn.cfg.critic_lr)
+        for g, w in zip(m.parameters(), ref._modules()[name].parameters()):
+            err = float((g - w).abs().max())
+            bound = (1e-6 * float(w.abs().max())
+                     + steps * adam_step_max * lr * bc_rel)
+            assert err <= bound, (name, err, bound)
