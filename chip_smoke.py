@@ -10,7 +10,7 @@ as the episode program's CUDA graph (``parallel/large_n.py``), whose
 replay calls no kernel wrapper: the wrappers' counters count the eager
 launches and those a capture records. So the runs whose launches the
 ``kernels`` line reports or that hold the graph to its count (phases 4,
-13 (b) at N = 32,768 and 20) go under torch.profiler, and their launches
+13 (b) at N = 32,768, 16 (b), 18 (b) and 20) go under torch.profiler, and their launches
 are the kernels the device ran, read from the trace's kernel names
 (``cells_cuda.device_launches``, which checks that the trace is whole):
 per K = 3 episode K1 201 times and K2 and K3 200 times each, plus, for
@@ -192,24 +192,26 @@ are counted).
 15. tools: each measurement tool's ``main(argv)`` in-process on the
     card, its output printed indented; a non-zero exit, a ``[FAIL]`` or a
     SUSPECT line fails the phase. Cut in depth: ``bench --reps 1 --chains
-    1 --no-large-n`` (one timed call of the single-env and 128-env
-    figures and one sustained chain of 8 batches, not 5, 5 and 2; no
-    large-N detail; the one-thread baseline in its subprocess as always;
-    its JSON line must parse with the four keys); ``smoke_env --episodes
+    1 --steps 100 --no-large-n`` (one timed call of the single-env and
+    128-env figures and one sustained chain of 8 batches, not 5, 5 and 2,
+    of 100-step episodes, not 200; no large-N detail; the one-thread
+    baseline in its subprocess as always; its JSON line must parse with
+    the four keys); ``smoke_env --episodes
     1`` (all five envs, 1 episode each, not 2); ``bench_large_n --n 10000
     --paths blocked cells binned pcells --steps 10 --repeats 1 --episodes
     1`` (10-step episodes, not 25: a first one, 1 timed chain of 1, not 3
     of 2, and one profiled; cut from 25 steps and 2 chains when the cells
     and binned rows joined, to hold the run's budget) and ``--n 1000000
-    --paths pcells --steps 25 --edge-mult 2 --cap 32 --repeats 2
-    --episodes 1`` (25-step episodes: a first one, 2 timed chains of 1,
+    --paths pcells --steps 25 --edge-mult 2 --cap 32 --repeats 1
+    --episodes 1`` (25-step episodes: a first one, 1 timed chain of 1,
     not 3 of 2, and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
-    the 1M geometry kept); ``run_1m`` at its full N = 1,000,000, T = 200,
-    edge_mult 2, cap 32 (two episodes and the second again under
-    torch.profiler; it exits 1 unless overflow 0, finite rewards and, in
-    the trace, launches 201/200/200); and
-    ``profile_large_n --n 100000 --steps 10`` (not 25), its trace in a
-    temporary directory;
+    the 1M geometry kept); ``run_1m --steps 100`` at its full N =
+    1,000,000, edge_mult 2, cap 32, T = 100, not 200 (two episodes and the
+    second again under torch.profiler; it exits 1 unless overflow 0,
+    finite rewards and, in the trace, launches 101/100/100); and
+    ``profile_large_n --n 100000 --steps 5`` (not 25), its trace in a
+    temporary directory. Each cut holds the run's budget as the slices'
+    phases join;
 16. mesh, the agent-sharded path (every rank sweeps its band of grid
     rows and a collective completes the tables; the card is one, so D
     ranks' bands run one after another). (a) A perturbed lattice at N =
@@ -219,30 +221,53 @@ are counted).
     tolerance, degrees and min r^2 exact), and the D bands' sum equal to
     the full launch bit for bit. (b) A one-rank NCCL process group
     (``tcp://127.0.0.1:<free port>``) and ``make_mesh(1, 1)``: phase 4's
-    episode through the evaluate entry point with that mesh (the sharded
-    grid build, the all_reduce completions, the sharded actor and its
-    all_gather): the counters zeroed before must read 201/200/200 after,
-    overflow 0, and the reward equal phase 4's bit for bit. (c) On that
-    mesh, ``rollout_large(force_n_dev=4)`` at N = 100,000 for 25 steps
-    (and the real one-rank mesh beside it): ms per step and device-busy
-    ms per step printed, not gated; the emulated run's results are not
-    valid by design. The group is destroyed after; any failure raises;
+    episode through the evaluate entry point with that mesh, its steps
+    one CUDA graph with the band's collectives captured in it (the
+    sharded grid build's gathers, the all_reduce completions, the sharded
+    actor's all_gather): overflow 0 and the reward equal phase 4's bit
+    for bit; then the same episode through ``rollout_large(mesh=)``
+    replayed under CUDA's sync debug mode "error", replayed under the
+    profiler, and eagerly (``graph=False``): rewards, final state and
+    overflow bit for bit, launches as phase 20 (a) wants them (203/202/202
+    counted for the capturing episode, 201/200/200 in the device's trace
+    of the replay and counted for the eager loop); capture and instantiate seconds, the pool's
+    growth, and ms, busy ms, idle share and device ops per step of one
+    more episode of each loop; then a program of that setup whose step
+    waits for the device (a read on the host, before its first
+    collective): its capture must raise and leave no graph, nothing
+    falling back to the eager loop. (c) On that mesh,
+    ``rollout_large(force_n_dev=4)`` at N = 100,000 for 25 steps (and the
+    real one-rank mesh beside it), each through its graph (the emulated
+    rank holds no collective) and eagerly: bit for bit, and ms, busy ms,
+    idle share and device ops per step of each loop printed, not gated;
+    the emulated run's results are not valid by design. The programs are
+    dropped and the group destroyed after; any failure raises;
 18. dp training, this slice's main path (data-parallel imitation
     training) on a one-rank NCCL process group and ``make_mesh(1, 1)``, as
     phase 16 (b) builds them. (a) ``cfg/dagger.cfg [test]`` at full width,
-    1 round through ``ShardedImitationLearner`` against the one-process
-    learner's first round from the same seed: parameters within 1e-6 (bit
-    for bit expected; the max difference printed), no cell kernel
-    launched. (b) ``cfg/dagger_n32k.cfg [n32k]`` at full width, cut in
+    1 round through ``ShardedImitationLearner``'s programs (its slice of
+    the envs through the dense episode program, each Adam update with its
+    gradient all_reduce through the update program) against the
+    one-process learner's first round from the same seed: parameters
+    within 1e-6 (bit for bit expected; the max difference printed), and
+    against its eager twin (``graph=False``) bit for bit; no cell kernel
+    launched; ms, busy ms, idle share and device ops per update of each
+    loop's sharded Adam updates. (b) ``cfg/dagger_n32k.cfg [n32k]`` at full width, cut in
     depth as phase 11 is (LARGE_BUFFER records, 1 eval episode), 1 round of
-    ``LargeNImitationLearner`` on that ``("env", "agents")`` mesh, the
-    counters zeroed just before and read just after: 201/200/200 for each
-    of its collection and eval episodes, overflow 0 (the gates raise
-    otherwise), parameters and buffer equal to the no-mesh learner's first
-    round bit for bit; collection ms per env step and ms per Adam update of
-    both printed beside phase 11's. (c) The same learner with one slot per
-    cell (``cell_cap`` 1): the round's overflow gate raises on the rank
-    within DP_OVERFLOW_S, nothing stored. The group is destroyed after;
+    ``LargeNImitationLearner`` on that ``("env", "agents")`` mesh through
+    its programs (the banded collection and eval episodes as CUDA graphs
+    with their collectives), under the profiler: the device's trace must
+    show 203/202/202 for each of its collection and eval episodes (each
+    captured: the reset, the 2 warm-up steps, the 200 replayed steps),
+    overflow 0 (the gates raise otherwise); the training state equal to
+    its eager twin's and the parameters and buffer to the no-mesh
+    learner's first round bit for bit; collection ms per env step and ms
+    per Adam update of the three printed beside phase 11's; then ms, busy
+    ms, idle share and device ops per step (per update) of one more
+    collection episode and Adam updates of each loop. (c) The same learner with
+    one slot per cell (``cell_cap`` 1): the round's overflow gate raises on
+    the rank within DP_OVERFLOW_S, nothing stored. The programs are
+    dropped and the group destroyed after;
 19. backends: the cells and binned graph backends (``ops/cells.py``,
     ``ops/binned.py``; plain PyTorch, no cell kernel). (a) A lattice reset
     at N = 32,768 and BACKEND_STEPS policy steps on the pcells path, as
@@ -258,8 +283,10 @@ are counted).
     then BACKEND_PARITY_STEPS-step episodes from one x0 on pcells, cells
     and binned: rewards and final states within 1e-4 of pcells'. (c) One
     round of ``cfg/dagger_n32k.cfg [n32k]`` with ``graph_path = cells``
-    and ``cell_cap = BACKEND_CELL_CAP``, cut in depth as phase 11 (LARGE_BUFFER records, 1 eval episode):
-    finite loss sum, overflow 0 (the gate raises otherwise), no cell
+    and ``cell_cap = BACKEND_CELL_CAP``, cut in depth as phase 11
+    (LARGE_BUFFER records, 1 eval episode) and to BACKEND_LEARNER_STEPS
+    steps per episode, not 200 (the cells step takes ~25 ms): finite loss
+    sum, overflow 0 (the gate raises otherwise), no cell
     kernel launched (counted);
     collection ms per env step and ms per Adam update printed. (d) On a
     one-rank NCCL group and ``make_mesh(1, 1)``, built as phase 18 builds
@@ -274,10 +301,11 @@ are counted).
     "error" (no host synchronisation from the eager reset to the
     generator's hand-back), a third replaying, counted, and eagerly,
     counted: rewards, final state and overflow bit for bit, the reward
-    equal to phase 4's; launches on the device 201/200/200 for the replay
-    and the eager episode and 203/202/202 for the capturing one (its
-    warm-up), the wrappers' calls equal to them eagerly and at the
-    capture and the reset's K1 alone for the replay; ms per step, device
+    equal to phase 4's; launches on the device (the replay's read from
+    its trace) 201/200/200 for the replay and the eager episode and
+    203/202/202 for the capturing one (its warm-up), the wrappers' calls
+    equal to them eagerly and at the capture and the reset's K1 alone for
+    the replay; ms per step, device
     busy ms, idle share and device ops per step of one more episode of
     each. (b) One DAGGER collection episode of the ``[n32k]`` learner's
     setup (S = 4,096, beta 0.5) through the graph (capture, then replay)
@@ -311,10 +339,9 @@ are counted).
 Then, before the last line: the card's nvidia-smi line and one JSON object
 ``{"kernels": [...]}``, one entry per kernel and column width the run
 launched (K1; K2 at 6, 12 and 18; K3 at 6 and 12): launches on the main
-paths (phase 13 (b), every K at N = 32,768 through the graph, read from
-the device's trace, and phase 18 (b), this slice's mesh training round,
-at K = 3's widths, the eager loop, its counters zeroed just before and
-read just after), max abs error
+paths (phase 13 (b), every K at N = 32,768 through the graph, and phase
+18 (b), the mesh training round through its graphs, at K = 3's widths,
+each read from the device's trace of the run), max abs error
 against the plain version, ms, plain ms, the bound worked out from this
 run's bytes and operations, and the PyTorch library time, null: no
 PyTorch call computes these sweeps. K1, K2 at 12 and K3 at 6 are timed
@@ -435,6 +462,7 @@ BACKEND_PATHS = ("cells", "binned")   # phase 19: the other graph backends
 BACKEND_STEPS = 3             # (a): policy steps before the checks
 BACKEND_PARITY_STEPS = 20     # (b): pcells, cells, binned from one x0
 BACKEND_MESH_STEPS = 25       # (d): mesh vs no mesh
+BACKEND_LEARNER_STEPS = 50    # (c): the cells learner's episodes
 # (b)-(d): the cells grid's slots per cell for the n32k policy. At the
 # module's default of 12 one agent of a 200-step episode overflowed (a
 # cell of 13); 16 is the pcells grid's capacity
@@ -1092,6 +1120,7 @@ def tools_phase(cc):
 
     out = {}
     text, out["bench_s"] = _tool(bench.main, ["--reps", "1", "--chains", "1",
+                                              "--steps", "100",
                                               "--no-large-n"])
     line = json.loads(text.strip())
     if (set(line) != {"metric", "value", "unit", "vs_baseline"}
@@ -1107,17 +1136,17 @@ def tools_phase(cc):
         "--steps", "10", "--repeats", "1", "--episodes", "1"])
     _, s = _tool(bench_large_n.main, [
         "--n", "1000000", "--paths", "pcells", "--edge-mult", "2", "--cap",
-        "32", "--steps", "25", "--repeats", "2", "--episodes", "1"])
+        "32", "--steps", "25", "--repeats", "1", "--episodes", "1"])
     out["bench_large_n_s"] += s
     text, out["verify_cells_s"] = _tool(verify_cells.main, ["--quick"])
     if "[FAIL]" in text or "ALL PASSED" not in text:
         raise AssertionError("verify_cells --quick failed")
-    text, out["run_1m_s"] = _tool(run_1m.main, [])
+    text, out["run_1m_s"] = _tool(run_1m.main, ["--steps", "100"])
     out["run_1m_ms_per_step"] = float(
         re.search(r"steady: ([0-9.]+) ms/step", text).group(1))
     with tempfile.TemporaryDirectory() as tmp:
         _, out["profile_large_n_s"] = _tool(profile_large_n.main, [
-            "--n", "100000", "--steps", "10", "--out", tmp])
+            "--n", "100000", "--steps", "5", "--out", tmp])
     cc.reset_launch_counts()
     return out
 
@@ -1136,13 +1165,14 @@ def _param_diff(torch, a, b):
             all(torch.equal(got[k], want[k]) for k in want))
 
 
-def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
+def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
                _init_candidate, load_ini, reward):
     """Phase 16: the agent-sharded path on the card (module docstring):
     (a) the bands of K1-K3 against the full launches and their plain band
     versions at N = MESH_N, (b) a one-rank NCCL mesh through the evaluate
-    entry point against phase 4's reward, (c) force_n_dev band timing.
-    Returns what the phase line prints."""
+    entry point and its CUDA graph against the eager loop and phase 4's
+    reward, (c) force_n_dev band timing, graph and eager. Returns what the
+    phase line prints."""
     from multiagent_gnn_policies_tpu_torch.parallel import distributed
     from multiagent_gnn_policies_tpu_torch.parallel import mesh as pm
 
@@ -1194,67 +1224,140 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
                   f"bit", flush=True)
     out["band_max_abs_err"] = band_err
 
-    # (b) a one-rank NCCL mesh through the evaluate entry point
+    # (b) a one-rank NCCL mesh: phase 4's episode through the evaluate
+    # entry point (its program captured with the band's collectives), a
+    # replay under sync debug mode "error", a replay and the eager loop
     distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     try:
         mesh = pm.make_mesh(1, 1)
         section = load_ini(CONFIG)["n32k"]
-        cc.reset_launch_counts()
-        t = time.perf_counter()
-        stats = ev.evaluate_blocked(section, CHECKPOINT, n_agents=N,
-                                    n_episodes=1, device=DEVICE, mesh=mesh)
-        torch.cuda.synchronize()
-        episode_s = time.perf_counter() - t
-        launches = cc.launch_counts()
-        want = {"frame_sweep": 201, "apply_deg_sweep": 200,
-                "apply_sweep": 200}
-        if launches != want or stats["overflow"] != 0:
-            raise AssertionError(f"mesh episode: launches {launches}, "
-                                 f"overflow {stats['overflow']}")
-        if stats["mean"] != reward:
-            raise AssertionError(f"mesh episode reward {stats['mean']!r} != "
-                                 f"the single-device {reward!r}")
-        out.update(mesh_reward=repr(stats["mean"]),
-                   mesh_ms_per_step=f"{episode_s / 200 * 1e3:.3f}",
-                   mesh_launches=json.dumps(launches, separators=(",", ":")))
-
-        # (c) force_n_dev: one rank's program of a MESH_FORCE-rank mesh
-        acfg = ActorConfig(n_s=6, n_a=2, hidden=(32, 32), k=3)
+        # the capture's launches are the wrappers' calls (the reset, the
+        # warm-up, the recorded steps); the replay's come from the trace
+        stats, captured = _counted(cc, lambda: ev.evaluate_blocked(
+            section, CHECKPOINT, n_agents=N, n_episodes=1, device=DEVICE,
+            mesh=mesh))
+        if stats["overflow"] != 0 or stats["mean"] != reward:
+            raise AssertionError(f"mesh episode: reward {stats['mean']!r}, "
+                                 f"overflow {stats['overflow']} (phase 4: "
+                                 f"{reward!r})")
+        p, xcfg = _section_params(ExperimentConfig, section, N)
+        acfg = _section_actor_config(xcfg)
         actor = ev.load_actor(CHECKPOINT, acfg, dev)
+        kw = dict(centralized_expert=xcfg.centralized, return_overflow=True,
+                  cell_margin=xcfg.cell_margin, cap=xcfg.cell_cap or None,
+                  cell_edge_mult=xcfg.cell_edge_mult, device=DEVICE,
+                  mesh=mesh)
+
+        def episode(graph):
+            return ln.rollout_large(
+                actor, acfg, ev.episode_generator(xcfg.seed, 0, DEVICE), p,
+                graph=graph, **kw)
+
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced = episode(True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        graphed, replayed = _counted(cc, lambda: episode(True), traced=True)
+        eager, eagerly = _counted(cc, lambda: episode(False))
+        same = all(torch.equal(a, b) for run in (synced, graphed)
+                   for a, b in zip(run, eager))
+        prog = ln.episode_program(ln.make_config(
+            p, cap=kw["cap"], cell_margin=kw["cell_margin"],
+            cell_edge_mult=kw["cell_edge_mult"],
+            centralized=xcfg.centralized, mesh=mesh), acfg, p.episode_steps,
+            DEVICE)
+        total = float(graphed[0].sum())
+        print(f"#   mesh: phase 4's episode on a one-rank NCCL mesh through "
+              f"its CUDA graph (the collectives captured): reward {total}, "
+              f"eager {float(eager[0].sum())}, phase 4 {reward}; bit for "
+              f"bit {same}, a replay under sync debug mode \"error\"; "
+              f"launches: capture episode {captured}, replay {replayed}, "
+              f"eager {eagerly}; capture {prog.capture_s:.3f} s, instantiate "
+              f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB",
+              flush=True)
+        if not same or total != reward or int(graphed[2]):
+            raise AssertionError("the mesh graph episode differs from the "
+                                 "eager loop or phase 4")
+        _check_graph_launches(captured, replayed, eagerly)
+        out.update(mesh_reward=repr(total), mesh_bit_for_bit=same,
+                   mesh_launches=json.dumps(replayed.device,
+                                            separators=(",", ":")),
+                   mesh_capture_s=f"{prog.capture_s:.3f}",
+                   mesh_instantiate_s=f"{prog.instantiate_s:.3f}",
+                   mesh_pool_mb=f"{prog.pool_mb:.1f}")
+        out.update(_eager_and_graph_stats(torch, "mesh", episode,
+                                          p.episode_steps))
+        out["mesh_capture_failure"] = _mesh_capture_failure(
+            torch, ev, ln, prog.cfg, acfg, actor, xcfg.seed)
+
+        # (c) force_n_dev: one rank's program of a MESH_FORCE-rank mesh,
+        # and the real one-rank mesh, each eagerly and through its graph
         p100 = FlockingParams(n_agents=MESH_N, episode_steps=MESH_STEPS)
         for d in (1, MESH_FORCE):
-            def run():
+            def run(graph):
                 g = torch.Generator(device=dev).manual_seed(SEED)
                 return ln.rollout_large(actor, acfg, g, p100, device=dev,
-                                        mesh=mesh, force_n_dev=d)
-            run()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            run()
-            torch.cuda.synchronize()
-            ms = 1e3 * (time.perf_counter() - t) / MESH_STEPS
-            from torch.profiler import ProfilerActivity, profile
+                                        mesh=mesh, force_n_dev=d,
+                                        return_overflow=True, graph=graph)
 
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-            summary = summarize_trace(
-                trace_events(prof), MESH_STEPS, ms,
-                1e3 * (time.perf_counter() - t) / MESH_STEPS, top=3)
-            busy = ("not measured" if summary is None
-                    else f"{summary['busy_ms']:.4f}")
-            note = ("the real one-rank mesh" if d == 1 else
-                    "emulated rank 0 of 4, collectives replaced by local "
-                    "operations: its rewards are not valid by design")
-            print(f"#   force_n_dev={d} at N={MESH_N}, {MESH_STEPS} steps: "
-                  f"{ms:.4f} ms/step, busy {busy} ms/step ({note}; not "
-                  f"gated)", flush=True)
-            out[f"D{d}_ms_per_step"] = f"{ms:.4f}"
+            runs = [run(g) for g in (True, False, True)]
+            same = all(torch.equal(a, b) for r in runs[::2]
+                       for a, b in zip(r, runs[1]))
+            prog = ln.episode_program(ln.make_config(
+                p100, mesh=mesh, force_n_dev=d), acfg, MESH_STEPS, dev)
+            note = ("the real one-rank mesh, its collectives captured" if
+                    d == 1 else "emulated rank 0 of 4, collectives replaced "
+                    "by local operations: its rewards are not valid by "
+                    "design")
+            print(f"#   force_n_dev={d} at N={MESH_N}, {MESH_STEPS} steps "
+                  f"({note}): graph against eager bit for bit {same}; "
+                  f"capture {prog.capture_s:.3f} s, instantiate "
+                  f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"force_n_dev={d}: the graph differs "
+                                     f"from the eager loop")
+            out.update(_eager_and_graph_stats(torch, f"D{d}", run,
+                                              MESH_STEPS, "step"))
     finally:
+        # the programs' graphs name the group's communicator
+        ln.clear_programs()
         torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out
+
+
+def _syncing_step(cfg, actor, state, gen=None):
+    """The episode's step after a read of the overflow on the host: a
+    wait for the device, which a capture cannot hold."""
+    float(state.overflow)
+    import multiagent_gnn_policies_tpu_torch.parallel.large_n as ln
+
+    return ln._step(cfg, actor, state, gen)
+
+
+def _mesh_capture_failure(torch, ev, ln, cfg, acfg, actor, seed):
+    """A mesh program whose step waits for the device (before its first
+    collective): its capture must raise, leave no graph and return no
+    result (nothing falls back to the eager loop). Returns the error's
+    first words."""
+    prog = ln.EpisodeProgram(cfg, acfg, 2, DEVICE, step=_syncing_step)
+    start = ln._episode_init(cfg, acfg, ev.episode_generator(seed, 0, DEVICE),
+                             DEVICE)
+    try:
+        prog.run(start, actor)
+    except RuntimeError as e:
+        message = str(e).splitlines()[0][:80]
+    else:
+        raise AssertionError("a mesh capture that waits for the device did "
+                             "not raise")
+    if prog._graph is not None:
+        raise AssertionError("the failed capture left a graph")
+    print(f"#   mesh: a capture whose step waits for the device raised: "
+          f"{message}", flush=True)
+    return message
 
 
 def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
@@ -1267,6 +1370,7 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
     import dataclasses as dc
 
     from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as ln
     from multiagent_gnn_policies_tpu_torch.parallel import mesh as pm
     from multiagent_gnn_policies_tpu_torch.parallel.sharded import (
         ShardedImitationLearner)
@@ -1279,74 +1383,131 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
         icfg = im.ImitationConfig.from_experiment(ExperimentConfig.from_section(
             load_ini(DAGGER_CONFIG)["test"]), mode="dagger")
         dense = (ShardedImitationLearner(icfg, mesh, device=DEVICE),
-                 im.ImitationLearner(icfg, device=DEVICE))
+                 im.ImitationLearner(icfg, device=DEVICE),
+                 ShardedImitationLearner(icfg, mesh, device=DEVICE,
+                                         graph=False))
         cc.reset_launch_counts()
         for lrn in dense:
             lrn.train(stop_after=1)
         torch.cuda.synchronize()
-        diff, same = _param_diff(torch, *dense)
-        speed = dense[0].timing_summary()
+        diff, same = _param_diff(torch, *dense[:2])
+        same_twin = _same_training_state(torch, dense[0], dense[2])
+        speed, eager = (lrn.timing_summary() for lrn in dense[::2])
         print(f"#   dp dense: cfg/dagger.cfg [test], 1 round through "
-              f"ShardedImitationLearner on a one-rank NCCL mesh against the "
-              f"one-process learner: max param difference {diff} (bit for "
-              f"bit {same}); rollout {speed['rollout_ms_per_step']:.4f} ms "
-              f"per env step, {speed['update_ms_per_update']:.4f} ms per "
-              f"Adam update", flush=True)
-        if diff > DP_DENSE_TOL:
-            raise AssertionError(f"dense sharded round differs by {diff}")
+              f"ShardedImitationLearner's programs on a one-rank NCCL mesh "
+              f"(its slice of the envs, each update with its all_reduce) "
+              f"against the one-process learner: max param difference "
+              f"{diff} (bit for bit {same}); against its eager twin: "
+              f"training state bit for bit {same_twin}; rollout "
+              f"{speed['rollout_ms_per_step']:.4f} ms per env step (eager "
+              f"{eager['rollout_ms_per_step']:.4f}), "
+              f"{speed['update_ms_per_update']:.4f} ms per Adam update "
+              f"(eager {eager['update_ms_per_update']:.4f}); update capture "
+              f"{dense[0]._updates.capture_s:.3f} s", flush=True)
+        if diff > DP_DENSE_TOL or not same_twin:
+            raise AssertionError(f"dense sharded round differs by {diff} "
+                                 f"(eager twin equal: {same_twin})")
         if any(cc.launch_counts().values()):
             raise AssertionError(f"the dense path launched cell kernels: "
                                  f"{cc.launch_counts()}")
-        out.update(dense_max_param_diff=diff, dense_bit_for_bit=same)
+        out.update(dense_max_param_diff=diff, dense_bit_for_bit=same,
+                   dense_twin_bit_for_bit=same_twin)
+        # one more run of each loop's sharded updates (the all_reduce in
+        # each)
+        n_up, b = icfg.updates_per_episode, icfg.batch_size
 
-        # (b) the large-N round on the mesh, against no mesh
+        def dense_updates(graph):
+            if graph:
+                return dense[0]._updates.run(n_up, dense[0].gen)
+            for _ in range(n_up):
+                dense[2]._update(dense[2].buffer.sample(dense[2].gen, b))
+
+        out.update(_eager_and_graph_stats(torch, "dp_dense_adam",
+                                          dense_updates, n_up, "update"))
+        del dense
+
+        # (b) the large-N round on the mesh through its programs (the
+        # banded collection and eval episodes as CUDA graphs with their
+        # collectives, the update program), against its eager twin and
+        # the no-mesh round
         canon = ExperimentConfig.from_section(load_ini(CONFIG)["n32k"])
         lcfg = il.LargeNImitationConfig.from_experiment(dc.replace(
             canon, n_agents=n_agents, buffer_size=LARGE_BUFFER,
             n_test_episodes=1), mode="dagger")
         meshed = il.LargeNImitationLearner(lcfg, device=DEVICE, mesh=mesh)
+        twin = il.LargeNImitationLearner(lcfg, device=DEVICE, mesh=mesh,
+                                         graph=False)
         plain = il.LargeNImitationLearner(lcfg, device=DEVICE)
-        cc.reset_launch_counts()
-        meshed.train(stop_after=1)
-        torch.cuda.synchronize()
-        launches = cc.launch_counts()
-        by_cols = {(fn, c): v for fn, cols in cc.launch_counts_by_cols().items()
+        # a replay calls no wrapper: the launches come from the trace
+        _, launched = _counted(cc, lambda: meshed.train(stop_after=1),
+                               traced=True)
+        launches = launched.device
+        by_cols = {(fn, c): v for fn, cols in launched.by_cols.items()
                    for c, v in cols.items()}
-        if launches != _launches(2):
-            raise AssertionError(f"mesh round launches {launches}: not "
-                                 f"201/200/200 for each of its collection "
-                                 f"and eval episodes")
+        if launches != _launches(2, captures=2) or launched.captures != 2:
+            raise AssertionError(f"mesh round launches {launched}: not "
+                                 f"203/202/202 for each of its captured "
+                                 f"collection and eval episodes")
+        twin.train(stop_after=1)
         plain.train(stop_after=1)
+        torch.cuda.synchronize()
+        same_twin = _same_training_state(torch, meshed, twin)
         diff, same = _param_diff(torch, meshed, plain)
         same_buffer = all(torch.equal(meshed.buffer.data[k],
                                       plain.buffer.data[k])
                           for k in plain.buffer.data)
-        sm, sp = meshed.timing_summary(), plain.timing_summary()
+        sm, st, sp = (lrn.timing_summary() for lrn in (meshed, twin, plain))
         print(f"#   dp large: cfg/dagger_n32k.cfg [n32k] at N = {n_agents} "
               f"(buffer {LARGE_BUFFER} records, 1 eval episode), 1 round on "
-              f"the one-rank (env, agents) mesh: launches {launches} "
-              f"(collection + eval episode), overflow 0; against the "
+              f"the one-rank (env, agents) mesh through its programs: "
+              f"launches on the device {launches} (collection + eval "
+              f"episode, each captured), overflow 0; against the eager "
+              f"twin: training state bit for bit {same_twin}; against the "
               f"no-mesh round: max param difference {diff}, params bit for "
               f"bit {same}, buffer bit for bit {same_buffer}; collection "
-              f"{sm['rollout_ms_per_step']:.4f} ms per env step on the mesh, "
-              f"{sp['rollout_ms_per_step']:.4f} without (phase 11 "
+              f"{sm['rollout_ms_per_step']:.4f} ms per env step on the mesh "
+              f"(capture included), {st['rollout_ms_per_step']:.4f} eager, "
+              f"{sp['rollout_ms_per_step']:.4f} without a mesh (phase 11 "
               f"{large_speed['rollout_ms_per_step']:.4f}); "
               f"{sm['update_ms_per_update']:.4f} ms per Adam update on the "
-              f"mesh, {sp['update_ms_per_update']:.4f} without (phase 11 "
+              f"mesh, {st['update_ms_per_update']:.4f} eager, "
+              f"{sp['update_ms_per_update']:.4f} without (phase 11 "
               f"{large_speed['update_ms_per_update']:.4f})", flush=True)
-        if not (same and same_buffer):
-            raise AssertionError(f"the mesh round differs from the no-mesh "
-                                 f"round by {diff} (buffer equal: "
-                                 f"{same_buffer})")
+        if not (same and same_buffer and same_twin):
+            raise AssertionError(f"the mesh round differs from its eager "
+                                 f"twin ({same_twin}) or the no-mesh round "
+                                 f"by {diff} (buffer equal: {same_buffer})")
         out.update(large_launches=json.dumps(launches, separators=(",", ":")),
-                   large_bit_for_bit=same and same_buffer,
+                   large_bit_for_bit=same and same_buffer and same_twin,
                    mesh_collection_ms_per_step=(
                        f"{sm['rollout_ms_per_step']:.4f}"),
                    plain_collection_ms_per_step=(
                        f"{sp['rollout_ms_per_step']:.4f}"),
                    mesh_update_ms=f"{sm['update_ms_per_update']:.4f}",
                    plain_update_ms=f"{sp['update_ms_per_update']:.4f}")
-        del meshed, plain
+        # one more collection episode and Adam updates of each loop
+        steps = lcfg.env.episode_steps
+
+        def collect(graph):
+            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+            lrn = meshed if graph else twin
+            return il.collect_episode(
+                lrn._lcfg, lrn.actor, lcfg.actor, "dagger",
+                lrn.store_agents, gen, 0.5, DEVICE, graph=graph)
+
+        out.update(_eager_and_graph_stats(torch, "mesh_collection", collect,
+                                          steps))
+        n_up, b = lcfg.updates_per_episode, lcfg.batch_size
+
+        def updates(graph):
+            if graph:
+                return meshed._updates.run(n_up, meshed.gen)
+            for _ in range(n_up):
+                twin._update(twin.buffer.sample(twin.gen, b))
+
+        out.update(_eager_and_graph_stats(torch, "mesh_adam", updates, n_up,
+                                          "update"))
+        del meshed, twin, plain
 
         # (c) a forced overflow (one slot per cell) raises on the rank
         bad = il.LargeNImitationLearner(dc.replace(lcfg, cell_cap=1),
@@ -1367,7 +1528,10 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
             raise AssertionError(f"the overflow gate took {raised_s} s or "
                                  f"stored {bad.buffer.size} records")
         out["overflow_raised_s"] = f"{raised_s:.2f}"
+        del bad
     finally:
+        # the programs' graphs name the group's communicator
+        ln.clear_programs()
         torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out, by_cols
@@ -1520,7 +1684,8 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
     # phase 11
     lcfg = il.LargeNImitationConfig.from_experiment(dc.replace(
         xcfg, n_agents=n_agents, buffer_size=LARGE_BUFFER, n_test_episodes=1,
-        graph_path="cells", cell_cap=BACKEND_CELL_CAP), mode="dagger")
+        graph_path="cells", cell_cap=BACKEND_CELL_CAP,
+        episode_steps=BACKEND_LEARNER_STEPS), mode="dagger")
     lrn = il.LargeNImitationLearner(lcfg, device=DEVICE)
     _, launches = _counted(cc, lambda: lrn.train(stop_after=1))
     torch.cuda.synchronize()
@@ -1528,7 +1693,7 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
     loss = float(lrn.last_loss_sum)
     print(f"#   cells learner: cfg/dagger_n32k.cfg [n32k] with graph_path = "
           f"cells at N = {n_agents} (buffer {LARGE_BUFFER} records, 1 eval "
-          f"episode), 1 round: loss sum {loss}, launches {launches}; "
+          f"episode, {BACKEND_LEARNER_STEPS}-step episodes), 1 round: loss sum {loss}, launches {launches}; "
           f"collection {speed['rollout_ms_per_step']:.4f} ms per env step, "
           f"{speed['update_ms_per_update']:.4f} ms per Adam update",
           flush=True)
@@ -1631,7 +1796,7 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
 
     # (a) the evaluation episode
     ln.clear_programs()
-    first, first_l = _counted(cc, lambda: episode(True), traced=True)
+    first, first_l = _counted(cc, lambda: episode(True))
     first_s = first_l.seconds
     prog = ln.episode_program(cfg, acfg, steps, DEVICE)
     torch.cuda.synchronize()
@@ -1649,8 +1814,7 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
           f"reward {total}, eager {float(eager[0].sum())}, phase 4 {reward};"
           f" overflow {int(graphed[2])}; launches: replay {g_launch}, "
           f"capture episode {first_l}, eager {e_launch}; bit for bit "
-          f"{same}; first graph episode {first_s:.3f} s (under the "
-          f"profiler): capture {prog.capture_s:.3f} s, instantiate "
+          f"{same}; first graph episode {first_s:.3f} s: capture {prog.capture_s:.3f} s, instantiate "
           f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB",
           flush=True)
     if not same or total != reward or int(graphed[2]):
@@ -1681,7 +1845,7 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
     runs = {}
     for name, graph in (("capture", True), ("graph", True), ("eager", False)):
         res, launches = _counted(cc, lambda: collect(graph),
-                                 traced=graph)
+                                 traced=name == "graph")
         runs[name] = (res, launches, launches.seconds)
     prog = il.collection_program(ccfg, acfg, "dagger", lcfg.store_agents,
                                  DEVICE)
@@ -1693,7 +1857,8 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
           f"{int(runs['graph'][0][3])}, bit for bit {same}; launches "
           + ", ".join(f"{n} {runs[n][1]}" for n in runs) + "; "
           + ", ".join(f"{n} {1e3 * runs[n][2] / steps:.4f}" for n in runs)
-          + " ms per step (reset and draws included, under the profiler)",
+          + " ms per step (reset and draws included; the replay under the "
+          "profiler)",
           flush=True)
     if not same or int(runs["graph"][0][3]):
         raise AssertionError("graph collection differs from the eager loop")
@@ -2915,7 +3080,7 @@ def main():
 
     # 16. the agent-sharded path: bands, a one-rank NCCL mesh, force_n_dev
     t = time.perf_counter()
-    mesh = mesh_phase(torch, ev, ln, cc, FlockingParams, ActorConfig,
+    mesh = mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
                       _init_candidate, load_ini, reward)
     phase("mesh", t, **mesh)
 
@@ -2951,9 +3116,9 @@ def main():
 
     # one entry per kernel and width this run launched: phase 3 timed K1,
     # K2 at 12 and K3 at 6 (K = 3's widths), phase 13 the others; the
-    # launches are the main paths': phase 13 (b) (every K at N = 32,768,
-    # through the graph: the device's trace) and phase 18 (b) (the mesh
-    # training round, K = 3's widths, eager: its counters)
+    # launches are the main paths', from the device's trace: phase 13 (b)
+    # (every K at N = 32,768, through the graph) and phase 18 (b) (the
+    # mesh training round through its graphs, K = 3's widths)
     timing.update(t_timing)
     err.update(t_err)
     kernels = []

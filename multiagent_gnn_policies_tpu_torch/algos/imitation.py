@@ -9,11 +9,12 @@ learner fetches a value: once per reset block, at the round's timing
 points, and where an eval is read.
 
 What the JAX learner compiles into one program runs as CUDA graphs on
-one card: the T steps behind an episode's reset
+the card: the T steps behind an episode's reset
 (:class:`DenseEpisodeProgram`, one per static setup, cached; the reset
-and the DAGGER coins stay eager) and one Adam update with its replay
-sample (:class:`UpdateProgram`, one per learner, replayed once per
-update).
+and the DAGGER coins stay eager; a data-parallel rank's slice of the
+envs too) and one Adam update with its replay sample
+(:class:`UpdateProgram`, one per learner, replayed once per update; a
+mesh learner's update with its gradient ``all_reduce`` in it).
 Each equals its eager loop (``graph=False``) bit for bit; on the CPU
 each runs its body eagerly.
 
@@ -286,10 +287,10 @@ def rollout_episode(actor: Optional[Actor], gen: Optional[torch.Generator],
     The reset (whose rejection loop waits on the host once per candidate
     block) and the coins run eagerly; the steps run as the setup's cached
     :class:`DenseEpisodeProgram` (``graph`` None: a CUDA graph on the
-    card, its body eagerly on the CPU; on a data-parallel rank's slice of
-    the envs the eager loop), or as the eager loop with ``graph=False``
-    (the program's oracle); ``graph=True`` asks for the CUDA graph and
-    raises ValueError on the CPU and on a slice.
+    card, its body eagerly on the CPU; a data-parallel rank's slice of the
+    envs, ``env.env_range``, is part of the setup), or as the eager loop
+    with ``graph=False`` (the program's oracle); ``graph=True`` asks for
+    the CUDA graph and raises ValueError on the CPU.
     """
     if mode not in MODES:
         raise ValueError(f"unknown episode mode {mode!r}; known: {MODES}")
@@ -311,10 +312,8 @@ def rollout_episode(actor: Optional[Actor], gen: Optional[torch.Generator],
             coins = None
         if mode == "expert":
             acfg = actor = obs = None
-        program = graphs.use_program(
-            device, graph, None if env.env_range is None
-            else "on a slice of the envs", "the episode",
-            "one batch of envs on one card")
+        program = graphs.use_program(device, graph, None, "the episode",
+                                     "the card")
         if program:
             prog = dense_program(env, acfg, mode, n_envs, collect,
                                  centralized, graphs.device_of(device))
@@ -373,11 +372,14 @@ def adam_update(actor: Actor, opt: torch.optim.Optimizer,
 
 
 class UpdateProgram:
-    """A learner's Adam update, ``replay sample -> forward -> MSE ->
-    backward -> Adam -> loss_sum += loss`` (:func:`adam_update` on
-    ``buffer.sample``), as one CUDA graph replayed once per update: the
-    counterpart of the JAX learners' ``lax.scan`` of updates
-    (``_round_impl``).
+    """A learner's Adam update, ``replay sample -> update -> loss_sum +=
+    loss`` (``update``, the learner's own, on ``buffer.sample``:
+    :func:`adam_update`'s forward, MSE, backward and Adam by default, or a
+    mesh learner's with its rows of the batch and its gradient
+    ``all_reduce``), as one CUDA
+    graph replayed once per update: the counterpart of the JAX learners'
+    ``lax.scan`` of updates (``_round_impl``, re-jitted over the mesh by
+    ``parallel/sharded.py``).
 
     The graph reads the actor's parameters, Adam's state (``opt`` must be
     built with ``capturable=True``) and the buffer by address; all are
@@ -389,17 +391,19 @@ class UpdateProgram:
     (Adam allocates its state lazily, cuBLAS its workspace), restores the
     parameters and Adam's state in place (zeros at step 0 where Adam had
     none yet), drops every gradient so that the captured backward
-    allocates its own, then captures. The samples come from the program's
-    own generator, handed over around a run's replays as
-    ``utils/graphs.py`` says. ``UpdateProgram.captures`` counts the
-    captures of the process."""
+    allocates its own, then captures (a mesh learner's collectives are
+    issued by the warm-up's updates first, ``utils/graphs.capture``).
+    The samples come from the program's own generator, handed over around
+    a run's replays as ``utils/graphs.py`` says. ``UpdateProgram.captures``
+    counts the captures of the process."""
 
     captures = 0
 
     def __init__(self, actor: Actor, opt: torch.optim.Optimizer,
-                 buffer: ReplayBuffer, batch: int, device):
-        self.actor, self.opt, self.buffer, self.batch = (actor, opt, buffer,
-                                                         batch)
+                 buffer: ReplayBuffer, batch: int, device, update=None):
+        self.update = update or functools.partial(adam_update, actor, opt)
+        self.actor, self.opt = actor, opt
+        self.buffer, self.batch = buffer, batch
         self.device = graphs.device_of(device)
         self.loss_sum = torch.zeros((), device=self.device)
         self._gen = graphs.program_generator(self.device, True)
@@ -407,8 +411,7 @@ class UpdateProgram:
         self.capture_s = self.instantiate_s = self.pool_mb = None
 
     def _body(self, gen: torch.Generator) -> None:
-        self.loss_sum += adam_update(self.actor, self.opt,
-                                     self.buffer.sample(gen, self.batch))
+        self.loss_sum += self.update(self.buffer.sample(gen, self.batch))
 
     def run(self, n: int, gen: torch.Generator) -> torch.Tensor:
         """``n`` updates drawing their samples from ``gen``; returns their
@@ -442,20 +445,21 @@ class ImitationLearner:
     """Cloning/DAGGER trainer: owns the actor, Adam, the buffer and the
     generator, all on ``device``.
 
-    ``graph``: None (default) runs the round's loops as programs on one
-    device: the collection and eval episodes as their
+    ``graph``: None (default) runs the round's loops as programs, on one
+    device or a mesh: the collection and eval episodes as their
     :class:`DenseEpisodeProgram` and the Adam updates as the learner's
-    :class:`UpdateProgram` (CUDA graphs on the card, their bodies eagerly
-    on the CPU), and the eager loops on a mesh; False the eager loops (the
-    programs' oracle); True the programs, raising ValueError on a mesh or
-    on the CPU.
+    :class:`UpdateProgram` over its own :meth:`_update` (CUDA graphs on
+    the card, a mesh's collectives captured in them, their bodies eagerly
+    on the CPU); False the eager loops (the programs' oracle); True the
+    programs, raising ValueError on the CPU.
 
     On a mesh (a subclass sets ``mesh`` and ``_env_axis`` before this
     class's ``__init__``) every rank holds the same actor, Adam state,
     buffer and generator: it collects its slice of the round's episodes
     (:meth:`_collect`), the records are gathered over the ``env`` axis in
-    episode order (:meth:`_gather_envs`), and each update is
-    :meth:`_update`. Only rank 0 writes files and metrics; every rank
+    episode order (:meth:`_gather_envs`, eager, after the episode), and
+    each update is :meth:`_update`. Only rank 0 writes files and metrics;
+    every rank
     reads a state file on resume, and a barrier follows each write."""
 
     mesh = None                 # the DeviceMesh of a mesh learner
@@ -481,14 +485,14 @@ class ImitationLearner:
         self.opt = torch.optim.Adam(self.actor.parameters(), lr=cfg.actor_lr,
                                     capturable=self.device.type == "cuda")
         self.buffer = ReplayBuffer(cfg.buffer_size, self._example_record())
-        programs = graphs.use_program(
-            self.device, graph, None if self.mesh is None else "with a mesh",
-            "the round", "one device")
+        programs = graphs.use_program(self.device, graph, None, "the round",
+                                      "the card")
         # what the round's episodes are given: None runs their programs
         self._graph = None if programs else False
-        self._updates = (UpdateProgram(self.actor, self.opt, self.buffer,
-                                       cfg.batch_size, self.device)
-                         if programs else None)
+        # over the learner's own update (a mesh learner's collective in it)
+        self._updates = (UpdateProgram(
+            self.actor, self.opt, self.buffer, cfg.batch_size, self.device,
+            self._update) if programs else None)
         # training-loop state (checkpointed, see training_state())
         self._rnd = 0
         self._beta = 1.0

@@ -7,9 +7,11 @@ a round here collects through the O(N) cell sweeps of
 ``parallel/large_n.py`` and stores an agent subsample:
 
 * **Collection** runs :func:`collect_step` T times: as one
-  ``EpisodeProgram`` of ``parallel/large_n.py`` on the pcells path on one
-  device (a CUDA graph on the card, the JAX package's ``lax.scan``), else
-  as a Python loop (a mesh, the other paths, ``graph=False``). Each step
+  ``EpisodeProgram`` of ``parallel/large_n.py`` on the pcells path, on one
+  device or banded over a mesh (a CUDA graph on the card, the JAX
+  package's ``lax.scan``, under ``shard_map`` on a mesh; the mesh's
+  collectives captured with it), else as a Python loop (the other paths,
+  ``graph=False``). Each step
   takes the delayed stack ``y`` (K3 in ``ystack_pre``), the frame's
   expert (K1's gradient channels and the float64 consensus), the action
   (the expert when cloning; the expert where the episode's per-step coin
@@ -27,8 +29,8 @@ a round here collects through the O(N) cell sweeps of
 * **Updates, resume, schedule and export** are the dense learner's
   (``algos/imitation.py``): ``updates_per_episode · n_rollout_envs`` Adam
   updates a round once the buffer holds more than one batch, as the
-  update program's replays on one device (a CUDA graph on the card, at
-  this learner's (K, S, F) record), the eager loop on a mesh.
+  update program's replays (a CUDA graph on the card, at this learner's
+  (K, S, F) record), on one device and on a mesh alike.
 * **Exactness gate**: a round whose collection dropped a radius neighbour
   (grid overflow > 0) raises before anything is stored, and an eval
   episode with overflow or a non-finite reward raises. On a mesh the
@@ -44,7 +46,10 @@ a round here collects through the O(N) cell sweeps of
   JAX ``('env',)`` mesh, both axes its ``('env', 'agents')``). The records
   are gathered over ``env`` in episode order; the buffer insert and the
   Adam updates run replicated on every rank, with no gradient collective.
-  Evaluation is ``rollout_large(mesh=)``. Every rank's parameters equal
+  Evaluation is ``rollout_large(mesh=)``. The collection and eval
+  episodes run as their episode programs on the mesh too, and the
+  overflow gate's MAX over the mesh waits on the host once per round,
+  after the episodes, as the JAX gate does. Every rank's parameters equal
   the one-process learner's (bit for bit on the same grid:
   ``make_pcell_spec(n_dev=)`` rounds the grid's rows to the agents axis).
 
@@ -173,15 +178,15 @@ def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
     bool and ``idx`` (T, S) replace the reset's, the coins' and the
     subsample's draws, for tests. ``graph`` as ``rollout_large``'s: by
     default the steps run as the setup's ``EpisodeProgram`` on the pcells
-    path on one device (a CUDA graph on the card; the coins and indices
-    drawn before it as here, its records in static buffers, copied out
-    after it), else the eager loop below.
+    path, on one device or banded over ``cfg``'s mesh (a CUDA graph on the
+    card with the mesh's collectives in it; the coins and indices drawn
+    before it as here, its records in static buffers, copied out after
+    it), else the eager loop below.
     """
     p = cfg.params
     T = p.episode_steps
     device = torch.device(device)
-    program = ln.use_program(cfg.path, device, graph,
-                             on_mesh=cfg.axis is not None)
+    program = ln.use_program(cfg.path, device, graph)
     with torch.no_grad():
         state = ln._episode_init(cfg, acfg, gen, device, x0)
         if mode == "dagger" and coins is None:
@@ -212,10 +217,11 @@ class LargeNImitationLearner(ImitationLearner):
     agent-subsampled buffer, everything else the dense learner's. With
     ``mesh``, the mesh modes of the module docstring: ``axis`` names the
     mesh axis the sweeps are banded over. ``graph`` as the dense
-    learner's: by default its Adam updates run as the update program and
-    its collection and eval episodes as their episode programs on one
-    device on the pcells path (CUDA graphs on the card), the eager loops
-    on a mesh; ``graph=False`` runs every loop eagerly."""
+    learner's: by default its Adam updates run as the update program and,
+    on the pcells path, its collection and eval episodes as their episode
+    programs, on one device or a mesh (CUDA graphs on the card);
+    ``graph=False`` runs every loop eagerly; ``graph=True`` raises
+    ValueError off the pcells path and on the CPU."""
 
     def __init__(self, cfg: LargeNImitationConfig, logger=None,
                  device="cuda", mesh=None, axis: str = "agents", graph=None):
@@ -232,6 +238,7 @@ class LargeNImitationLearner(ImitationLearner):
                     f"over the mesh env axis ({self._env_axis.n_dev})")
         self.mesh, self.axis = mesh, axis
         path = "pcells" if cfg.graph_path == "auto" else cfg.graph_path
+        ln.use_program(path, device, graph)     # graph=True off pcells
         # the JAX learner's binned table has 32 slots whatever cell_cap is
         self._cap = None if path == "binned" else cfg.cell_cap or None
         # collection acts on the centralized expert, as the JAX learner's

@@ -121,6 +121,18 @@ class AxisGroup:
     index: int
     emulated: bool = False
 
+    def live(self) -> bool:
+        """Whether the axis's process group still exists (an emulated axis
+        has none and is always live): a CUDA graph that captured its
+        collectives must not replay once it is destroyed."""
+        if self.group is None:
+            return True
+        try:
+            dist.get_process_group_ranks(self.group)
+        except (KeyError, RuntimeError, ValueError):
+            return False
+        return True
+
     def all_reduce(self, t: torch.Tensor,
                    op=dist.ReduceOp.SUM) -> torch.Tensor:
         """``t`` reduced over the axis in place (``psum``, ``pmin``,

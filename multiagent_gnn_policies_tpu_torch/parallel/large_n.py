@@ -4,12 +4,13 @@ cell sweeps or one of three other graph backends.
 The counterpart of the JAX package's ``parallel/large_n.py``, with its
 four paths ("pcells", "blocked", "cells", "binned"): reset, then T env
 steps (the JAX package's ``lax.scan`` body, ``_scan_steps``). On the pcells
-path on one device the steps run as an :class:`EpisodeProgram`, one CUDA
-graph per static setup, captured at its first use, cached and replayed per
-episode (the JAX package's jitted scan, ``lru_cache``'d); the reset stays
-eager. A mesh and the other paths run the eager loop of steps, which
-``graph=False`` also selects on pcells. On the pcells path each step of a
-K >= 2 policy runs
+path, on one device or banded over a mesh, the steps run as an
+:class:`EpisodeProgram`, one CUDA graph per static setup, captured at its
+first use, cached and replayed per episode (the JAX package's jitted scan,
+``lru_cache``'d, under ``shard_map`` on a mesh); a mesh's graph holds the
+step's NCCL collectives. The reset stays eager. The other paths run the
+eager loop of steps, which ``graph=False`` also selects on pcells. On the
+pcells path each step of a K >= 2 policy runs
 
 1. ``ystack_pre``: the historical graphs' applies of the delayed stack,
    s = 1 .. K-2, through K3 on (K-1-s)·F columns (the s = 0 apply was done
@@ -77,7 +78,7 @@ table and 4·N·6 of the historical apply reduced, 16·N of the state and
 
 from __future__ import annotations
 
-import functools
+import collections
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
@@ -487,8 +488,16 @@ class _Buffers(NamedTuple):
 class EpisodeProgram:
     """``steps`` env steps of one static setup as one CUDA graph: the
     counterpart of the JAX package's jitted ``lax.scan`` of an episode
-    (``_jitted_rollout``, ``_jitted_chunked``'s chunk, the collection scan
-    of ``algos/imitation_large.py``). Only the pcells path on one device.
+    (``_jitted_rollout``, ``_jitted_chunked``'s chunk, the chain of
+    ``_jitted_chain``, the collection scan of ``algos/imitation_large.py``,
+    each under ``shard_map`` on a mesh). Only the pcells path, on one
+    device or banded over a mesh (``cfg.axis``): there the graph holds the
+    band's collectives (the sharded grid build's gathers, the sweeps'
+    ``all_reduce`` completions, the sharded actor's state gather), captured
+    in CUDA's thread-local mode (``utils/graphs.capture``); every rank
+    captures and replays at the same call, and a program whose process
+    group was destroyed raises rather than replay. The emulated timing
+    mode (``force_n_dev``) holds no collective.
 
     ``step(cfg, actor, state, gen, *inputs_t)`` returns ``(state', reward,
     *records_t)``: :func:`_step` (a policy, or the expert with ``actor``
@@ -531,9 +540,9 @@ class EpisodeProgram:
     def __init__(self, cfg: LargeNConfig, acfg: Optional[ActorConfig],
                  steps: int, device, traj_agents: int = 0, step=None,
                  inputs: tuple = (), records: tuple = ()):
-        if cfg.axis is not None or cfg.path != "pcells":
-            raise ValueError("the episode program runs the pcells path on "
-                             "one device")
+        if cfg.path != "pcells":
+            raise ValueError(f"the episode program runs the pcells path, "
+                             f"not the {cfg.path} path")
         self.cfg, self.acfg, self.steps = cfg, acfg, steps
         self.step, self.device = step or _step, graphs.device_of(device)
         self.capture_s = self.instantiate_s = self.pool_mb = None
@@ -581,6 +590,10 @@ class EpisodeProgram:
         as are ``rewards``, ``traj`` and ``records``."""
         if actor is None and self.acfg is not None:
             raise ValueError("a policy's episode needs an actor")
+        if not _live(self.cfg):
+            raise RuntimeError("the episode program's process group was "
+                               "destroyed: its collectives name a "
+                               "communicator that no longer exists")
         with torch.no_grad():
             if self._static is None:
                 self._static = _clone(state)
@@ -611,11 +624,16 @@ class EpisodeProgram:
         EpisodeProgram.captures += 1
 
 
-@functools.lru_cache(maxsize=PROGRAMS_KEPT)
-def _cached_program(cfg, acfg, steps, device, traj_agents, step, inputs,
-                    records) -> EpisodeProgram:
-    return EpisodeProgram(cfg, acfg, steps, device, traj_agents, step,
-                          inputs, records)
+def _live(cfg: LargeNConfig) -> bool:
+    """Whether ``cfg``'s mesh axis (if any) still has its process group."""
+    return cfg.axis is None or cfg.axis.live()
+
+
+# the cached programs, least recently used first (the JAX package's
+# lru_cache of jitted episodes); a mesh's key holds its process group, so
+# a new group never meets an old group's program
+_PROGRAMS: "collections.OrderedDict[tuple, EpisodeProgram]" = (
+    collections.OrderedDict())
 
 
 def episode_program(cfg: LargeNConfig, acfg: Optional[ActorConfig],
@@ -623,27 +641,42 @@ def episode_program(cfg: LargeNConfig, acfg: Optional[ActorConfig],
                     inputs: tuple = (), records: tuple = ()
                     ) -> EpisodeProgram:
     """The :class:`EpisodeProgram` of this static setup, made at its first
-    use and kept (the JAX package's ``lru_cache`` of jitted episodes)."""
-    return _cached_program(cfg, acfg, steps, graphs.device_of(device), traj_agents,
-                           step or _step, tuple(inputs), tuple(records))
+    use and kept, ``PROGRAMS_KEPT`` of them, least recently used out (the
+    JAX package's ``lru_cache`` of jitted episodes). The programs of a
+    destroyed process group are dropped first: their graphs' collectives
+    name a communicator that no longer exists. Every rank of a mesh makes
+    the same calls, so the cache hits and misses alike on every rank."""
+    for key in [k for k, prog in _PROGRAMS.items() if not _live(prog.cfg)]:
+        del _PROGRAMS[key]
+    device = graphs.device_of(device)
+    key = (cfg, acfg, steps, device, traj_agents, step or _step,
+           tuple(inputs), tuple(records))
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        prog = _PROGRAMS[key] = EpisodeProgram(
+            cfg, acfg, steps, device, traj_agents, step, tuple(inputs),
+            tuple(records))
+        while len(_PROGRAMS) > PROGRAMS_KEPT:
+            _PROGRAMS.popitem(last=False)
+    _PROGRAMS.move_to_end(key)
+    return prog
 
 
 def clear_programs() -> None:
     """Drop every cached episode program, its graph and the shared pool
     (the next capture starts a new one)."""
-    _cached_program.cache_clear()
+    _PROGRAMS.clear()
     graphs.clear_pools()
 
 
-def use_program(path: str, device, graph=None, on_mesh: bool = False) -> bool:
-    """Whether an episode on ``path`` on ``device`` (banded over a mesh
-    with ``on_mesh``) runs its steps as an :class:`EpisodeProgram` (else
-    the eager loop): ``utils/graphs.use_program``'s answer, a program
-    applying to the pcells path on one device."""
-    refusal = ("with a mesh" if on_mesh
-               else f"on the {path} path" if path != "pcells" else None)
-    return graphs.use_program(device, graph, refusal, "the episode",
-                              "the pcells path on one card")
+def use_program(path: str, device, graph=None) -> bool:
+    """Whether an episode on ``path`` on ``device`` (on one device or
+    banded over a mesh) runs its steps as an :class:`EpisodeProgram`
+    (else the eager loop): ``utils/graphs.use_program``'s answer, a
+    program applying to the pcells path."""
+    return graphs.use_program(
+        device, graph, f"on the {path} path" if path != "pcells" else None,
+        "the episode", "the pcells path on the card")
 
 
 def make_config(p: FlockingParams, *, path: str = "pcells",
@@ -770,12 +803,14 @@ def rollout_large(actor: Optional[torch.nn.Module],
       block: the blocked path's rows per block (default
         :func:`block_rows`'; the JAX package's ``block or pick_block``).
       graph: None (default) runs each chunk through its cached
-        :class:`EpisodeProgram` on the pcells path on one device, a CUDA
-        graph on the card and the same body eagerly on the CPU, and the
-        eager loop of steps (``_scan_steps``) on a mesh and on the blocked,
-        cells and binned paths; False the eager loop everywhere (the
-        graph's oracle); True the graph, raising ValueError with a mesh,
-        off pcells or on the CPU.
+        :class:`EpisodeProgram` on the pcells path, on one device or a
+        mesh (its collectives captured with it; ``force_n_dev`` too), a
+        CUDA graph on the card and the same body eagerly on the CPU, and
+        the eager loop of steps (``_scan_steps``) on the blocked, cells
+        and binned paths; False the eager loop everywhere (the graph's
+        oracle); True the graph, raising ValueError off pcells or on the
+        CPU. The overflow's MAX over the mesh runs after the episodes,
+        outside the graph.
     """
     if path is None:
         path = "binned" if sparse else "pcells"
@@ -786,7 +821,7 @@ def rollout_large(actor: Optional[torch.nn.Module],
     if n_episodes > 1 and (traj_agents or scan_chunks > 1):
         raise ValueError("n_episodes > 1 is timing-oriented; trajectory "
                          "dumps and chunked episodes need per-episode calls")
-    program = use_program(path, device, graph, on_mesh=mesh is not None)
+    program = use_program(path, device, graph)
     if expert_mode:
         actor = acfg = None
     elif acfg is None or acfg.ind_agg != 0:

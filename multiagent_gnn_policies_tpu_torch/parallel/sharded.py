@@ -54,10 +54,14 @@ class ShardedImitationLearner(ImitationLearner):
       gradients and the loss; then the same Adam step on every rank.
 
     Ranks of one env group (the ``agents`` axis) do the same work, as the
-    JAX learner replicates over that axis. The round's loops run eagerly
-    (the update's ``all_reduce`` stays outside any graph); ``graph=True``
-    raises. Raises ValueError when the ``env`` axis does not divide
-    ``n_rollout_envs``."""
+    JAX learner replicates over that axis. ``graph`` as the dense
+    learner's: by default the rank's slice of the collection runs as its
+    ``DenseEpisodeProgram`` (the slice part of the setup) and each update
+    as the learner's ``UpdateProgram`` over :meth:`_update`, its rows of
+    the batch and its ``all_reduce`` captured with it (the counterpart of
+    the JAX package's ``_round_impl`` re-jitted over the mesh); the
+    records' gather over ``env`` runs eagerly after the episode. Raises
+    ValueError when the ``env`` axis does not divide ``n_rollout_envs``."""
 
     def __init__(self, cfg: ImitationConfig, mesh,
                  logger: Optional[MetricsLogger] = None, device="cuda",
@@ -84,7 +88,7 @@ class ShardedImitationLearner(ImitationLearner):
         return rollout_episode(
             self.actor, self.gen, self._beta,
             dataclasses.replace(self.env, env_range=(mine.start, total)),
-            cfg.actor, mode=cfg.mode, x0=x0, coins=coins)
+            cfg.actor, mode=cfg.mode, x0=x0, coins=coins, graph=self._graph)
 
     def _batch_rows(self, b: int):
         """This env group's rows ``[lo, hi)`` of a batch of ``b``."""
@@ -93,6 +97,11 @@ class ShardedImitationLearner(ImitationLearner):
         return min(ax.index * c, b), min((ax.index + 1) * c, b)
 
     def _update(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The rank's rows of ``batch`` (none on a rank past its end: a
+        zero gradient, a choice fixed per rank, so a captured update takes
+        the same branch at every replay), their share of the MSE's
+        gradient and loss summed over ``env`` by one ``all_reduce``, then
+        Adam."""
         b = batch["act"].shape[0]
         lo, hi = self._batch_rows(b)
         params = list(self.actor.parameters())

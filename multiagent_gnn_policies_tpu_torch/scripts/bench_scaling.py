@@ -29,6 +29,12 @@ Two modes, labelled as such in the output:
   of a one-rank mesh's step on its own, at the step's shapes: the host
   µs a call takes to issue (100 calls, no synchronisation between them)
   and its device ms (CUDA events).
+
+Each of ``--graphs`` is a row per D, in both modes: ``eager`` (the eager
+loop of steps, ``graph=False``) and ``graph`` (the episode program's CUDA
+graph, on the card only: on a mesh the band's NCCL collectives are
+captured in it; emulated, it holds none), with the busy ms, idle share
+and device operations per step of one profiled episode each.
 * ``--mode mesh``: real ranks, one subprocess per rank (gloo on the CPU
   with ``--device cpu``; NCCL on the card, only for D up to the cards the
   machine has): the same rollout over a D-rank mesh, rank 0's ms per
@@ -39,6 +45,7 @@ Two modes, labelled as such in the output:
         --n 100000 [--devs 1 2 4 8] [--steps 25] [--device cpu]
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_scaling \\
         --mode mesh --n 4096 --devs 1 2 4 --path cells --device cpu
+    [--graphs eager graph]
 
 The policy: K = 3, hidden 32x2, seeded random weights, FlockingRelative,
 on ``--path`` (the JAX script's choices: pcells, the default, with edge_mult
@@ -118,12 +125,28 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def _chain(actor, acfg, p, args, device, mesh, force, seed, episodes):
+def _chain(actor, acfg, p, args, device, mesh, force, seed, episodes,
+           mode="eager"):
     gen = torch.Generator(device=device).manual_seed(seed)
     return ln.rollout_large(actor, acfg, gen, p, return_overflow=True,
                             cap=args.cap, cell_edge_mult=args.edge_mult,
                             device=device, n_episodes=episodes, mesh=mesh,
-                            force_n_dev=force, path=args.path)
+                            force_n_dev=force, path=args.path,
+                            graph=mode == "graph")
+
+
+def modes_of(args, device):
+    """The ``--graphs`` modes this run times: a graph needs the card and
+    the pcells path."""
+    modes = []
+    for mode in args.graphs:
+        if mode == "graph" and (device.type != "cuda"
+                                or args.path != "pcells"):
+            print(f"{mode}: skipped (a CUDA graph needs the card and the "
+                  f"pcells path)", flush=True)
+        else:
+            modes.append(mode)
+    return modes
 
 
 def time_chains(run, args, device):
@@ -210,15 +233,17 @@ def _band_pairs(pos, grid, spec, own, chunk=1 << 17):
     return cand, nbr
 
 
-def band_row(d, actor, acfg, p, args, device, mesh):
-    """One D of band mode (D = 0: no mesh): its numbers, returned."""
+def band_row(d, actor, acfg, p, args, device, mesh, mode):
+    """One D of band mode (D = 0: no mesh) in one of ``--graphs``' modes:
+    its numbers, returned."""
     force = None if d <= 1 else d
     run = lambda seed, eps: _chain(actor, acfg, p, args, device,
-                                   mesh if d else None, force, seed, eps)
+                                   mesh if d else None, force, seed, eps,
+                                   mode)
     ms = time_chains(run, args, device)
     med = statistics.median(ms)
-    row = {"D": d, "ms": med, "spread": [min(ms), max(ms)], "busy_ms": None,
-           "idle": None, "kernel_ms": None}
+    row = {"D": d, "mode": mode, "ms": med, "spread": [min(ms), max(ms)],
+           "busy_ms": None, "idle": None, "ops": None, "kernel_ms": None}
     from torch.profiler import ProfilerActivity, profile
 
     acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
@@ -234,7 +259,7 @@ def band_row(d, actor, acfg, p, args, device, mesh):
                      if re.search(pattern, op))
             kms[name] = us / 1e3 / args.steps
         row.update(busy_ms=summary["busy_ms"], idle=summary["idle"],
-                   kernel_ms=kms)
+                   ops=summary["ops_per_step"], kernel_ms=kms)
     return row
 
 
@@ -290,14 +315,17 @@ def band_mode(args, device):
     rows = []
     with torch.no_grad():
         for d in [0, *args.devs]:
-            rows.append(band_row(d, actor, acfg, p, args, device, mesh))
+            for mode in args.modes:
+                rows.append(band_row(d, actor, acfg, p, args, device, mesh,
+                                     mode))
+    ln.clear_programs()              # their graphs name this group
     torch.distributed.destroy_process_group()
     return rows
 
 
 def mesh_rank(args) -> int:
     """One rank of ``--mode mesh`` (a subprocess of :func:`mesh_mode`):
-    prints rank 0's JSON line."""
+    prints rank 0's JSON line, a list of one row per mode."""
     rank, world, port = args.rank_of
     platform = "cpu" if args.device == "cpu" else None
     if args.device == "cpu":
@@ -309,16 +337,19 @@ def mesh_rank(args) -> int:
     acfg, actor = seeded_actor(K, 0, device)
     p = FlockingParams(n_agents=args.n, episode_steps=args.steps,
                        max_resets=2)
+    rows = []
     with torch.no_grad():
-        ms = time_chains(lambda seed, eps: _chain(
-            actor, acfg, p, args, device, mesh, None, seed, eps), args,
-            device)
-        r, _, ovf = _chain(actor, acfg, p, args, device, mesh, None, 3, 1)
+        for mode in modes_of(args, device):
+            run = lambda seed, eps: _chain(actor, acfg, p, args, device,
+                                           mesh, None, seed, eps, mode)
+            ms = time_chains(run, args, device)
+            r, _, ovf = run(3, 1)
+            rows.append({"D": world, "mode": mode, "ms": statistics.median(ms),
+                         "spread": [min(ms), max(ms)],
+                         "reward": float(r.sum()), "overflow": int(ovf)})
     if rank == 0:
-        print(json.dumps({"D": world, "ms": statistics.median(ms),
-                          "spread": [min(ms), max(ms)],
-                          "reward": float(r.sum()), "overflow": int(ovf)}),
-              flush=True)
+        print(json.dumps(rows), flush=True)
+    ln.clear_programs()
     torch.distributed.destroy_process_group()
     return 0
 
@@ -343,7 +374,7 @@ def mesh_mode(args, argv):
         for p, (_, err) in zip(procs, outs):
             if p.returncode:
                 raise SystemExit(f"a rank of D={d} failed:\n{err[-3000:]}")
-        rows.append(json.loads(outs[0][0].strip().splitlines()[-1]))
+        rows += json.loads(outs[0][0].strip().splitlines()[-1])
     return rows
 
 
@@ -365,6 +396,11 @@ def main(argv=None) -> int:
     ap.add_argument("--cap", type=int, default=None)
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds a rank of --mode mesh may take")
+    ap.add_argument("--graphs", nargs="+", default=["eager", "graph"],
+                    choices=("eager", "graph"),
+                    help="modes per D, timed one after the other: the "
+                         "eager loop of steps, and the episode program's "
+                         "CUDA graph (on the card, pcells only)")
     ap.add_argument("--rank-of", type=int, nargs=3, default=None,
                     metavar=("RANK", "WORLD", "PORT"), help=argparse.SUPPRESS)
     add_device_arg(ap)
@@ -374,6 +410,7 @@ def main(argv=None) -> int:
     device = device_of(args.device)
     strict_fp32()
     print(device_line(device), flush=True)
+    args.modes = modes_of(args, device)
     p = FlockingParams(n_agents=args.n)
     spec = cc.make_pcell_spec(p, cap=args.cap or 16,
                               edge_mult=args.edge_mult,
@@ -391,10 +428,11 @@ def main(argv=None) -> int:
     print(f"# {args.mode} mode, {label}: N = {args.n}, path {args.path}, "
           f"{args.steps} steps "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
-    t1 = next((r for r in rows if r["D"] == 1), None)
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
     for r in rows:
         d = r["D"]
+        t1 = next((q for q in rows if q["D"] == 1
+                   and q["mode"] == r["mode"]), None)
         eff = t1["ms"] / (d * r["ms"]) if t1 and d else None
         eff_busy = (t1["busy_ms"] / (d * r["busy_ms"])
                     if d and t1 and r.get("busy_ms") and t1.get("busy_ms")
@@ -404,9 +442,11 @@ def main(argv=None) -> int:
                                 if d else 0.0),
                  band_kernels=kernels.get(d))
         kms = r.get("kernel_ms")
-        print(f"D={d}{' (no mesh)' if not d else ''}: {r['ms']:.4f} ms/step ({r['spread'][0]:.4f}.."
+        print(f"D={d}{' (no mesh)' if not d else ''} {r['mode']}: "
+              f"{r['ms']:.4f} ms/step ({r['spread'][0]:.4f}.."
               f"{r['spread'][1]:.4f}), busy {fmt(r.get('busy_ms'), '.4f')} "
-              f"ms, idle {fmt(r.get('idle'), '.4f')}, K1/K2/K3 "
+              f"ms, idle {fmt(r.get('idle'), '.4f')}, "
+              f"{fmt(r.get('ops'), '.2f')} device ops/step, K1/K2/K3 "
               + ("/".join(f"{kms[k]:.4f}" for k in KERNELS) if kms
                  else "not measured")
               + f" ms, eff {fmt(eff, '.3f')} (busy {fmt(eff_busy, '.3f')}), "

@@ -1,10 +1,12 @@
 """CUDA graph capture shared by the port's programs.
 
 The port compiles what the JAX package compiles into one program (a
-jitted ``lax.scan``) as CUDA graphs: the large-N episode
-(``parallel/large_n.py:EpisodeProgram``), the dense episode and the
-learners' Adam update (``algos/imitation.py``), and DDPG's training
-episode and eval (``algos/ddpg.py``, ``algos/ddpg_large.py``). Each
+jitted ``lax.scan``, under ``shard_map`` on a mesh) as CUDA graphs: the
+large-N episode (``parallel/large_n.py:EpisodeProgram``), the dense
+episode and the learners' Adam update (``algos/imitation.py``), each on
+one card or as one rank of a mesh with its NCCL collectives captured in
+it, and DDPG's training episode and eval (``algos/ddpg.py``,
+``algos/ddpg_large.py``). Each
 program captures its body once and replays it; this module holds what
 they share:
 
@@ -13,8 +15,9 @@ they share:
   buffers allocated outside it), and replays run one at a time on the
   caller's stream, so every program of a device may share the pool;
 * :func:`capture`: a warm-up on the capture stream (cuBLAS's workspace,
-  the kernels' first loads, Adam's lazy state; a capture without it is
-  invalidated), then the capture, timed;
+  the kernels' first loads, Adam's lazy state, NCCL's communicators; a
+  capture without it is invalidated), then the capture in CUDA's
+  thread-local mode, timed;
 * :func:`generator_handover`: a program draws from a generator of its
   own, registered with its graph; the caller's state is copied in before
   the replays and the advanced state handed back after, so the draws are
@@ -60,9 +63,9 @@ def device_of(device) -> torch.device:
 def use_program(device, graph=None, refusal: Optional[str] = None,
                 what: str = "a program", where: str = "on one card") -> bool:
     """Whether a loop runs as its program (else the eager loop).
-    ``refusal`` says why no program applies here ("with a mesh", ...), or
-    is None. ``graph``: None runs the program where it applies (captured
-    on the card, its body eagerly on the CPU) and the eager loop
+    ``refusal`` says why no program applies here ("on the blocked path",
+    ...), or is None. ``graph``: None runs the program where it applies
+    (captured on the card, its body eagerly on the CPU) and the eager loop
     elsewhere; False the eager loop; True a CUDA graph, which raises
     ValueError where a program does not apply and on the CPU."""
     if graph is False:
@@ -103,7 +106,21 @@ def capture(device, warmup: Callable[[], None], body: Callable[[], None],
     """Run ``warmup()`` on the capture stream, then capture ``body()``
     into a graph on the device's shared pool, ``gen`` registered with it.
     ``warmup`` must leave the program's state as it found it; what it
-    allocates is freed when it returns."""
+    allocates is freed when it returns.
+
+    A mesh's body issues NCCL collectives. NCCL builds a communicator at
+    its first collective, which a capture may not do, so the warm-up must
+    issue every collective the body holds (it runs the same steps). Every
+    rank captures at the same call, as the ranks run the same program
+    calls in the same order; a capture launches nothing, so no rank waits
+    for another here. The capture runs in CUDA's ``thread_local`` mode:
+    only this thread's calls can invalidate it, not another thread's
+    (ProcessGroupNCCL's watchdog queries the events of earlier
+    collectives while a capture may be open). The device is synchronised
+    first, so no collective issued before it is still in flight.
+
+    A failed capture raises, after it has stopped routing allocations to
+    the pool and dropped the pool: the process may capture again."""
     strict_fp32()
     device = device_of(device)
     if device not in _STREAMS:
@@ -122,11 +139,33 @@ def capture(device, warmup: Callable[[], None], body: Callable[[], None],
     if device not in _POOLS:
         _POOLS[device] = torch.cuda.graph_pool_handle()
     t0 = time.perf_counter()
-    with torch.cuda.graph(graph, pool=_POOLS[device], stream=stream):
-        body()
-        t1 = time.perf_counter()
+    try:
+        # the outer context restores the caller's stream should the
+        # capture fail (torch.cuda.graph then leaves its stream current)
+        with torch.cuda.stream(torch.cuda.current_stream(device)), \
+                torch.cuda.graph(graph, pool=_POOLS[device], stream=stream,
+                                 capture_error_mode="thread_local"):
+            body()
+            t1 = time.perf_counter()
+    except BaseException:
+        _abandon_pool(device)
+        raise
     return Captured(graph, t1 - t0, time.perf_counter() - t1,
                     (torch.cuda.memory_reserved(device) - reserved) / 2**20)
+
+
+def _abandon_pool(device: torch.device) -> None:
+    """After a failed capture: stop routing the device's allocations to the
+    shared pool (a failed ``torch.cuda.graph`` leaves its pool recording,
+    and the next capture into it would raise) and forget it, so that the
+    next capture starts a new one."""
+    pool = _POOLS.pop(device, None)
+    end = getattr(torch._C, "_cuda_endAllocateToPool", None)
+    if pool is not None and end is not None:
+        try:
+            end(device.index, pool)
+        except RuntimeError:      # the capture had stopped recording
+            pass
 
 
 def clear_pools() -> None:

@@ -7,7 +7,9 @@ one subprocess per rank):
 Each case of the JSON list names an env, a path, a policy (an actor
 ``state_dict`` file, or the expert), an optional initial state (.npy) or a
 generator seed, the episode length and optionally the agents whose states
-it records (``traj``); the rank writes its rewards, final state, overflow
+it records (``traj``), the chunks it runs in (``chunks``) and ``graph``
+(``rollout_large``'s: by default the pcells path runs its episode
+program's body, ``false`` the eager loop); the rank writes its rewards, final state, overflow
 (and trajectory) to ``OUT_DIR/<case>_<rank>.npz``, or, for a case with
 ``may_raise``, the ValueError's message (``error``) if the rollout raises
 one. A case with ``grid``
@@ -53,7 +55,9 @@ def run_case(case, mesh):
                          device="cpu", expert_mode=actor is None,
                          path=case["path"], mesh=mesh,
                          n_episodes=case.get("episodes", 1),
-                         traj_agents=case.get("traj", 0))
+                         traj_agents=case.get("traj", 0),
+                         scan_chunks=case.get("chunks", 1),
+                         graph=case.get("graph"))
 
 
 def main(argv):

@@ -9,7 +9,9 @@ Each case of the JSON list names an ``op``, a mesh shape ``n_env`` x
 ``ImitationConfig``, ``large``: a ``LargeNImitationConfig``, as keyword
 arguments with ``hidden``, ``k``, ``n_agents``, ``episode_steps`` for the
 actor and the env). The rank writes what it computed to
-``OUT_DIR/<case>_<rank>.npz``:
+``OUT_DIR/<case>_<rank>.npz``. A case with ``graph`` passes it to the
+learner (or the episode): by default their loops run through their
+programs' bodies, ``false`` the eager loops:
 
 * ``train``: ``ShardedImitationLearner`` (dense) or
   ``LargeNImitationLearner(mesh=)`` (large) trained through ``train()``:
@@ -76,13 +78,15 @@ def make_config(kind, kw):
     return cls(actor=actor, env=env, **kw)
 
 
-def make_learner(kind, cfg, mesh, logger=None):
+def make_learner(kind, cfg, mesh, logger=None, graph=None):
     """The case's learner: on ``mesh``, or one process's with None."""
     if kind == "dense":
         if mesh is None:
-            return im.ImitationLearner(cfg, logger, device="cpu")
-        return ShardedImitationLearner(cfg, mesh, logger, device="cpu")
-    return il.LargeNImitationLearner(cfg, logger, device="cpu", mesh=mesh)
+            return im.ImitationLearner(cfg, logger, device="cpu", graph=graph)
+        return ShardedImitationLearner(cfg, mesh, logger, device="cpu",
+                                       graph=graph)
+    return il.LargeNImitationLearner(cfg, logger, device="cpu", mesh=mesh,
+                                     graph=graph)
 
 
 def learner_arrays(lrn, stats):
@@ -99,7 +103,7 @@ def run_case(case, mesh, out_dir):
     op, kind = case["op"], case.get("kind", "dense")
     cfg = make_config(kind, case["cfg"]) if "cfg" in case else None
     if op == "train":
-        lrn = make_learner(kind, cfg, mesh)
+        lrn = make_learner(kind, cfg, mesh, graph=case.get("graph"))
         return learner_arrays(lrn, lrn.train())
     if op == "resume":
         state = os.path.join(out_dir, f"{case['name']}_state.npz")
@@ -170,7 +174,7 @@ def collect(case, mesh):
         cfg, actor, acfg, case["mode"], draws["idx"].shape[1], None, 0.5,
         "cpu", x0=torch.from_numpy(draws["x0"]),
         coins=torch.from_numpy(draws["coins"]),
-        idx=torch.from_numpy(draws["idx"]))
+        idx=torch.from_numpy(draws["idx"]), graph=case.get("graph"))
     return {"agg": samples["agg"].numpy(), "act": samples["act"].numpy(),
             "reward": float(reward), "overflow": int(ovf)}
 

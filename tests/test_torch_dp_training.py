@@ -23,6 +23,12 @@ each group on a free port and under a timeout; no state of
   on the same grid bit for bit and the JAX ``_collect_episode`` within
   1e-4 of each channel's largest magnitude (the tolerance of
   tests/test_torch_imitation_large.py);
+* the learners' loops run through their programs' bodies by default (on
+  the card: the rank's slice of the dense collection and the banded
+  large collection and eval as CUDA graphs, each Adam update with its
+  gradient ``all_reduce``): a dense and a large round on 2 ranks and on a
+  2 x 2 mesh, and the collection episode on 2 and 4 ranks, each equal to
+  its ``graph=False`` twin (the eager loops) bit for bit on every rank;
 * the guards: both learners refuse an ``n_rollout_envs`` that the ``env``
   axis does not divide; a forced overflow on one rank makes every rank
   exit non-zero with the gate's message within 60 s;
@@ -106,6 +112,10 @@ LARGE_CASES = {
 }
 # ranks: (batch rows, the JAX reference's name)
 UPDATES = {2: 7, 4: 6}
+# cases run through the programs' bodies (the default) that also run with
+# graph=False, as "<case>-eager": the eager loops, their oracle
+EAGER_TWINS = ("d2-env-dagger", "d4-2x2-dagger", "d2-agents", "d4-2x2",
+               "collect-d2", "collect-d4")
 # the collection episode held against JAX: N, T, S, hidden
 CN, CT, CS, CHIDDEN = 64, 10, 16, (8,)
 
@@ -258,6 +268,9 @@ def _runs(tmp):
     for d in UPDATES:      # last: they wait for the JAX draws
         cases[d].append(dict(name=f"collect-d{d}", n_env=1, n_dev=d,
                              **collect))
+    for d in cases:
+        cases[d] += [dict(c, name=f"{c['name']}-eager", graph=False)
+                     for c in cases[d] if c["name"] in EAGER_TWINS]
     started = {}
     for d in (2, 4):
         (tmp / str(d)).mkdir()
@@ -437,6 +450,19 @@ def test_rank_collection_equals_one_process_and_jax(runs, d):
     _close(outs[0]["agg"], jsamples["agg"], "agg")
     _close(outs[0]["act"], jsamples["act"], "act")
     _close([float(outs[0]["reward"])], [jreward], "reward")
+
+
+@pytest.mark.parametrize("name", EAGER_TWINS)
+def test_rank_programs_equal_their_eager_twins(runs, name):
+    """Every rank's round (collection, insert, updates with their gradient
+    ``all_reduce``, eval) or collection episode through the programs'
+    bodies equals the ``graph=False`` twin's eager loops bit for bit."""
+    d = int(name[1]) if name[0] == "d" else int(name[-1])
+    for prog, eager in zip(_ranks(runs, d, name),
+                           _ranks(runs, d, f"{name}-eager"), strict=True):
+        assert prog.files == eager.files
+        for k in prog.files:
+            np.testing.assert_array_equal(prog[k], eager[k], err_msg=k)
 
 
 def test_both_learners_refuse_an_env_axis_that_does_not_divide(runs):

@@ -12,7 +12,8 @@ buffers:
 * ``block=`` sets the blocked path's rows per block as the JAX package's
   argument does;
 * the refusals: ``n_episodes > 1`` with ``scan_chunks > 1``, a graph asked
-  for on the CPU, with a mesh or off the pcells path;
+  for on the CPU (with a mesh too: a mesh's episode runs its program) or
+  off the pcells path;
 * the kernels' launches read from a profiler trace's kernel names.
 
 jax.random and torch generators give different numbers, so the port is
@@ -198,12 +199,13 @@ def test_block_sets_the_blocked_paths_rows_per_block():
     (dict(scan_chunks=0), "scan_chunks must be >= 1"),
     (dict(graph=True), "on the CPU"),
     (dict(graph="step"), "graph must be None, False or True"),
-    (dict(graph=True, mesh=object()), "with a mesh"),
+    (dict(graph=True, mesh=object()), "on the CPU"),
+    (dict(graph=True, mesh=object(), path="binned"), "on the binned path"),
     (dict(graph=True, path="blocked"), "on the blocked path"),
     (dict(graph=True, path="cells"), "on the cells path"),
     (dict(graph="nonsense"), "graph must be None, False or True"),
 ], ids=["episodes_and_chunks", "no_chunks", "cpu", "cpu_step", "mesh",
-        "blocked", "cells", "unknown"])
+        "mesh_binned", "blocked", "cells", "unknown"])
 def test_refusals(kw, match):
     """What the episode program does not run raises ValueError before any
     work; nothing falls back to the eager loop."""
@@ -219,7 +221,7 @@ def test_program_refuses_what_it_cannot_capture():
     setup."""
     p = tfl.FlockingParams(n_agents=48, episode_steps=2)
     tcfg, _ = _actor(3)
-    with pytest.raises(ValueError, match="pcells path on one device"):
+    with pytest.raises(ValueError, match="pcells path, not the blocked"):
         tln.EpisodeProgram(tln.make_config(p, path="blocked"), tcfg, 2,
                            "cpu")
     cfg = tln.make_config(p)

@@ -1058,15 +1058,18 @@ def test_resume_into_a_learner_that_captured_on_gpu(tmp_path):
 
 @pytest.mark.gpu
 def test_graph_true_raises_on_a_one_rank_mesh_on_gpu():
-    """On a mesh the round's loops stay eager (the update's all_reduce):
-    ``graph=True`` raises, ``graph=None`` builds no program. A one-rank
-    gloo group, destroyed after."""
+    """On a mesh the round's loops run as programs: ``graph=True`` raises
+    only where a program does not apply, on the CPU and off the pcells
+    path, and ``graph=None`` builds the programs (the update program with
+    its collectives). A one-rank gloo group, destroyed after."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
+    import dataclasses
     import socket
 
     import torch.distributed as dist
 
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as til
     from multiagent_gnn_policies_tpu_torch.parallel import distributed
     from multiagent_gnn_policies_tpu_torch.parallel.mesh import make_mesh
     from multiagent_gnn_policies_tpu_torch.parallel.sharded import (
@@ -1079,13 +1082,232 @@ def test_graph_true_raises_on_a_one_rank_mesh_on_gpu():
                                        platform="cpu")
     try:
         mesh = make_mesh(device_type="cpu")
-        with pytest.raises(ValueError, match="with a mesh"):
-            ShardedImitationLearner(_round_cfg(False), mesh, device="cuda",
+        with pytest.raises(ValueError, match="on the CPU"):
+            ShardedImitationLearner(_round_cfg(False), mesh, device="cpu",
                                     graph=True)
+        with pytest.raises(ValueError, match="on the cells path"):
+            til.LargeNImitationLearner(
+                dataclasses.replace(_round_cfg(True), graph_path="cells"),
+                device="cuda", mesh=mesh, graph=True)
         lrn = ShardedImitationLearner(_round_cfg(False), mesh, device="cuda")
-        assert lrn._updates is None and lrn._graph is False
+        assert lrn._updates.update == lrn._update and lrn._graph is None
     finally:
         dist.destroy_process_group()
+
+
+# --- the mesh programs: a one-rank NCCL group in this process ---------------
+
+@pytest.fixture
+def nccl_mesh():
+    """A one-rank NCCL process group and its ("env", "agents") mesh,
+    destroyed after the test (with the episode programs captured on it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (NCCL, CUDA graphs)")
+    import socket
+
+    import torch.distributed as dist
+
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.parallel.mesh import make_mesh
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    try:
+        yield make_mesh(1, 1)
+    finally:
+        tln.clear_programs()
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["k3", "expert", "stochastic", "n_episodes",
+                                  "traj_agents", "force_n_dev"])
+def test_mesh_graph_episode_equals_the_eager_loop_on_gpu(nccl_mesh, case):
+    """``rollout_large(mesh=)`` on a one-rank NCCL mesh through its episode
+    program (a CUDA graph with the band's collectives captured in it: a
+    capture, then a replay) against the mesh's eager loop and, on the real
+    axis, the episode with no mesh: every output and the generator's
+    state bit for bit; the replay's launches on the device (profiler
+    trace) those of the eager loop. ``force_n_dev=4``: the emulated rank
+    (no collective), graph against eager."""
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    force = case == "force_n_dev"
+    p, kw, k = _graph_case("k3" if force else case)
+    if force:
+        kw = dict(force_n_dev=4)
+    acfg, actor = seeded_actor(k, 0, dev)
+    runs = {}
+    for name, mesh, graph in (("eager", nccl_mesh, False),
+                              ("capture", nccl_mesh, True),
+                              ("replay", nccl_mesh, True),
+                              ("no mesh", None, False)):
+        if force and mesh is None:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(5)
+        captures = tln.EpisodeProgram.captures
+        res, launched = tcc.device_launches(lambda: tln.rollout_large(
+            actor, acfg, gen, p, device=dev, return_overflow=True,
+            mesh=mesh, graph=graph, **kw))
+        runs[name] = (res, launched, gen.get_state(),
+                      tln.EpisodeProgram.captures - captures)
+    clen = -(-GRAPH_T // kw.get("scan_chunks", 1))    # one program a length
+    programs = len({min(clen, GRAPH_T - c0) for c0 in range(0, GRAPH_T, clen)})
+    assert runs["capture"][3] == programs and runs["replay"][3] == 0
+    eager = runs["eager"]
+    for name, (res, launched, state, _) in runs.items():
+        for a, b in zip(res, eager[0], strict=True):
+            assert torch.equal(a, b), name
+        assert torch.equal(state, eager[2]), name
+    assert runs["replay"][1] == eager[1], (runs["replay"][1], eager[1])
+    if not force:
+        assert int(eager[0][2]) == 0
+
+
+@pytest.mark.gpu
+def test_mesh_graph_replay_never_waits_for_the_device(nccl_mesh):
+    """The sharded grid build, and once captured a whole mesh episode (the
+    eager lattice reset with its collectives, the copies into the static
+    buffers, the replay with its NCCL calls, the generator's hand-over),
+    issue no operation that synchronises the host."""
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.parallel.mesh import axis_group
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p, _, k = _graph_case("stochastic")
+    acfg, actor = seeded_actor(k, 0, dev)
+    spec = tcc.make_pcell_spec(p)
+    x = _init_candidate(torch.Generator(device=dev).manual_seed(1), p, dev)
+    want = tcc.build_pcell_grid(x[:, :2], spec)
+    axis = axis_group(nccl_mesh)
+    tcc.build_pcell_grid_sharded(x[:, :2], spec, axis)     # NCCL's comm
+    got = _no_sync(tcc.build_pcell_grid_sharded, x[:, :2], spec, axis)
+    for a, b in zip(got, want, strict=True):
+        assert torch.equal(a, b)
+
+    def episode():
+        gen = torch.Generator(device=dev).manual_seed(2)
+        return tln.rollout_large(actor, acfg, gen, p, device=dev,
+                                 return_overflow=True, mesh=nccl_mesh,
+                                 graph=True)
+
+    first = episode()                      # captures
+    captures = tln.EpisodeProgram.captures
+    again = _no_sync(episode)
+    assert tln.EpisodeProgram.captures == captures
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("large", [False, True], ids=["dense", "large"])
+def test_mesh_program_rounds_equal_eager_rounds_on_gpu(nccl_mesh, large):
+    """One DAGGER round (with its eval) of ``ShardedImitationLearner``
+    (its slice of the envs through the dense episode program, each update
+    with its gradient ``all_reduce`` through the update program) and of
+    the large learner on the ("env", "agents") mesh (the banded collection
+    and eval programs, the update program), through the programs against
+    ``graph=False``: the whole training state bit for bit."""
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as til
+    from multiagent_gnn_policies_tpu_torch.parallel.sharded import (
+        ShardedImitationLearner)
+
+    def make(graph):
+        if large:
+            return til.LargeNImitationLearner(_round_cfg(True), device="cuda",
+                                              mesh=nccl_mesh, graph=graph)
+        return ShardedImitationLearner(_round_cfg(False), nccl_mesh,
+                                       device="cuda", graph=graph)
+
+    prog, eager = make(None), make(False)
+    captures = tim.UpdateProgram.captures
+    for rounds in (1, 2):        # the first captures, the second replays
+        prog.train(stop_after=rounds)
+        eager.train(stop_after=rounds)
+        assert torch.equal(prog.last_loss_sum, eager.last_loss_sum)
+        _same_learners(prog, eager)
+    assert tim.UpdateProgram.captures == captures + 1
+    assert prog._updates.update == prog._update
+
+
+@pytest.mark.gpu
+def test_a_failed_mesh_capture_raises_on_gpu(nccl_mesh):
+    """A mesh program whose step waits for the device (a read on the host
+    before the step's collectives) raises at its capture and keeps no
+    graph; nothing falls back to the eager loop, and the mesh's next
+    program captures and equals the eager loop."""
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    def syncing_step(cfg, actor, state, gen=None):
+        float(state.overflow)
+        return tln._step(cfg, actor, state, gen)
+
+    dev = torch.device("cuda")
+    p, _, k = _graph_case("k3")
+    acfg, actor = seeded_actor(k, 0, dev)
+    cfg = tln.make_config(p, mesh=nccl_mesh)
+    prog = tln.EpisodeProgram(cfg, acfg, 2, dev, step=syncing_step)
+    state = tln._episode_init(cfg, acfg, torch.Generator(
+        device=dev).manual_seed(1), dev)
+    with pytest.raises(RuntimeError):
+        prog.run(state, actor)
+    assert prog._graph is None
+    runs = [tln.rollout_large(actor, acfg, torch.Generator(
+        device=dev).manual_seed(3), p, device=dev, mesh=nccl_mesh,
+        graph=g) for g in (True, False)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.gpu
+def test_a_new_group_captures_anew_on_gpu(nccl_mesh):
+    """A program captured on a group that is destroyed refuses to replay
+    and is dropped; the same episode on a new group's mesh captures a
+    program of its own and equals the first bit for bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from multiagent_gnn_policies_tpu_torch.parallel import distributed
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.parallel.mesh import make_mesh
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p, _, k = _graph_case("k3")
+    acfg, actor = seeded_actor(k, 0, dev)
+
+    def episode(mesh):
+        return tln.rollout_large(actor, acfg, torch.Generator(
+            device=dev).manual_seed(6), p, device=dev, mesh=mesh)
+
+    first = episode(nccl_mesh)
+    (old,) = [prog for key, prog in tln._PROGRAMS.items()
+              if key[0].axis is not None]
+    state = tln._episode_init(old.cfg, acfg, None, dev, _init_candidate(
+        torch.Generator(device=dev).manual_seed(1), p, dev))
+    dist.destroy_process_group()
+    with pytest.raises(RuntimeError, match="process group was destroyed"):
+        old.run(state, actor)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    distributed.initialize_distributed(f"127.0.0.1:{port}", 1, 0)
+    captures = tln.EpisodeProgram.captures
+    second = episode(make_mesh(1, 1))
+    assert tln.EpisodeProgram.captures == captures + 1
+    assert old not in tln._PROGRAMS.values()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 # --- the compiled DDPG episode ----------------------------------------------

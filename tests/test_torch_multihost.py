@@ -7,9 +7,12 @@ timeout (tests/test_multihost.py's pattern; no state of
   data-parallel DAGGER round's reward and loss equal on both ranks);
 * D-rank rollouts (D = 2 and 4; the expert and a K = 3 policy on the
   pcells, blocked, cells and binned paths, the leader and stochastic
-  variants, an episode chain, a recorded trajectory, the cells path at
-  N = 66, which D = 4 does not divide) equal the single-process port
-  rollout bit for bit, on every rank, with equal overflow, and agree
+  variants, an episode chain, a recorded trajectory, a chunked episode
+  with one, the cells path at N = 66, which D = 4 does not divide) equal
+  the single-process port rollout bit for bit, on every rank, with equal
+  overflow; on the pcells path each runs its episode program's body,
+  the mesh's collectives in it, and equals its ``graph=False`` twin (the
+  eager loop) bit for bit; and they agree
   within 1e-4 with the JAX package's mesh rollout from the same initial
   state
   (``rollout_large(mesh=...)`` on tests/conftest.py's virtual CPU devices,
@@ -112,13 +115,19 @@ def _jax_reset(p, key):
                            cell_spec=jpc.make_pcell_spec(p),
                            need_expert=False)
     reset_key, _ = jax.random.split(key)
-    x, _, _ = jln._reset(cfg, reset_key, centralized=True)
-    return np.array(x)
+    # jitted: op by op, the Pallas kernels' interpret mode takes ~10 s
+    return np.array(jax.jit(lambda k: jln._reset(cfg, k, centralized=True)[0])(
+        reset_key))
 
 
 CASES = ("pcells_k3", "pcells_expert", "blocked_k3", "blocked_expert",
          "leader_k3", "stoch_k3", "chain_k3", "traj_k3", "cells_k3",
-         "cells_expert", "binned_k3", "binned_expert", "cells_n66")
+         "cells_expert", "binned_k3", "binned_expert", "cells_n66",
+         "chunks_traj_k3")
+# the pcells cases run through their episode program's body; each has a
+# twin, "<case>_eager", run with graph=False
+PROGRAM_CASES = ("pcells_k3", "pcells_expert", "stoch_k3", "chain_k3",
+                 "chunks_traj_k3")
 
 
 @pytest.fixture(scope="module")
@@ -156,7 +165,10 @@ def mesh_runs(tmp_path_factory):
         "cells_n66": dict(path="cells", n=N_ODD, x0=str(tmp / "x0_66.npy")),
         "binned_n66": dict(path="binned", n=N_ODD, may_raise=True,
                            x0=str(tmp / "x0_66.npy")),
+        "chunks_traj_k3": dict(traj=50, chunks=3),
     }
+    cases.update({f"{name}_eager": dict(cases[name], graph=False)
+                  for name in PROGRAM_CASES})
     cases = [dict(base, name=name, **kw) for name, kw in cases.items()]
     rng = np.random.default_rng(4)
     pos = rng.uniform(-4.0, 4.0, (160, 2)).astype(np.float32)
@@ -201,6 +213,20 @@ def test_rank_rollout_equals_single_process(mesh_runs, d, case):
         if traj:
             assert traj[0].shape == (c["steps"], c["traj"], 4)
             np.testing.assert_array_equal(out["traj"], traj[0].numpy())
+
+
+@pytest.mark.parametrize("case", PROGRAM_CASES)
+@pytest.mark.parametrize("d", [2, 4])
+def test_rank_program_equals_the_eager_loop(mesh_runs, d, case):
+    """On every rank, the episode through its program's body (the band's
+    collectives in it) equals the ``graph=False`` twin's eager loop bit
+    for bit."""
+    for prog, eager in zip(_rank_outputs(mesh_runs, d, case),
+                           _rank_outputs(mesh_runs, d, f"{case}_eager"),
+                           strict=True):
+        assert prog.files == eager.files
+        for key in prog.files:
+            np.testing.assert_array_equal(prog[key], eager[key], err_msg=key)
 
 
 @pytest.mark.parametrize("d,case", [(2, "pcells_k3"), (4, "pcells_expert"),

@@ -16,12 +16,15 @@ the body it captures on the card eagerly:
   generator's state after the episode included;
 * the learners' rounds through their programs equal the eager rounds,
   a learner that has stepped resumes a state file into the uninterrupted
-  run's state, and ``graph=True`` raises on the CPU and on a mesh.
+  run's state, and ``graph=True`` raises on the CPU (on a mesh too, where
+  the learners build their programs) and, for the large learner, off the
+  pcells path.
 
 Tolerance against optax: 1e-6 of each tensor's largest magnitude;
 everything else exactly.
 """
 
+import dataclasses
 import socket
 
 import jax
@@ -247,8 +250,10 @@ def test_dense_program_refusals():
         with pytest.raises(ValueError, match=match):
             tim.rollout_episode(actor, gen, 0.5, _env(), acfg,
                                 **{"collect": False, **kw})
+    # a data-parallel rank's slice of the envs runs its program too: on
+    # the CPU a graph of it raises as any other
     sliced = tfl.FlockingEnv(_env().params, env_range=(0, 2))
-    with pytest.raises(ValueError, match="slice of the envs"):
+    with pytest.raises(ValueError, match="on the CPU"):
         tim.rollout_episode(actor, gen, 0.5, sliced, acfg, mode="eval",
                             collect=False, graph=True)
     with pytest.raises(ValueError, match="needs an actor"):
@@ -337,6 +342,9 @@ def test_a_learner_that_stepped_resumes_in_place(tmp_path):
 
 
 def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
+    """``graph=True`` raises on the CPU, with a mesh or without, and off
+    the pcells path; on a mesh ``graph=None`` builds the programs, the
+    update program over the learner's own update with its collective."""
     with pytest.raises(ValueError, match="on the CPU"):
         tim.ImitationLearner(_dense_cfg(), device="cpu", graph=True)
     with socket.socket() as s:
@@ -345,10 +353,15 @@ def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
     tdist.initialize_distributed(f"127.0.0.1:{port}", 1, 0, platform="cpu")
     try:
         mesh = tmesh.make_mesh(device_type="cpu")
-        with pytest.raises(ValueError, match="with a mesh"):
+        with pytest.raises(ValueError, match="on the CPU"):
             ShardedImitationLearner(_dense_cfg(), mesh, device="cpu",
                                     graph=True)
+        with pytest.raises(ValueError, match="on the blocked path"):
+            til.LargeNImitationLearner(
+                dataclasses.replace(_large_cfg(), graph_path="blocked"),
+                device="cpu", mesh=mesh, graph=True)
         lrn = ShardedImitationLearner(_dense_cfg(), mesh, device="cpu")
-        assert lrn._updates is None and lrn._graph is False
+        assert lrn._graph is None
+        assert lrn._updates.update == lrn._update
     finally:
         dist.destroy_process_group()
