@@ -20,6 +20,14 @@ at N = 4,096, 19 (c)) check the counters: per episode the reset's K1,
 and per capture its warm-up and its 200 recorded steps (the captures
 are counted).
 
+Graph against eager. Where a phase below prints ms, busy ms, idle share
+and device ops per step "of each loop" (phases 14 (d), 16, 18, 20, 21),
+the graph's come from one run under the profiler (its ms under it), the
+eager loop's ms from one timed run: its busy ms, idle share and device
+ops read "not measured" (cut in depth: tracing an eager loop of ~10^5
+launches took up to 14 s of the run; PERF.md section 5 has the eager
+loops' traces). Phase 19 traces both loops.
+
 1. device: fails without ``torch.cuda.is_available()``; prints nvidia-smi's
    name and power limit and ``torch.cuda.get_device_name(0)``;
 2. build: the one ``nvcc`` call of ``ops/_build.py``, with its seconds and
@@ -145,7 +153,12 @@ are counted).
     within 1e-4. (d) The dense route (no ``--n-agents``): N = 50, 20
     episodes per section, each mean within the JAX package's mean +- std
     (-39.44 +- 4.33, -39.75 +- 4.38, -40.79 +- 4.81, -44.29 +- 5.95), no
-    cell kernel launched, one ``--save-trajectory`` file checked;
+    cell kernel launched; then the ``--save-trajectory`` dump of section
+    [4] three times: through its program (``algos/imitation.py``
+    ``TrajectoryProgram``, a CUDA graph: a capture, then a replay) and
+    eagerly, each file's keys and shapes checked and the files equal bit
+    for bit, one program captured; its capture, instantiate seconds and
+    nodes, and each dump's ms per step printed;
 14. ddpg (no cell kernel on its paths; the counters, zeroed before,
     must read 0 after). Its evals and training episodes run as the
     entry points' default, the CUDA graphs of ``algos/ddpg.py`` and
@@ -169,39 +182,48 @@ are counted).
     the same step with TF32 allowed printed beside it. (c) Training at
     full width through the learner's ``train``, routed as the train CLI
     routes: ``ddpg_toy.cfg [test]`` 4 episodes (gradient steps from
-    episode 3), ``ddpg.cfg [test]`` 2, ``ddpg_n4k.cfg [n4k]`` 3 (N =
-    4,096, positions record); finite rewards, losses and evals, ms per env
-    step with its gradient step; for toy and n4k the state of an eager
-    run stopped one episode early, saved to a temporary directory, resumed
-    by a fresh learner and by the learner that captured (no new capture):
-    each must equal the uninterrupted run's training state bit for bit;
+    episode 3), ``ddpg.cfg [test]`` 2 (cut in depth to 100-step episodes,
+    not 200), ``ddpg_n4k.cfg [n4k]`` 2 (cut from 3; N = 4,096, positions
+    record; DDPG_TRAIN says why); finite rewards, losses and evals, ms per env
+    step with its gradient step; for toy (n4k's resume, a 750 MiB state
+    file, is cut in depth; tests/test_torch_ddpg_large.py resumes the
+    large learner) the state of an eager run stopped one episode early,
+    saved to a temporary directory, resumed by a fresh learner and by the
+    learner that captured (no new capture): each must equal the
+    uninterrupted run's training state bit for bit;
     then one more episode under torch.profiler, read as phase 8 reads its
     round (a replay calls none of the step's functions: the layers are
     the program's run and the eager reset). (d) Each of those learners
     against an eager twin (``graph=False``) that ran the same episodes,
     which cover every gate step of the config (toy: the gate opens after
-    episodes 0 and 1 and at episode 2's first step; ``ddpg.cfg``: at step
-    100, then 0; n4k: at step 8, then 0): the training state and the
+    episodes 0 and 1 and at episode 2's first step; ``ddpg.cfg``, its
+    episodes cut to 100 steps: not in episode 0, then at 0; n4k: at step
+    8, then 0): the training state and the
     summed reward and losses bit for bit; each program's capture and
     instantiate seconds and pool MB; ms per env step with its gradient
-    steps, busy ms, idle share and device ops per step of one more
-    episode of each loop; the eval's wall through its program and
+    steps of one more episode of each loop, and the graph's busy ms, idle
+    share and device ops per step (cut in depth, here and in phases 16,
+    18, 20 and 21: the eager loop is timed, not traced); the eval's wall
+    through its program and
     eagerly, bit for bit; last, one more episode's replay behind its
     eager reset under CUDA's sync debug mode "error" (finite sums, no new
     capture);
 15. tools: each measurement tool's ``main(argv)`` in-process on the
     card, its output printed indented; a non-zero exit, a ``[FAIL]`` or a
     SUSPECT line fails the phase. Cut in depth: ``bench --reps 1 --chains
-    1 --steps 100 --no-large-n`` (one timed call of the single-env and
+    1 --steps 50 --no-large-n`` (one timed call of the single-env and
     128-env figures and one sustained chain of 8 batches, not 5, 5 and 2,
-    of 100-step episodes, not 200; no large-N detail; the one-thread
+    of 50-step episodes, not 200, cut from 100 when phase 19's episode
+    programs joined; no large-N detail; the one-thread
     baseline in its subprocess as always; its JSON line must parse with
     the four keys); ``smoke_env --episodes
     1`` (all five envs, 1 episode each, not 2); ``bench_large_n --n 10000
-    --paths blocked cells binned pcells --steps 10 --repeats 1 --episodes
-    1`` (10-step episodes, not 25: a first one, 1 timed chain of 1, not 3
-    of 2, and one profiled; cut from 25 steps and 2 chains when the cells
-    and binned rows joined, to hold the run's budget) and ``--n 1000000
+    --paths blocked cells binned pcells --steps 5 --repeats 1 --episodes
+    1`` (5-step episodes, not 25: a first one, 1 timed chain of 1, not 3
+    of 2, and one profiled, eagerly and through the graphs on every path;
+    cut from 25 steps and 2 chains when the cells and binned rows joined,
+    and from 10 steps when their graph rows did, to hold the run's
+    budget) and ``--n 1000000
     --paths pcells --steps 25 --edge-mult 2 --cap 32 --repeats 1
     --episodes 1`` (25-step episodes: a first one, 1 timed chain of 1,
     not 3 of 2, and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
@@ -236,7 +258,8 @@ are counted).
     waits for the device (a read on the host, before its first
     collective): its capture must raise and leave no graph, nothing
     falling back to the eager loop. (c) On that mesh,
-    ``rollout_large(force_n_dev=4)`` at N = 100,000 for 25 steps (and the
+    ``rollout_large(force_n_dev=4)`` at N = 100,000 for 10 steps (cut from
+    25 when phase 19's programs joined; and the
     real one-rank mesh beside it), each through its graph (the emulated
     rank holds no collective) and eagerly: bit for bit, and ms, busy ms,
     idle share and device ops per step of each loop printed, not gated;
@@ -268,31 +291,50 @@ are counted).
     one slot per cell (``cell_cap`` 1): the round's overflow gate raises on
     the rank within DP_OVERFLOW_S, nothing stored. The programs are
     dropped and the group destroyed after;
-19. backends: the cells and binned graph backends (``ops/cells.py``,
-    ``ops/binned.py``; plain PyTorch, no cell kernel). (a) A lattice reset
-    at N = 32,768 and BACKEND_STEPS policy steps on the pcells path, as
-    phase 3; on that step's own inputs each backend's frame against the
-    pcells frame (values and expert within 1e-5, degrees and min r^2
-    exact, overflow 0), its apply at 12 columns (the delayed columns)
-    against the pcells apply, and its delayed stack against
-    ``ystack_pre`` (1e-5). (b) One greedy 200-step K = 3 episode of the
-    n32k checkpoint on each backend through ``rollout_large(path=)``
-    (cells at BACKEND_CELL_CAP slots per cell, binned at its 32), from
-    phase 4's reset: overflow 0, reward within -458.8 +- 15 (phase
-    4's band), K1-K3 counters 0 across each episode, ms per step printed;
-    then BACKEND_PARITY_STEPS-step episodes from one x0 on pcells, cells
-    and binned: rewards and final states within 1e-4 of pcells'. (c) One
-    round of ``cfg/dagger_n32k.cfg [n32k]`` with ``graph_path = cells``
-    and ``cell_cap = BACKEND_CELL_CAP``, cut in depth as phase 11
-    (LARGE_BUFFER records, 1 eval episode) and to BACKEND_LEARNER_STEPS
-    steps per episode, not 200 (the cells step takes ~25 ms): finite loss
-    sum, overflow 0 (the gate raises otherwise), no cell
-    kernel launched (counted);
-    collection ms per env step and ms per Adam update printed. (d) On a
-    one-rank NCCL group and ``make_mesh(1, 1)``, built as phase 18 builds
-    them: a BACKEND_MESH_STEPS-step episode of each backend on the mesh
-    equal to the same episode with no mesh, bit for bit. The group is
-    destroyed after;
+19. backends: the blocked, cells and binned graph backends
+    (``ops/blocked.py``, ``ops/cells.py``, ``ops/binned.py``; plain
+    PyTorch, no cell kernel) and their episode programs. (a) A lattice
+    reset at N = 32,768 and BACKEND_STEPS policy steps on the pcells path,
+    as phase 3; on that step's own inputs the cells and binned frames
+    against the pcells frame (values and expert within 1e-5, degrees and
+    min r^2 exact, overflow 0), their applies at 12 columns (the delayed
+    columns) against the pcells apply, and their delayed stacks against
+    ``ystack_pre`` (1e-5). (b) A greedy K = 3 episode of the n32k
+    checkpoint from phase 4's reset through ``rollout_large(path=)`` on
+    each path (blocked at N = BLOCKED_N, the JAX package's default path
+    there, cut to BLOCKED_STEPS steps; cells at BACKEND_CELL_CAP slots per
+    cell and binned at its 32, both at N = 32,768 for 200 steps): through
+    its episode program (its CUDA graphs, a chunk of steps each where the
+    episode's graph would exceed ``graphs.GRAPH_NODES`` nodes) capturing
+    and replaying its chunks under CUDA's sync debug mode "error", then
+    eagerly: bit for bit, overflow 0, one program captured, K1-K3
+    counters 0, cells' and binned's rewards within -458.8 +- 15 (phase
+    4's band); then a BACKEND_TRACE_STEPS-step episode through its graphs
+    and eagerly, each under the profiler, bit for bit (cut in depth: a
+    trace of a 200-step eager cells episode, ~10^5 launches, takes ~12
+    s); printed per path: steps per graph, nodes a graph, capture and
+    instantiate seconds, pool MB, the 200-step episodes' walls; per loop
+    of the traced episodes: ms per step, busy ms, idle share, device ops
+    per step. Then the
+    cells episode at the module's default cap 12: its overflow printed
+    beside cap 16's, not gated. Then BACKEND_PARITY_STEPS-step episodes
+    from one x0 on pcells, cells and binned, eagerly: rewards and final
+    states within 1e-4 of pcells'. (c) One round of ``cfg/dagger_n32k.cfg
+    [n32k]`` with ``graph_path = cells`` and ``cell_cap =
+    BACKEND_CELL_CAP``, cut in depth as phase 11 (LARGE_BUFFER records, 1
+    eval episode) and to BACKEND_LEARNER_STEPS steps per episode, not 200
+    (the cells step at cap 16 takes ~24 ms), through the programs and
+    through a ``graph=False`` twin: the training states bit for bit,
+    finite loss sum, overflow 0 (the gate raises otherwise), no cell
+    kernel launched (counted); each learner's collection ms per env step
+    and ms per Adam update printed. (d) On a one-rank NCCL group and
+    ``make_mesh(1, 1)``, built as phase 18 builds them: a
+    BACKEND_MESH_STEPS-step episode of each path (blocked at BLOCKED_N)
+    on the mesh through its graphs (captured and replayed: the frames'
+    gathers, the applies' collectives and the state gather in them) and
+    eagerly, each equal to the same episode eagerly with no mesh, bit for
+    bit.
+    The programs are dropped and the group destroyed after;
 20. graph: the episode program (``parallel/large_n.py``) against the
     eager loop (``graph=False``), the oracle of phases 4 and 10-13. (a)
     Phase 4's episode (its section, generator and grid) through the
@@ -354,6 +396,7 @@ the repository.
 import copy
 import dataclasses
 import faulthandler
+import functools
 import json
 import math
 import os
@@ -445,8 +488,16 @@ DDPG_EVALS = (("ddpg_toy", "test", "ddpg_toy_k2", (-23.45, 6.4)),
                (-1302.3, 38.3)))
 DDPG_EVAL_EPISODES = 100
 # (config, section, training episodes, resume checked)
-DDPG_TRAIN = (("ddpg_toy", "test", 4, True), ("ddpg", "test", 2, False),
-              ("ddpg_n4k", "n4k", 3, True))
+# (config, section, training episodes, resume checked, episode steps: None
+# the section's). Cut in depth: the n4k learner's resume (a 750 MiB state
+# file written and read three times, ~14 s; the toy learner's resume holds
+# the mechanism, tests/test_torch_ddpg_large.py the large learner's), its
+# episodes from 3 to 2 (both gate steps, 8 and 0, met), and ddpg.cfg's
+# episodes from 200 steps to 100 (its gate steps T and 0; n4k's holds a
+# gate inside an episode)
+DDPG_TRAIN = (("ddpg_toy", "test", 4, True, None),
+              ("ddpg", "test", 2, False, 100),
+              ("ddpg_n4k", "n4k", 2, False, None))
 DDPG_PARITY_N = 1024           # the large step's depth cut (its CPU side)
 REL_STEP = 1e-4
 # Adam's largest step, in units of lr: |m_hat| / sqrt(v_hat) is at most
@@ -455,18 +506,25 @@ ADAM_STEP_MAX = (1 - 0.9) / math.sqrt(1 - 0.999)
 MESH_N = 100_000              # phase 16: bands, and force_n_dev timing
 MESH_DEVS = (2, 4)
 MESH_FORCE = 4
-MESH_STEPS = 25
+MESH_STEPS = 10
 DP_DENSE_TOL = 1e-6           # phase 18 (a): sharded vs one-process params
 DP_OVERFLOW_S = 60.0          # phase 18 (c): the gate raises within this
 BACKEND_PATHS = ("cells", "binned")   # phase 19: the other graph backends
 BACKEND_STEPS = 3             # (a): policy steps before the checks
 BACKEND_PARITY_STEPS = 20     # (b): pcells, cells, binned from one x0
-BACKEND_MESH_STEPS = 25       # (d): mesh vs no mesh
-BACKEND_LEARNER_STEPS = 50    # (c): the cells learner's episodes
+BACKEND_MESH_STEPS = 10       # (d): mesh vs no mesh
+BACKEND_LEARNER_STEPS = 25    # (c): the cells learner's episodes
+# (b), (d): the blocked path at the JAX package's default N below 32,768,
+# its episode cut from 200 steps (~27 ms a step eagerly)
+BLOCKED_N = 10_000
+BLOCKED_STEPS = 50
+BACKEND_TRACE_STEPS = 10      # (b): the traced episodes of each loop
 # (b)-(d): the cells grid's slots per cell for the n32k policy. At the
 # module's default of 12 one agent of a 200-step episode overflowed (a
-# cell of 13); 16 is the pcells grid's capacity
+# cell of 13); 16 is the pcells grid's capacity. (b) prints the default's
+# overflow beside it
 BACKEND_CELL_CAP = 16
+CELLS_DEFAULT_CAP = 12
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
@@ -1120,7 +1178,7 @@ def tools_phase(cc):
 
     out = {}
     text, out["bench_s"] = _tool(bench.main, ["--reps", "1", "--chains", "1",
-                                              "--steps", "100",
+                                              "--steps", "50",
                                               "--no-large-n"])
     line = json.loads(text.strip())
     if (set(line) != {"metric", "value", "unit", "vs_baseline"}
@@ -1133,7 +1191,7 @@ def tools_phase(cc):
         raise AssertionError("smoke_env: a SUSPECT or missing episode")
     _, out["bench_large_n_s"] = _tool(bench_large_n.main, [
         "--n", "10000", "--paths", "blocked", "cells", "binned", "pcells",
-        "--steps", "10", "--repeats", "1", "--episodes", "1"])
+        "--steps", "5", "--repeats", "1", "--episodes", "1"])
     _, s = _tool(bench_large_n.main, [
         "--n", "1000000", "--paths", "pcells", "--edge-mult", "2", "--cap",
         "32", "--steps", "25", "--repeats", "1", "--episodes", "1"])
@@ -1353,7 +1411,7 @@ def _mesh_capture_failure(torch, ev, ln, cfg, acfg, actor, seed):
     else:
         raise AssertionError("a mesh capture that waits for the device did "
                              "not raise")
-    if prog._graph is not None:
+    if prog.captured:
         raise AssertionError("the failed capture left a graph")
     print(f"#   mesh: a capture whose step waits for the device raised: "
           f"{message}", flush=True)
@@ -1553,12 +1611,14 @@ def _section_params(ExperimentConfig, section, n_agents, steps=None):
 
 def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
                    n_agents, reward):
-    """Phase 19: the cells and binned graph backends on the card (module
-    docstring): (a) their frames, applies and stacks against the pcells
-    path's on a K = 3 step's own inputs, (b) a 200-step episode of each
-    and 20-step episodes of all three paths from one x0, (c) a cells
-    learner round, (d) a one-rank NCCL mesh against no mesh. Returns what
-    the phase line prints."""
+    """Phase 19: the blocked, cells and binned graph backends on the card
+    (module docstring): (a) the cells and binned frames, applies and
+    stacks against the pcells path's on a K = 3 step's own inputs, (b)
+    each path's episode through its graphs and eagerly
+    (:func:`backend_graphs`) and 20-step episodes of pcells, cells and
+    binned from one x0, (c) a cells learner round against its eager twin,
+    (d) a one-rank NCCL mesh's graphs against no mesh. Returns what the
+    phase line prints."""
     import dataclasses as dc
 
     from multiagent_gnn_policies_tpu_torch.envs.flocking import (
@@ -1633,33 +1693,14 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
             want["ystack"].transpose(0, 1), REL_PLAIN))
     out["max_abs_err"] = f"{err:.3g}"
 
-    # (b) a 200-step episode of each backend through rollout_large(path=),
-    # with phase 4's reset; then 20-step episodes of all three paths
-    cap = {"cells": BACKEND_CELL_CAP, "binned": None}
-    for path in BACKEND_PATHS:
-        cc.reset_launch_counts()
-        t = time.perf_counter()
-        with torch.no_grad():
-            r, _, ovf = ln.rollout_large(
-                actor, acfg, ev.episode_generator(xcfg.seed, 0, dev), p,
-                centralized_expert=xcfg.centralized, return_overflow=True,
-                device=dev, path=path, cap=cap[path])
-            total = float(r.sum())
-        wall = time.perf_counter() - t
-        launches = cc.launch_counts()
-        steps = p.episode_steps
-        print(f"#   {path}: {steps}-step K = 3 episode at N = {n_agents}: "
-              f"reward {total} (pcells {reward}), overflow {int(ovf)}, "
-              f"launches {launches}, {1e3 * wall / steps:.4f} ms per step "
-              f"(reset included)", flush=True)
-        if int(ovf) or any(launches.values()):
-            raise AssertionError(f"{path}: overflow {int(ovf)}, launches "
-                                 f"{launches}")
-        if not math.isfinite(total) or abs(total - REWARD_REF) > REWARD_BAND:
-            raise AssertionError(f"{path}: reward {total} outside "
-                                 f"{REWARD_REF} +- {REWARD_BAND}")
-        out[f"{path}_reward"] = total
-        out[f"{path}_ms_per_step"] = f"{1e3 * wall / steps:.4f}"
+    # (b) each path's episode through its program (CUDA graphs) and its
+    # eager loop: blocked at BLOCKED_N, cells and binned at N, phase 4's
+    # reset
+    out.update(backend_graphs(torch, ev, ln, cc, ExperimentConfig, section,
+                              actor, acfg, xcfg, n_agents, reward))
+    # then BACKEND_PARITY_STEPS-step episodes of pcells, cells and binned,
+    # eagerly (the programs are (b)'s and (d)'s)
+    cap = {"cells": BACKEND_CELL_CAP, "binned": None, "blocked": None}
     p20, _ = _section_params(ExperimentConfig, section, n_agents,
                              BACKEND_PARITY_STEPS)
     x0 = _init_candidate(torch.Generator(device=dev).manual_seed(SEED + 20),
@@ -1669,7 +1710,8 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
         for path in ("pcells", *BACKEND_PATHS):
             r, xf, ovf = ln.rollout_large(actor, acfg, None, p20, x0=x0,
                                           return_overflow=True, device=dev,
-                                          path=path, cap=cap.get(path))
+                                          path=path, cap=cap.get(path),
+                                          graph=False)
             if int(ovf):
                 raise AssertionError(f"{path} 20-step episode: overflow")
             ends[path] = (r, xf)
@@ -1679,84 +1721,228 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
         check_close(f"{path} {BACKEND_PARITY_STEPS}-step rewards vs pcells",
                     ends[path][0][:, None], ends["pcells"][0][:, None],
                     REL_EPISODE)
+    ln.clear_programs()
 
     # (c) one round of the n32k section on the cells path, cut in depth as
-    # phase 11
+    # phase 11, through the programs and eagerly
     lcfg = il.LargeNImitationConfig.from_experiment(dc.replace(
         xcfg, n_agents=n_agents, buffer_size=LARGE_BUFFER, n_test_episodes=1,
         graph_path="cells", cell_cap=BACKEND_CELL_CAP,
         episode_steps=BACKEND_LEARNER_STEPS), mode="dagger")
-    lrn = il.LargeNImitationLearner(lcfg, device=DEVICE)
-    _, launches = _counted(cc, lambda: lrn.train(stop_after=1))
-    torch.cuda.synchronize()
-    speed = lrn.timing_summary()
+    learners = {}
+    for name, graph in (("graph", None), ("eager", False)):
+        lrn = learners[name] = il.LargeNImitationLearner(
+            lcfg, device=DEVICE, graph=graph)
+        _, launches = _counted(cc, lambda: lrn.train(stop_after=1))
+        torch.cuda.synchronize()
+        if any(launches.host.values()):
+            raise AssertionError(f"cells learner ({name}): launches "
+                                 f"{launches}")
+    lrn = learners["graph"]
+    same = _same_training_state(torch, lrn, learners["eager"])
     loss = float(lrn.last_loss_sum)
+    speed = {name: learners[name].timing_summary() for name in learners}
     print(f"#   cells learner: cfg/dagger_n32k.cfg [n32k] with graph_path = "
           f"cells at N = {n_agents} (buffer {LARGE_BUFFER} records, 1 eval "
-          f"episode, {BACKEND_LEARNER_STEPS}-step episodes), 1 round: loss sum {loss}, launches {launches}; "
-          f"collection {speed['rollout_ms_per_step']:.4f} ms per env step, "
-          f"{speed['update_ms_per_update']:.4f} ms per Adam update",
-          flush=True)
-    if not math.isfinite(loss) or any(launches.host.values()):
-        raise AssertionError(f"cells learner: loss {loss}, launches "
-                             f"{launches}")
-    out.update(cells_learner_loss=loss,
+          f"episode, {BACKEND_LEARNER_STEPS}-step episodes), 1 round "
+          f"through its programs against graph=False: training state bit "
+          f"for bit {same}, loss sum {loss}; collection "
+          + ", ".join(f"{n} {sp['rollout_ms_per_step']:.4f}"
+                      for n, sp in speed.items())
+          + " ms per env step (first capture included), Adam update "
+          + ", ".join(f"{n} {sp['update_ms_per_update']:.4f}"
+                      for n, sp in speed.items()) + " ms", flush=True)
+    if not same or not math.isfinite(loss):
+        raise AssertionError(f"cells learner: bit for bit {same}, loss "
+                             f"{loss}")
+    out.update(cells_learner_loss=loss, cells_learner_bit_for_bit=same,
                cells_collection_ms_per_step=(
-                   f"{speed['rollout_ms_per_step']:.4f}"),
-               cells_update_ms=f"{speed['update_ms_per_update']:.4f}")
-    del lrn
+                   f"{speed['graph']['rollout_ms_per_step']:.4f}"),
+               cells_update_ms=f"{speed['graph']['update_ms_per_update']:.4f}")
+    del lrn, learners
+    ln.clear_programs()
 
-    # (d) a one-rank NCCL mesh against no mesh, bit for bit
-    pm_steps, _ = _section_params(ExperimentConfig, section, n_agents,
-                                  BACKEND_MESH_STEPS)
+    # (d) a one-rank NCCL mesh through its graphs against its eager loop
+    # and no mesh, bit for bit
     distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     try:
         mesh = pm.make_mesh(1, 1)
-        for path in BACKEND_PATHS:
-            runs = []
-            for m in (None, mesh):
+        for path, n in (("blocked", BLOCKED_N), ("cells", n_agents),
+                        ("binned", n_agents)):
+            pm_steps, _ = _section_params(ExperimentConfig, section, n,
+                                          BACKEND_MESH_STEPS)
+            runs = {}
+            for name, m, graph in (("mesh graph", mesh, None),
+                                   ("mesh eager", mesh, False),
+                                   ("no mesh", None, False)):
                 with torch.no_grad():
-                    runs.append(ln.rollout_large(
+                    runs[name] = ln.rollout_large(
                         actor, acfg, torch.Generator(device=dev).manual_seed(
                             SEED + 21), pm_steps, return_overflow=True,
-                        device=dev, path=path, cap=cap[path], mesh=m))
-            (r1, x1, o1), (r2, x2, o2) = runs
-            same = (torch.equal(r1, r2) and torch.equal(x1, x2)
-                    and int(o1) == int(o2) == 0)
-            print(f"#   {path}: {BACKEND_MESH_STEPS}-step episode on a "
-                  f"one-rank NCCL mesh vs no mesh: bit for bit {same}",
+                        device=dev, path=path, cap=cap[path], mesh=m,
+                        graph=graph)
+            want = runs["no mesh"]
+            same = int(want[2]) == 0 and all(
+                all(torch.equal(a, b) for a, b in zip(run, want))
+                for run in runs.values())
+            prog = ln.episode_program(ln.make_config(
+                pm_steps, path=path, cap=cap[path], mesh=mesh), acfg,
+                BACKEND_MESH_STEPS, dev)
+            print(f"#   {path}: {BACKEND_MESH_STEPS}-step episode at N = {n} "
+                  f"on a one-rank NCCL mesh through its graphs (captured "
+                  f"and replayed) and eagerly vs no mesh: bit for bit {same}; "
+                  f"{prog.steps_per_graph} steps per graph, {prog.nodes} "
+                  f"nodes a graph, capture {prog.capture_s:.3f} s",
                   flush=True)
-            if not same:
+            if not same or not prog.captured:
                 raise AssertionError(f"{path}: the mesh episode differs")
             out[f"{path}_mesh_bit_for_bit"] = same
     finally:
+        ln.clear_programs()
         torch.distributed.destroy_process_group()
     cc.reset_launch_counts()
     return out
 
 
-def _episode_stats(torch, run, steps, top=0):
-    """``run()`` timed by the host clock (synchronised) and then once more
-    under torch.profiler (its ``top`` device operations printed): ``(ms
-    per step, busy ms per step, idle share, device ops per step)``; the
-    last three None when the profiler records no device activity."""
+def _traced(torch, run, steps, ms=None, top=0):
+    """``run()`` once under torch.profiler (its ``top`` device operations
+    printed): ``(its result, busy ms per step, idle share against ``ms``
+    per step, device ops per step)``, the three None when the profiler
+    records no device activity; with ``ms`` None the idle share is
+    against the run's own wall under the profiler, and that ms per step
+    comes last."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    run()
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t) / steps
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        run()
+        res = run()
         torch.cuda.synchronize()
         prof_ms = 1e3 * (time.perf_counter() - t) / steps
-    summary = summarize_trace(trace_events(prof), steps, ms, prof_ms,
-                              top=top)
-    if summary is None:
-        return ms, None, None, None
-    return ms, summary["busy_ms"], summary["idle"], summary["ops_per_step"]
+    summary = summarize_trace(trace_events(prof), steps, ms or prof_ms,
+                              prof_ms, top=top)
+    stats = ((None, None, None) if summary is None else (
+        summary["busy_ms"], summary["idle"], summary["ops_per_step"]))
+    return (res, *stats) + (() if ms else (prof_ms,))
+
+
+def _wall(torch, run):
+    """``run()`` and its wall seconds, synchronised."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def backend_graphs(torch, ev, ln, cc, ExperimentConfig, section, actor,
+                   acfg, xcfg, n_agents, reward):
+    """Phase 19 (b): each path's greedy episode of the n32k checkpoint from
+    phase 4's reset (blocked at BLOCKED_N for BLOCKED_STEPS steps, cells at
+    BACKEND_CELL_CAP and binned at N for 200) through its episode program:
+    a first episode under CUDA's sync debug mode "error" (the eager reset,
+    the warm-up, the probe, the captures and every chunk's replay), then
+    the eager loop: bit for bit, overflow 0, no cell kernel launched,
+    cells and binned within phase 4's band; then a BACKEND_TRACE_STEPS-step
+    episode of each loop under the profiler (its program captured first),
+    bit for bit. Printed per path: steps per graph, nodes a graph,
+    capture and instantiate s, pool MB, both long episodes' walls; per
+    loop of the traced episodes: ms per step, busy ms, idle share, device
+    ops per step. Then the cells path at its default cap 12 through its
+    graphs: its overflow beside cap 16's. Returns what the phase line
+    prints."""
+    dev = torch.device(DEVICE)
+    fmt = lambda v, f: "not measured" if v is None else format(v, f)
+    cap = {"cells": BACKEND_CELL_CAP, "binned": None, "blocked": None}
+    out = {}
+    for path, n, t_cut in (("blocked", BLOCKED_N, BLOCKED_STEPS),
+                           ("cells", n_agents, None),
+                           ("binned", n_agents, None)):
+        p, _ = _section_params(ExperimentConfig, section, n, t_cut)
+        p_stats, _ = _section_params(ExperimentConfig, section, n,
+                                     BACKEND_TRACE_STEPS)
+        steps = p.episode_steps
+
+        def episode(graph, p=p, path=path):
+            with torch.no_grad():
+                return ln.rollout_large(
+                    actor, acfg, ev.episode_generator(xcfg.seed, 0, dev), p,
+                    centralized_expert=xcfg.centralized,
+                    return_overflow=True, device=dev, path=path,
+                    cap=cap[path], graph=graph)
+
+        def synced():
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return _wall(torch, lambda: episode(None))
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        ln.clear_programs()          # each path's graphs in a new pool
+        (first, first_s), launched = _counted(cc, synced)
+        prog = ln.episode_program(ln.make_config(
+            p, path=path, cap=cap[path], centralized=xcfg.centralized),
+            acfg, steps, dev)
+        eager, e_s = _wall(torch, lambda: episode(False))
+        # the loops' device time from shorter episodes: a trace of a
+        # 200-step eager cells episode (~10^5 launches) takes ~12 s
+        short = functools.partial(episode, p=p_stats)
+        short(None)                  # its program's capture
+        traced, *g_stats = _traced(torch, lambda: short(None),
+                                   BACKEND_TRACE_STEPS)
+        traced_e, *e_stats = _traced(torch, lambda: short(False),
+                                     BACKEND_TRACE_STEPS)
+        same = (all(torch.equal(a, b) for a, b in zip(first, eager))
+                and all(torch.equal(a, b) for a, b in zip(traced, traced_e)))
+        total, ovf = float(eager[0].sum()), int(eager[2])
+        print(f"#   {path}: {steps}-step K = 3 episode at N = {n} through "
+              f"its graphs (the capture and its replays under sync debug "
+              f"mode \"error\") and eagerly, and a {BACKEND_TRACE_STEPS}-"
+              f"step one of each traced: bit for bit {same}, reward {total} "
+              f"(pcells at N = {n_agents} {reward}), overflow {ovf}, "
+              f"launches {launched.host}, captures {launched.captures}; "
+              f"{prog.steps_per_graph} steps per graph, {prog.nodes} nodes "
+              f"a graph ({prog.nodes / prog.steps_per_graph:.1f} per step), "
+              f"capture {prog.capture_s:.3f} s, instantiate "
+              f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB; the "
+              f"{steps}-step episode's wall: capturing {first_s:.3f} s, "
+              f"eager {e_s:.3f} s ({1e3 * e_s / steps:.4f} ms per step)",
+              flush=True)
+        for what, (busy, idle, ops, ms) in (("graph", g_stats),
+                                            ("eager", e_stats)):
+            print(f"#   {path} {what}, {BACKEND_TRACE_STEPS}-step episode "
+                  f"traced: {ms:.4f} ms per step (under the profiler, reset "
+                  f"included), device busy {fmt(busy, '.4f')} ms per step, "
+                  f"idle {fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops "
+                  f"per step", flush=True)
+            out[f"{path}_{what}_ms_per_step"] = f"{ms:.4f}"
+            out[f"{path}_{what}_idle"] = fmt(idle, ".4f")
+        if not same or ovf or any(launched.host.values()) \
+                or launched.captures != 1 or not math.isfinite(total):
+            raise AssertionError(f"{path}: bit for bit {same}, overflow "
+                                 f"{ovf}, launches {launched}, reward "
+                                 f"{total}")
+        if n == n_agents and abs(total - REWARD_REF) > REWARD_BAND:
+            raise AssertionError(f"{path}: reward {total} outside "
+                                 f"{REWARD_REF} +- {REWARD_BAND}")
+        out.update({f"{path}_reward": total, f"{path}_bit_for_bit": same,
+                    f"{path}_steps_per_graph": prog.steps_per_graph,
+                    f"{path}_nodes": prog.nodes})
+        if path == "cells":
+            # the default cap: its overflow beside cap 16's
+            r12, _, ovf12 = ln.rollout_large(
+                actor, acfg, ev.episode_generator(xcfg.seed, 0, dev), p,
+                centralized_expert=xcfg.centralized, return_overflow=True,
+                device=dev, path="cells", cap=CELLS_DEFAULT_CAP)
+            print(f"#   cells at its default cap {CELLS_DEFAULT_CAP}: "
+                  f"overflow {int(ovf12)} (cap {BACKEND_CELL_CAP}: {ovf}), "
+                  f"reward {float(r12.sum())}", flush=True)
+            out["cells_cap12_overflow"] = int(ovf12)
+        del first, traced, traced_e, eager, prog
+    ln.clear_programs()
+    cc.reset_launch_counts()
+    return out
 
 
 def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
@@ -2041,15 +2227,23 @@ def _check_graph_launches(capture, replay, eager):
 
 def _eager_and_graph_stats(torch, what, run, steps,
                            unit="step (reset included)", top=0):
-    """ms per step (or ``unit``), device busy ms, idle share and device
-    ops per step of one more ``run(graph)`` eagerly and one through the
-    graph (:func:`_episode_stats`; the graph's ``top`` device operations
-    printed), printed; returns the phase line's fields."""
+    """ms per step (or ``unit``) of one more ``run(graph)`` eagerly,
+    timed, and one through the graph, under the profiler (its ms under
+    it), with the graph's device busy ms, idle share and device ops per
+    step (:func:`_traced`; its ``top`` device operations printed),
+    printed; returns the phase line's fields. Cut in depth: the eager
+    loop is timed, not traced (a trace of an eager loop of ~10^5 launches
+    took up to 14 s of the run; PERF.md section 5 has the eager loops'
+    traces), and the graph runs once, traced."""
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
     out = {}
     for name, graph in (("eager", False), ("graph", True)):
-        ms, busy, idle, ops = _episode_stats(torch, lambda: run(graph),
-                                             steps, top if graph else 0)
+        if graph:
+            _, busy, idle, ops, ms = _traced(torch, lambda: run(graph),
+                                             steps, top=top)
+        else:
+            _, s = _wall(torch, lambda: run(graph))
+            ms, busy, idle, ops = 1e3 * s / steps, None, None, None
         print(f"#   graph: {what}, {name}: {ms:.4f} ms per {unit}, device "
               f"busy {fmt(busy, '.4f')} ms per {unit.split()[0]}, idle "
               f"{fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops per "
@@ -2308,12 +2502,58 @@ def transfer_dense(torch, ev, cc, load_ini):
               f"{stats['std']} ({wall:.3f} s)", flush=True)
         _in_band(f"dense transfer K = {k}", stats["mean"],
                  TRANSFER_DENSE_BANDS[k])
+    # the --save-trajectory dump through its program, then eagerly
+    import numpy as np
+    import torch
+
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as im
+
+    program, seen = im.rollout_trajectory, {}
+
+    def dump(graph):
+        def traj(actor, gen, env, acfg, x0=None):
+            res, wall = _wall(torch, lambda: program(actor, gen, env, acfg,
+                                                     x0, graph=graph))
+            seen.update(env=env, acfg=acfg, wall=wall)
+            return res
+        return traj
+
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "traj.npz")
         section = load_ini(TRANSFER_CONFIG)["4"]
         k, ckpt = ev.section_checkpoint(section, None, TRANSFER_BASE, None)
-        orig(section, ckpt, k=k, traj_path=path, device=DEVICE)
-        _check_trajectory(path, {"x": (200, 50, 4), "reward": (200,)})
+        paths, walls = {}, {}
+        captures = im.TrajectoryProgram.captures
+        for name, graph in (("graph", None), ("replay", None),
+                            ("eager", False)):
+            paths[name] = os.path.join(tmp, f"{name}.npz")
+            im.rollout_trajectory = dump(graph)
+            try:
+                orig(section, ckpt, k=k, traj_path=paths[name],
+                     device=DEVICE)
+            finally:
+                im.rollout_trajectory = program
+            walls[name] = seen["wall"]
+            _check_trajectory(paths[name], {"x": (200, 50, 4),
+                                            "reward": (200,)})
+        same = True
+        for name in ("graph", "replay"):
+            with np.load(paths[name]) as a, np.load(paths["eager"]) as b:
+                same &= all(np.array_equal(a[key], b[key])
+                            for key in a.files)
+    captured = im.TrajectoryProgram.captures - captures
+    prog = im.trajectory_program(seen["env"], seen["acfg"],
+                                 torch.device("cuda",
+                                              torch.cuda.current_device()))
+    print(f"#   transfer dense: --save-trajectory of section [4] (200 "
+          f"steps, N = 50) through its program (a capture, a replay) and "
+          f"eagerly: bit for bit {same}, programs captured {captured} "
+          f"(capture {prog.capture_s:.3f} s, instantiate "
+          f"{prog.instantiate_s:.3f} s, {prog.nodes} nodes); the dump's "
+          + ", ".join(f"{n} {1e3 * w / 200:.4f}" for n, w in walls.items())
+          + " ms per step (reset included)", flush=True)
+    if not same or captured != 1:
+        raise AssertionError(f"the trajectory dump: bit for bit {same}, "
+                             f"captures {captured}")
     return {k: stats["mean"] for k, (stats, _) in per.items()}
 
 
@@ -2594,7 +2834,7 @@ def _same_training_state(torch, a, b):
 
 
 def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
-                     section, episodes, resume):
+                     section, episodes, resume, steps=None):
     """Phase 14 (c) and (d). (c) ``episodes`` training episodes of
     ``config`` at full width through the learner's ``train`` (routed as
     the train CLI routes; the episodes through the learner's CUDA graphs,
@@ -2612,6 +2852,8 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
 
     xcfg = ExperimentConfig.from_section(load_ini(DDPG_CONFIGS[config])[
         section])
+    if steps is not None:
+        xcfg = dataclasses.replace(xcfg, episode_steps=steps)
     dcfg = dd.DDPGConfig.from_experiment(xcfg)
     large = xcfg.trainer == "large" or (xcfg.trainer == "auto"
                                         and xcfg.n_agents > 1024)
@@ -2796,10 +3038,10 @@ def ddpg_phase(torch, ev, cc, ExperimentConfig, load_ini):
             ("ddpg", "test", "ddpg_k2", False),
             ("ddpg_n4k", "n4k", "ddpg_toy_k2", True)))
     speed, resumed, graph = {}, {}, {}
-    for config, section, episodes, resume in DDPG_TRAIN:
+    for config, section, episodes, resume, steps in DDPG_TRAIN:
         speed[config], resumed[config], fields = ddpg_train_phase(
             torch, dd, dl, tfl, ExperimentConfig, load_ini, config, section,
-            episodes, resume)
+            episodes, resume, steps)
         graph.update(fields)
     launches = cc.launch_counts()
     if any(launches.values()):

@@ -14,7 +14,8 @@ the card: the T steps behind an episode's reset
 and the DAGGER coins stay eager; a data-parallel rank's slice of the
 envs too) and one Adam update with its replay sample
 (:class:`UpdateProgram`, one per learner, replayed once per update; a
-mesh learner's update with its gradient ``all_reduce`` in it).
+mesh learner's update with its gradient ``all_reduce`` in it), and the
+trajectory dump's steps (:class:`TrajectoryProgram`).
 Each equals its eager loop (``graph=False``) bit for bit; on the CPU
 each runs its body eagerly.
 
@@ -336,27 +337,104 @@ def rollout_episode(actor: Optional[Actor], gen: Optional[torch.Generator],
     return samples, total
 
 
+def _trajectory_steps(env: FlockingEnv, actor, acfg: ActorConfig,
+                      state: EnvState, obs: Obs, gen, steps: int):
+    """``steps`` greedy env steps of :func:`rollout_trajectory` from
+    ``state`` and its observation: the lists of the states (N, 4) and
+    rewards () after each step. The eager loop and the trajectory program
+    both run it."""
+    gs = initial_graph_state(obs.values, obs.network, acfg.k)
+    xs, rewards = [], []
+    for _ in range(steps):
+        act = actor(aggregate(gs.delay_gso, gs.delay_state))
+        state, obs, r, _ = env.step(state, act, gen)
+        gs = update_graph_state(gs, obs.values, obs.network)
+        xs.append(state.x)
+        rewards.append(r)
+    return xs, rewards
+
+
+class TrajectoryProgram(graphs.Program):
+    """The ``T`` greedy steps of :func:`rollout_trajectory` behind its
+    eager reset, for one static setup (env, actor widths), as one CUDA
+    graph: the counterpart of the JAX CLI's jitted trajectory scan. It
+    reads the static initial state (N, 4), its observation and its own
+    copy of the actor's parameters, and writes the static states ``xs``
+    (T, N, 4) and ``rewards`` (T,), valid until the next run. On the CPU
+    the same body runs eagerly with the caller's generator and actor; on
+    the card the first run warms the body up for ``WARMUP_STEPS`` steps
+    (it overwrites only the outputs), then captures; the stochastic
+    variant's noise comes from the program's own generator, handed over
+    as ``utils/graphs.py`` says."""
+
+    captures = 0
+
+    def __init__(self, env: FlockingEnv, acfg: ActorConfig, device):
+        super().__init__(device, env.params.dynamics_noise > 0)
+        self.env, self.acfg = env, acfg
+        p = env.params
+        self.xs = torch.zeros((p.episode_steps, p.n_agents, 4),
+                              device=self.device)
+        self.rewards = torch.zeros(p.episode_steps, device=self.device)
+        self._actor = None
+
+    def _body(self, actor, gen, steps: int) -> None:
+        x, values, network = self.inputs
+        xs, rewards = _trajectory_steps(self.env, actor, self.acfg,
+                                        EnvState(x, 0), Obs(values, network),
+                                        gen, steps)
+        torch.stack(xs, out=self.xs[:steps])
+        torch.stack(rewards, out=self.rewards[:steps])
+
+    def run(self, x: torch.Tensor, obs: Obs, actor: torch.nn.Module,
+            gen: Optional[torch.Generator]) -> None:
+        """One episode from the state ``x`` (N, 4) and its observation:
+        its states and rewards in ``xs`` and ``rewards``."""
+        steps = self.env.params.episode_steps
+        with torch.no_grad():
+            if self.device.type == "cuda":
+                actor = self._actor = graphs.actor_copy(self._actor, actor)
+            captures = graphs.Program.captures
+            super().run(
+                [x, *obs], gen, lambda g: self._body(actor, g, steps),
+                lambda g: self._body(actor, g, min(WARMUP_STEPS, steps)))
+            TrajectoryProgram.captures += graphs.Program.captures - captures
+
+
+@functools.lru_cache(maxsize=PROGRAMS_KEPT)
+def trajectory_program(env: FlockingEnv, acfg: ActorConfig,
+                       device: torch.device) -> TrajectoryProgram:
+    """The :class:`TrajectoryProgram` of this static setup, made at its
+    first use and kept (``device`` with its index)."""
+    return TrajectoryProgram(env, acfg, device)
+
+
 def rollout_trajectory(actor: Actor, gen: Optional[torch.Generator],
                        env: FlockingEnv, acfg: ActorConfig,
-                       x0: Optional[torch.Tensor] = None):
+                       x0: Optional[torch.Tensor] = None, graph=None):
     """One greedy episode of one env that records its states: ``(xs (T, N,
     4), rewards (T,))``, the state and reward after each step (the
     visualisation dump of ``evaluate --save-trajectory``). ``x0`` (N, 4)
-    replaces the reset's draw, for tests."""
+    replaces the reset's draw, for tests. The reset runs eagerly; the
+    steps run as the setup's cached :class:`TrajectoryProgram` (``graph``
+    None: a CUDA graph on the card, its body eagerly on the CPU), or as
+    the eager loop with ``graph=False`` (the program's oracle);
+    ``graph=True`` asks for the CUDA graph and raises ValueError on the
+    CPU."""
     with torch.no_grad():
         if x0 is None:
             state, obs = env.reset(gen)
         else:
             state = EnvState(x0, 0)
             obs = env.observe(state)
-        gs = initial_graph_state(obs.values, obs.network, acfg.k)
-        xs, rewards = [], []
-        for _ in range(env.params.episode_steps):
-            act = actor(aggregate(gs.delay_gso, gs.delay_state))
-            state, obs, r, _ = env.step(state, act, gen)
-            gs = update_graph_state(gs, obs.values, obs.network)
-            xs.append(state.x)
-            rewards.append(r)
+        device = state.x.device
+        if graphs.use_program(device, graph, None, "the trajectory",
+                              "the card"):
+            prog = trajectory_program(env, acfg, graphs.device_of(device))
+            prog.run(state.x, obs, actor, gen)
+            return prog.xs.clone(), prog.rewards.clone()
+        xs, rewards = _trajectory_steps(env, actor, acfg, state, obs, gen,
+                                        env.params.episode_steps)
     return torch.stack(xs), torch.stack(rewards)
 
 
@@ -409,6 +487,7 @@ class UpdateProgram:
         self._gen = graphs.program_generator(self.device, True)
         self._graph = None
         self.capture_s = self.instantiate_s = self.pool_mb = None
+        self.nodes = None
 
     def _body(self, gen: torch.Generator) -> None:
         self.loss_sum += self.update(self.buffer.sample(gen, self.batch))
@@ -435,8 +514,8 @@ class UpdateProgram:
                 self._body(self._gen)
             saved.restore()
 
-        (self._graph, self.capture_s, self.instantiate_s,
-         self.pool_mb) = graphs.capture(
+        (self._graph, self.capture_s, self.instantiate_s, self.pool_mb,
+         self.nodes) = graphs.capture(
             self.device, warmup, lambda: self._body(self._gen), self._gen)
         UpdateProgram.captures += 1
 

@@ -7,11 +7,11 @@ a round here collects through the O(N) cell sweeps of
 ``parallel/large_n.py`` and stores an agent subsample:
 
 * **Collection** runs :func:`collect_step` T times: as one
-  ``EpisodeProgram`` of ``parallel/large_n.py`` on the pcells path, on one
-  device or banded over a mesh (a CUDA graph on the card, the JAX
+  ``EpisodeProgram`` of ``parallel/large_n.py`` on every path, on one
+  device or banded over a mesh (CUDA graphs on the card, the JAX
   package's ``lax.scan``, under ``shard_map`` on a mesh; the mesh's
-  collectives captured with it), else as a Python loop (the other paths,
-  ``graph=False``). Each step
+  collectives captured with it), else as a Python loop
+  (``graph=False``). Each step
   takes the delayed stack ``y`` (K3 in ``ystack_pre``), the frame's
   expert (K1's gradient channels and the float64 consensus), the action
   (the expert when cloning; the expert where the episode's per-step coin
@@ -177,16 +177,17 @@ def collect_episode(cfg: ln.LargeNConfig, actor: torch.nn.Module,
     grid overflow, both () on the device. ``x0`` (N, 4), ``coins`` (T,)
     bool and ``idx`` (T, S) replace the reset's, the coins' and the
     subsample's draws, for tests. ``graph`` as ``rollout_large``'s: by
-    default the steps run as the setup's ``EpisodeProgram`` on the pcells
-    path, on one device or banded over ``cfg``'s mesh (a CUDA graph on the
-    card with the mesh's collectives in it; the coins and indices drawn
-    before it as here, its records in static buffers, copied out after
-    it), else the eager loop below.
+    default the steps run as the setup's ``EpisodeProgram`` on every
+    path, on one device or banded over ``cfg``'s mesh (CUDA graphs on the
+    card with the mesh's collectives in them; the coins and indices drawn
+    before them as here and copied in per chunk of steps, the records
+    written in static buffers per chunk, copied out after the episode),
+    else the eager loop below.
     """
     p = cfg.params
     T = p.episode_steps
     device = torch.device(device)
-    program = ln.use_program(cfg.path, device, graph)
+    program = ln.use_program(device, graph)
     with torch.no_grad():
         state = ln._episode_init(cfg, acfg, gen, device, x0)
         if mode == "dagger" and coins is None:
@@ -217,11 +218,11 @@ class LargeNImitationLearner(ImitationLearner):
     agent-subsampled buffer, everything else the dense learner's. With
     ``mesh``, the mesh modes of the module docstring: ``axis`` names the
     mesh axis the sweeps are banded over. ``graph`` as the dense
-    learner's: by default its Adam updates run as the update program and,
-    on the pcells path, its collection and eval episodes as their episode
-    programs, on one device or a mesh (CUDA graphs on the card);
+    learner's: by default its Adam updates run as the update program and
+    its collection and eval episodes as their episode programs, on every
+    path, on one device or a mesh (CUDA graphs on the card);
     ``graph=False`` runs every loop eagerly; ``graph=True`` raises
-    ValueError off the pcells path and on the CPU."""
+    ValueError on the CPU."""
 
     def __init__(self, cfg: LargeNImitationConfig, logger=None,
                  device="cuda", mesh=None, axis: str = "agents", graph=None):
@@ -238,7 +239,6 @@ class LargeNImitationLearner(ImitationLearner):
                     f"over the mesh env axis ({self._env_axis.n_dev})")
         self.mesh, self.axis = mesh, axis
         path = "pcells" if cfg.graph_path == "auto" else cfg.graph_path
-        ln.use_program(path, device, graph)     # graph=True off pcells
         # the JAX learner's binned table has 32 slots whatever cell_cap is
         self._cap = None if path == "binned" else cfg.cell_cap or None
         # collection acts on the centralized expert, as the JAX learner's

@@ -34,11 +34,12 @@ out.npz`` writes one greedy episode's states: on the dense path ``x (T, N,
 for M = min(2000, N) evenly spaced agents, ``reward``, ``final_x (N, 4)``
 and ``subset_indices (M,)``.
 
-On one card the large-N route runs each episode's steps as one CUDA graph
-per static setup, captured at its first episode (``parallel/large_n.py``'s
-episode program), and the dense route its batch's steps
-(``algos/imitation.py``'s dense episode program); the resets stay
-eager.
+On one card the large-N route runs each episode's steps as CUDA graphs
+per static setup, on every graph path, captured at its first episode
+(``parallel/large_n.py``'s episode program), and the dense route its
+batch's steps (``algos/imitation.py``'s dense episode program) and the
+``--save-trajectory`` episode's (its trajectory program); the resets
+stay eager.
 
 ``--mesh D`` shares the large-N route's sweeps over the ``agents`` axis of
 D processes, one per device (``parallel/large_n.py``), and implies that

@@ -111,10 +111,15 @@ def build_neighbor_list(pos: torch.Tensor, comm_radius: float,
     order = torch.argsort(keys, stable=True)
     sorted_keys = keys[order]
 
-    # the 9 neighbouring cells' keys; a key that an earlier offset already
-    # has is a hash-collided bucket, read once
-    offs = torch.tensor(OFFSETS, dtype=torch.int64, device=dev)
-    nbr_h = _hash_ij(ij[:, None, :].to(torch.int64) + offs)        # (N, 9)
+    # the 9 neighbouring cells' keys, (dx, dy) with dx slowest as OFFSETS
+    # lists them (the offsets by device arithmetic: a host table would be
+    # a copy from the host inside the step); a key that an earlier offset
+    # already has is a hash-collided bucket, read once
+    d = torch.arange(-1, 2, device=dev)
+    i = ij[:, 0, None, None].to(torch.int64) + d[:, None]          # (N,3,1)
+    j = ij[:, 1, None, None].to(torch.int64) + d                   # (N,1,3)
+    nbr_h = (((i * P1) ^ (j * P2)) & (HASH_SIZE - 1)).to(
+        torch.int32).reshape(n, 9)                                 # (N, 9)
     earlier = torch.ones(9, 9, dtype=torch.bool, device=dev).tril(-1)
     keep = ~((nbr_h[:, :, None] == nbr_h[:, None, :]) & earlier).any(-1)
 

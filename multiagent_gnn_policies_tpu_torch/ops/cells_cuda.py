@@ -47,6 +47,7 @@ N they take a slice of rows at a time (``rows``).
 
 from __future__ import annotations
 
+import contextlib
 import math
 import re
 from typing import NamedTuple, Optional, Sequence, Tuple
@@ -625,6 +626,19 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """The wrappers' calls in here leave the counters as they were: for a
+    graph captured only to count its nodes, which never launches."""
+    saved = [(fn.launches, dict(fn.launches_by_cols))
+             for fn in KERNEL_WRAPPERS]
+    try:
+        yield
+    finally:
+        for fn, (n, by) in zip(KERNEL_WRAPPERS, saved):
+            fn.launches, fn.launches_by_cols = n, by
 
 
 def launch_counts_by_cols() -> dict:

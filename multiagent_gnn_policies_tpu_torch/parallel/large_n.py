@@ -3,14 +3,16 @@ cell sweeps or one of three other graph backends.
 
 The counterpart of the JAX package's ``parallel/large_n.py``, with its
 four paths ("pcells", "blocked", "cells", "binned"): reset, then T env
-steps (the JAX package's ``lax.scan`` body, ``_scan_steps``). On the pcells
+steps (the JAX package's ``lax.scan`` body, ``_scan_steps``). On every
 path, on one device or banded over a mesh, the steps run as an
-:class:`EpisodeProgram`, one CUDA graph per static setup, captured at its
+:class:`EpisodeProgram`, CUDA graphs per static setup, captured at its
 first use, cached and replayed per episode (the JAX package's jitted scan,
-``lru_cache``'d, under ``shard_map`` on a mesh); a mesh's graph holds the
-step's NCCL collectives. The reset stays eager. The other paths run the
-eager loop of steps, which ``graph=False`` also selects on pcells. On the
-pcells path each step of a K >= 2 policy runs
+``lru_cache``'d, under ``shard_map`` on a mesh); a mesh's graphs hold the
+step's NCCL collectives. A graph covers the whole episode, or chunks of it
+replayed back to back where a whole episode would make too large a graph
+(the blocked path's row blocks). The reset stays eager. ``graph=False``
+selects the eager loop of steps, the graphs' oracle. On the pcells path
+each step of a K >= 2 policy runs
 
 1. ``ystack_pre``: the historical graphs' applies of the delayed stack,
    s = 1 .. K-2, through K3 on (K-1-s)·F columns (the s = 0 apply was done
@@ -484,93 +486,130 @@ class _Buffers(NamedTuple):
     records: Tuple[torch.Tensor, ...]    # (T, *shape) per record
     inputs: Tuple[torch.Tensor, ...]     # (T, ...) per input
 
+    def outputs(self) -> list:
+        return [self.rewards, *_tensors(self.traj), *self.records]
+
 
 class EpisodeProgram:
-    """``steps`` env steps of one static setup as one CUDA graph: the
+    """``steps`` env steps of one static setup as CUDA graphs: the
     counterpart of the JAX package's jitted ``lax.scan`` of an episode
     (``_jitted_rollout``, ``_jitted_chunked``'s chunk, the chain of
     ``_jitted_chain``, the collection scan of ``algos/imitation_large.py``,
-    each under ``shard_map`` on a mesh). Only the pcells path, on one
-    device or banded over a mesh (``cfg.axis``): there the graph holds the
-    band's collectives (the sharded grid build's gathers, the sweeps'
-    ``all_reduce`` completions, the sharded actor's state gather), captured
-    in CUDA's thread-local mode (``utils/graphs.capture``); every rank
-    captures and replays at the same call, and a program whose process
-    group was destroyed raises rather than replay. The emulated timing
-    mode (``force_n_dev``) holds no collective.
+    each under ``shard_map`` on a mesh), on every path (pcells, blocked,
+    cells, binned), on one device or over a mesh (``cfg.axis``): there the
+    graphs hold the step's collectives (the sharded grid build's gathers,
+    the sweeps' ``all_reduce`` completions, the frames' gathers, the
+    sharded actor's state gather), captured in CUDA's thread-local mode
+    (``utils/graphs.capture``); every rank captures and replays at the same
+    calls, and a program whose process group was destroyed raises rather
+    than replay. The emulated timing mode (``force_n_dev``) holds no
+    collective.
 
     ``step(cfg, actor, state, gen, *inputs_t)`` returns ``(state', reward,
     *records_t)``: :func:`_step` (a policy, or the expert with ``actor``
     None) by default, with no inputs or records; the large learner's
     collection step takes the step's subsample (and DAGGER's coin) and
     returns its records. ``inputs`` gives each input's (per-step shape,
-    dtype), ``records`` each float32 record's per-step shape. The graph
-    reads and writes static buffers: every tensor of an
-    :class:`EpisodeState` (allocated from the first state it is given),
-    the per-step inputs and outputs (``rewards``, ``traj``, ``records``),
-    and its
-    own copy of the actor's parameters, which :meth:`run` refreshes from
-    the caller's actor before each replay (a graph reads parameters by
-    address: an in-place update of the caller's and another actor of the
-    same widths both reach it). The state passes from step to step by
-    reference, as the eager loop passes it, and is copied into the static
-    buffers once at the end: one replay per run.
+    dtype), ``records`` each float32 record's per-step shape. The graphs
+    read and write static buffers: every tensor of an
+    :class:`EpisodeState` (allocated from the first state it is given:
+    its grid is a ``PCellGrid``, a ``CellGrid``, a ``NeighborList`` or
+    None, as the path's), the per-step inputs and outputs (``rewards``,
+    ``traj``, ``records``), and its own copy of the actor's parameters,
+    which :meth:`run` refreshes from the caller's actor before each run
+    (a graph reads parameters by address: an in-place update of the
+    caller's and another actor of the same widths both reach it). The
+    state passes from step to step by reference, as the eager loop passes
+    it, and is copied into the static buffers at the end of each graph.
 
-    On the CPU the same body runs eagerly over the static buffers: no
-    graph, no copy of the actor, the caller's generator. On the card the
-    first run warms the body up for ``WARMUP_STEPS`` steps on scratch
-    copies (on the capture stream: cuBLAS's workspace, the kernels'
-    first loads; a capture without them is invalidated), then captures;
+    A graph unrolls its steps, where the JAX scan compiles its body once.
+    So a graph covers ``steps_per_graph`` steps, replayed back to back
+    with no host synchronisation until the episode is done (each replay
+    carries the state in the static buffers to the next; a shorter graph
+    runs the last steps when the chunks do not divide the episode), each
+    chunk's inputs copied in and outputs copied out on the device. By
+    default, on the card, a probe graph of one step (captured after the
+    warm-up, never replayed, its launches not counted) counts the step's
+    nodes, and the episode is split into the fewest even chunks whose
+    graphs hold at most ``graphs.GRAPH_NODES`` nodes; on the CPU the
+    default is one chunk. ``steps_per_graph`` fixes the chunk (on the CPU
+    too: the same chunked loop, each chunk's body run eagerly).
+
+    On the CPU the body runs eagerly over the static buffers: no graph, no
+    copy of the actor, the caller's generator. On the card the first run
+    warms the body up for ``WARMUP_STEPS`` steps on scratch copies (on the
+    capture stream: cuBLAS's workspace, the kernels' first loads, NCCL's
+    communicators; a capture without them is invalidated), then captures;
     the warm-up leaves the episode and the caller's generator as they
     were, and its launches count as the launches they are
-    (``EpisodeProgram.captures`` counts the captures of the process). The
-    stochastic variant's noise comes from the program's own generator,
-    registered with the graph: each run sets its state to the caller's
-    (the default generator's with ``gen`` None), replays, and hands the
-    advanced state back, so an episode draws the eager loop's noise and
-    leaves the generator where the loop would. A failure to capture or to
-    replay raises; nothing falls back to the eager loop. The capture
-    stream, the memory pool every program of a device shares and the
-    generator's hand-over are ``utils/graphs.py``'s. ``capture_s``,
-    ``instantiate_s`` and ``pool_mb`` (the reserved memory's growth over
-    the capture) record the capture."""
+    (``EpisodeProgram.captures`` counts the programs captured in the
+    process). The stochastic variant's noise comes from the program's own
+    generator, registered with its graphs: each run sets its state to the
+    caller's (the default generator's with ``gen`` None), replays, and
+    hands the advanced state back, so an episode draws the eager loop's
+    noise and leaves the generator where the loop would. A failure to
+    capture or to replay raises; nothing falls back to the eager loop.
+    The capture stream, the memory pool every program of a device shares
+    and the generator's hand-over are ``utils/graphs.py``'s.
+    ``steps_per_graph``, ``nodes`` (those of a graph of
+    ``steps_per_graph`` steps), ``capture_s``, ``instantiate_s`` and
+    ``pool_mb`` (the reserved memory's growth over the captures; summed
+    over the graphs, the probe's capture included) record the capture."""
 
     captures = 0          # programs captured in this process
 
     def __init__(self, cfg: LargeNConfig, acfg: Optional[ActorConfig],
                  steps: int, device, traj_agents: int = 0, step=None,
-                 inputs: tuple = (), records: tuple = ()):
-        if cfg.path != "pcells":
-            raise ValueError(f"the episode program runs the pcells path, "
-                             f"not the {cfg.path} path")
+                 inputs: tuple = (), records: tuple = (),
+                 steps_per_graph: Optional[int] = None):
+        if steps < 1 or (steps_per_graph is not None and steps_per_graph < 1):
+            raise ValueError(f"an episode program needs steps >= 1 and "
+                             f"steps_per_graph >= 1, got {steps} and "
+                             f"{steps_per_graph}")
         self.cfg, self.acfg, self.steps = cfg, acfg, steps
         self.step, self.device = step or _step, graphs.device_of(device)
+        self.steps_per_graph = steps_per_graph
+        self._shapes = (traj_agents, tuple(inputs), tuple(records))
         self.capture_s = self.instantiate_s = self.pool_mb = None
-        self._graph = self._static = self._actor = None
-        dev = self.device
-        self._buf = _Buffers(
-            rewards=torch.zeros(steps, device=dev),
-            traj=(torch.zeros(steps, traj_agents, 4, device=dev)
-                  if traj_agents else None),
-            records=tuple(torch.zeros((steps, *shape), device=dev)
-                          for shape in records),
-            inputs=tuple(torch.zeros((steps, *shape), dtype=dtype,
-                                     device=dev)
-                         for shape, dtype in inputs))
+        self.nodes = None
+        self._graphs: dict = {}          # chunk steps -> its graph
+        self._static = self._actor = None
+        self._buf = self._buffers(steps)
+        self._bufs = {steps: self._buf}  # chunk steps -> its buffers
         self._traj_idx = (traj_subset_indices(cfg.params.n_agents,
-                                              traj_agents, dev)
+                                              traj_agents, self.device)
                           if traj_agents else None)
-        self._gen = graphs.program_generator(dev,
+        self._gen = graphs.program_generator(self.device,
                                              cfg.params.dynamics_noise > 0)
 
     rewards = property(lambda self: self._buf.rewards)
     traj = property(lambda self: self._buf.traj)
     records = property(lambda self: self._buf.records)
+    captured = property(lambda self: bool(self._graphs))
 
-    def _body(self, state: EpisodeState, dst: EpisodeState, buf: _Buffers,
-              actor, gen, n: int) -> None:
+    def _buffers(self, n: int) -> _Buffers:
+        traj_agents, inputs, records = self._shapes
+        dev = self.device
+        return _Buffers(
+            rewards=torch.zeros(n, device=dev),
+            traj=(torch.zeros(n, traj_agents, 4, device=dev)
+                  if traj_agents else None),
+            records=tuple(torch.zeros((n, *shape), device=dev)
+                          for shape in records),
+            inputs=tuple(torch.zeros((n, *shape), dtype=dtype, device=dev)
+                         for shape, dtype in inputs))
+
+    def _chunks(self, per_graph: Optional[int] = None) -> list:
+        """``(first step, steps)`` of each chunk of the episode, of
+        ``per_graph`` steps (the program's ``steps_per_graph``)."""
+        c = per_graph or self.steps_per_graph or self.steps
+        return [(c0, min(c, self.steps - c0))
+                for c0 in range(0, self.steps, c)]
+
+    def _steps(self, state: EpisodeState, buf: _Buffers, actor, gen,
+               n: int) -> EpisodeState:
         """``n`` steps from ``state``, each one's outputs written into
-        ``buf`` at its index, the final state copied into ``dst``."""
+        ``buf`` at its index; returns the last state."""
         for t in range(n):
             state, r, *rec = self.step(self.cfg, actor, state, gen,
                                        *(x[t] for x in buf.inputs))
@@ -579,7 +618,13 @@ class EpisodeProgram:
                 buf.traj[t] = state.x[self._traj_idx]
             for out, v in zip(buf.records, rec, strict=True):
                 out[t] = v
-        copy_state(dst, state)
+        return state
+
+    def _body(self, state: EpisodeState, dst: EpisodeState, buf: _Buffers,
+              actor, gen, n: int) -> None:
+        """``n`` steps from ``state``, the final state copied into ``dst``
+        (a graph's body)."""
+        copy_state(dst, self._steps(state, buf, actor, gen, n))
 
     def run(self, state: EpisodeState, actor: Optional[torch.nn.Module] = None,
             gen: Optional[torch.Generator] = None,
@@ -594,22 +639,46 @@ class EpisodeProgram:
             raise RuntimeError("the episode program's process group was "
                                "destroyed: its collectives name a "
                                "communicator that no longer exists")
+        if self._static is not None and (
+                [t.shape for t in _tensors(state)]
+                != [t.shape for t in _tensors(self._static)]):
+            raise ValueError("the state is not of this program's setup (its "
+                             "tensors' shapes differ from the first one's)")
         with torch.no_grad():
             if self._static is None:
                 self._static = _clone(state)
             else:
                 copy_state(self._static, state)
             _copy(self._buf.inputs, inputs)
-            if self.device.type != "cuda":
-                self._body(self._static, self._static, self._buf, actor, gen,
-                           self.steps)
-                return self._static
-            self._actor = graphs.actor_copy(self._actor, actor)
-            if self._graph is None:
-                self._capture()
-            with graphs.generator_handover(self._gen, gen, self.device):
-                self._graph.replay()
+            card = self.device.type == "cuda"
+            if card:
+                actor = self._actor = graphs.actor_copy(self._actor, actor)
+                if not self._graphs:
+                    self._capture()
+            with graphs.generator_handover(self._gen if card else None, gen,
+                                           self.device):
+                self._run_chunks(actor, self._gen if card else gen)
         return self._static
+
+    def _run_chunks(self, actor, gen) -> None:
+        """Each chunk in turn: its inputs' rows copied into its buffers, its
+        graph replayed (on the CPU its body run), its outputs copied out."""
+        for c0, n in self._chunks():
+            if n not in self._bufs:
+                self._bufs[n] = self._buffers(n)
+            buf = self._bufs[n]
+            whole = buf is self._buf
+            if not whole:
+                for d, s in zip(buf.inputs, self._buf.inputs, strict=True):
+                    d.copy_(s[c0:c0 + n])
+            if self._graphs:
+                self._graphs[n].replay()
+            else:
+                self._body(self._static, self._static, buf, actor, gen, n)
+            if not whole:
+                for d, s in zip(self._buf.outputs(), buf.outputs(),
+                                strict=True):
+                    d[c0:c0 + n].copy_(s)
 
     def _capture(self) -> None:
         def warmup():
@@ -617,10 +686,46 @@ class EpisodeProgram:
             self._body(scratch, scratch, sbuf, self._actor, self._gen,
                        min(WARMUP_STEPS, self.steps))
 
-        self._graph, self.capture_s, self.instantiate_s, self.pool_mb = (
-            graphs.capture(self.device, warmup, lambda: self._body(
-                self._static, self._static, self._buf, self._actor,
-                self._gen, self.steps), self._gen))
+        per_graph = self.steps_per_graph
+        totals = [0.0, 0.0, 0.0]         # capture s, instantiate s, MB
+        if per_graph is None:
+            # the probe: one step's nodes, never instantiated or replayed,
+            # the launches it records not counted (the warm-up's are; its
+            # capture s and pool are)
+            def one_step():
+                with cc.uncounted():
+                    self._steps(self._static, self._buf, self._actor,
+                                self._gen, 1)
+
+            probe = graphs.capture(self.device, warmup, one_step, self._gen,
+                                   instantiate=False)
+            nodes = probe.nodes
+            totals[0], totals[2] = probe.capture_s, probe.pool_mb
+            del probe
+            if self.cfg.axis is not None:     # every rank splits alike
+                nodes = int(self.cfg.axis.all_reduce(torch.tensor(
+                    [nodes], device=self.device), dist.ReduceOp.MAX)[0])
+            per_graph = graphs.steps_per_graph(nodes, self.steps)
+            warmup = lambda: None
+        lengths = sorted({n for _, n in self._chunks(per_graph)},
+                         reverse=True)
+        done, nodes = {}, {}
+        for n in lengths:
+            if n not in self._bufs:
+                self._bufs[n] = self._buffers(n)
+            buf = self._bufs[n]
+            cap = graphs.capture(self.device, warmup, lambda: self._body(
+                self._static, self._static, buf, self._actor, self._gen, n),
+                self._gen)
+            warmup = lambda: None
+            done[n] = cap.graph
+            nodes[n] = cap.nodes
+            for i, v in enumerate((cap.capture_s, cap.instantiate_s,
+                                   cap.pool_mb)):
+                totals[i] += v
+        self.steps_per_graph, self._graphs = per_graph, done
+        self.capture_s, self.instantiate_s, self.pool_mb = totals
+        self.nodes = nodes[lengths[0]]
         EpisodeProgram.captures += 1
 
 
@@ -669,14 +774,12 @@ def clear_programs() -> None:
     graphs.clear_pools()
 
 
-def use_program(path: str, device, graph=None) -> bool:
-    """Whether an episode on ``path`` on ``device`` (on one device or
-    banded over a mesh) runs its steps as an :class:`EpisodeProgram`
-    (else the eager loop): ``utils/graphs.use_program``'s answer, a
-    program applying to the pcells path."""
-    return graphs.use_program(
-        device, graph, f"on the {path} path" if path != "pcells" else None,
-        "the episode", "the pcells path on the card")
+def use_program(device, graph=None) -> bool:
+    """Whether an episode on ``device`` (on any path, on one device or
+    banded over a mesh) runs its steps as an :class:`EpisodeProgram` (else
+    the eager loop): ``utils/graphs.use_program``'s answer."""
+    return graphs.use_program(device, graph, None, "the episode",
+                              "on the card")
 
 
 def make_config(p: FlockingParams, *, path: str = "pcells",
@@ -803,14 +906,12 @@ def rollout_large(actor: Optional[torch.nn.Module],
       block: the blocked path's rows per block (default
         :func:`block_rows`'; the JAX package's ``block or pick_block``).
       graph: None (default) runs each chunk through its cached
-        :class:`EpisodeProgram` on the pcells path, on one device or a
-        mesh (its collectives captured with it; ``force_n_dev`` too), a
-        CUDA graph on the card and the same body eagerly on the CPU, and
-        the eager loop of steps (``_scan_steps``) on the blocked, cells
-        and binned paths; False the eager loop everywhere (the graph's
-        oracle); True the graph, raising ValueError off pcells or on the
-        CPU. The overflow's MAX over the mesh runs after the episodes,
-        outside the graph.
+        :class:`EpisodeProgram`, on every path, on one device or a mesh
+        (its collectives captured with it; ``force_n_dev`` too): CUDA
+        graphs on the card and the same body eagerly on the CPU; False the
+        eager loop of steps (``_scan_steps``, the graphs' oracle); True
+        the graphs, raising ValueError on the CPU. The overflow's MAX over
+        the mesh runs after the episodes, outside the graphs.
     """
     if path is None:
         path = "binned" if sparse else "pcells"
@@ -821,7 +922,7 @@ def rollout_large(actor: Optional[torch.nn.Module],
     if n_episodes > 1 and (traj_agents or scan_chunks > 1):
         raise ValueError("n_episodes > 1 is timing-oriented; trajectory "
                          "dumps and chunked episodes need per-episode calls")
-    program = use_program(path, device, graph)
+    program = use_program(device, graph)
     if expert_mode:
         actor = acfg = None
     elif acfg is None or acfg.ind_agg != 0:

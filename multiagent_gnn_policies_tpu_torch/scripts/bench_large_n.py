@@ -20,11 +20,13 @@ seeded random weights) runs:
 * one episode under ``torch.profiler``: device-busy ms per step, the idle
   share against the median's wall ms per step, device operations per step.
 
-On the pcells path each of ``--graphs`` is a row: ``eager`` (the eager
-loop of steps, ``graph=False``) and ``graph`` (the episode program's CUDA
-graph, on the card only), their chains timed in turn; the graph row adds
-its capture and instantiate seconds and its memory pool's growth (MB)
-over the capture, each N's programs captured into a new pool.
+On every path each of ``--graphs`` is a row: ``eager`` (the eager loop
+of steps, ``graph=False``) and ``graph`` (the episode program's CUDA
+graphs, on the card only), their chains timed in turn; the eager row
+adds its first episode's peak allocation (MB over what was allocated
+before it), the graph row its steps per graph, a graph's nodes, its
+capture and instantiate seconds and its memory pool's growth (MB) over
+the captures, each (N, path)'s programs captured into a new pool.
 
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n
     python -m multiagent_gnn_policies_tpu_torch.scripts.bench_large_n \\
@@ -71,16 +73,15 @@ TOP = 5              # device operations listed per profiled episode
 
 
 def bench_one(n, path, args, actor, acfg, device):
-    """The (N, path) rows, one per mode (pcells: ``args.graphs``; the other
-    paths: the eager loop): a list of each row's numbers (rates None when
-    withheld)."""
+    """The (N, path) rows, one per mode of ``args.graphs``: a list of each
+    row's numbers (rates None when withheld)."""
     p = FlockingParams(n_agents=n, episode_steps=args.steps, max_resets=2)
     kw = dict(return_overflow=True, cap=args.cap,
               cell_edge_mult=args.edge_mult, device=device, path=path)
     cfg = ln.make_config(p, path=path, cap=args.cap,
                          cell_edge_mult=args.edge_mult)
     modes = []
-    for mode in (args.graphs if path == "pcells" else ["eager"]):
+    for mode in args.graphs:
         if mode != "eager" and device.type != "cuda":
             print(f"N={n:>8} {path:>8} {mode:>8}: skipped (a CUDA graph "
                   f"needs the card)", flush=True)
@@ -96,17 +97,27 @@ def bench_one(n, path, args, actor, acfg, device):
     rows = {}
     ln.clear_programs()       # each N's programs capture into a new pool
     for mode in modes:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            torch.cuda.reset_peak_memory_stats(device)
+            base = torch.cuda.memory_allocated(device)
         (r, x, ovf), first_s = timed(lambda: chain(mode, 3, 1), device)
         row = rows[mode] = {
             "n": n, "path": path, "mode": mode, "first_s": first_s, "ms": [],
             "overflow": int(ovf), "busy_ms": None, "idle": None, "ops": None,
             "nonfinite": int(not bool(torch.isfinite(r.sum()))),
-            "capture_s": None, "instantiate_s": None, "pool_mb": None}
+            "capture_s": None, "instantiate_s": None, "pool_mb": None,
+            "steps_per_graph": None, "nodes": None,
+            # the first episode's peak allocation over its start
+            "peak_mb": ((torch.cuda.max_memory_allocated(device) - base)
+                        / 2**20 if device.type == "cuda" else None)}
         if mode != "eager":
             prog = ln.episode_program(cfg, acfg, args.steps, device)
             row.update(capture_s=prog.capture_s,
                        instantiate_s=prog.instantiate_s,
-                       pool_mb=prog.pool_mb)
+                       pool_mb=prog.pool_mb,
+                       steps_per_graph=prog.steps_per_graph,
+                       nodes=prog.nodes)
     for rep in range(args.repeats):       # the modes' chains in turn
         for mode in modes:
             row = rows[mode]
@@ -119,16 +130,20 @@ def bench_one(n, path, args, actor, acfg, device):
     # the final frame's directed radius edges, which each of the K hops
     # aggregates once per step
     edges = args.k * float(ln._frame(cfg, x)[0].degree.sum())
+    fmt = lambda v, f: "not measured" if v is None else format(v, f)
     for mode in modes:
         row = rows[mode]
         ms, max_ovf, bad = row["ms"], row["overflow"], row["nonfinite"]
         med = statistics.median(ms)
         row["median_ms"] = med
         valid = max_ovf == 0 and bad == 0
-        graph = ("" if mode == "eager" else
-                 f" | capture {row['capture_s']:.3f} s, instantiate "
-                 f"{row['instantiate_s']:.3f} s, pool {row['pool_mb']:.1f} "
-                 f"MB")
+        graph = (f" | peak {fmt(row['peak_mb'], '.1f')} MB"
+                 if mode == "eager" else
+                 f" | {row['steps_per_graph']} steps per graph, "
+                 f"{row['nodes']} nodes a graph, capture "
+                 f"{row['capture_s']:.3f} s, "
+                 f"instantiate {row['instantiate_s']:.3f} s, pool "
+                 f"{row['pool_mb']:.1f} MB")
         print(f"N={n:>8} {path:>8} {mode:>8}: first episode {row['first_s']:8.2f}"
               f" s | "
               + (f"{1e3 / med:9.1f} steps/s | {1e3 / med * edges:.3e} "
@@ -176,9 +191,9 @@ def main(argv=None) -> int:
     ap.add_argument("--k", type=int, default=3, help="the policy's K")
     ap.add_argument("--graphs", nargs="+", default=["eager", "graph"],
                     choices=("eager", "graph"),
-                    help="pcells modes, timed in turn: the eager loop of "
-                         "steps, and the episode program's CUDA graph (on "
-                         "the card only)")
+                    help="modes, timed in turn: the eager loop of steps, "
+                         "and the episode program's CUDA graphs (on the "
+                         "card only)")
     add_device_arg(ap)
     args = ap.parse_args(argv)
     device = device_of(args.device)
@@ -198,7 +213,8 @@ def main(argv=None) -> int:
     sync(device)
     print(f"# summary ({time.perf_counter() - t0:.1f} s): N, path, mode, "
           f"median ms/step, spread, steps/s, busy ms/step, idle share, "
-          f"device ops/step, capture s, instantiate s, pool MB", flush=True)
+          f"device ops/step, steps per graph, nodes a graph, capture s, "
+          f"instantiate s, pool MB", flush=True)
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
     for r in rows:
         print(f"#   {r['n']:>8} {r['path']:>8} {r['mode']:>8} "
@@ -206,7 +222,8 @@ def main(argv=None) -> int:
               f"{fmt(r['steps_per_s'], '.1f')} {fmt(r['busy_ms'], '.4f')} "
               f"{fmt(r['idle'], '.4f')} {fmt(r['ops'], '.2f')}"
               + ("" if r["mode"] == "eager" else
-                 f" {r['capture_s']:.4f} {r['instantiate_s']:.4f} "
+                 f" {r['steps_per_graph']} {r['nodes']} "
+                 f"{r['capture_s']:.4f} {r['instantiate_s']:.4f} "
                  f"{r['pool_mb']:.1f}"), flush=True)
     bad = [r for r in rows if r["overflow"] or r["nonfinite"]]
     return 1 if bad else 0

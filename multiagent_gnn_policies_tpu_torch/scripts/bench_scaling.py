@@ -30,11 +30,12 @@ Two modes, labelled as such in the output:
   µs a call takes to issue (100 calls, no synchronisation between them)
   and its device ms (CUDA events).
 
-Each of ``--graphs`` is a row per D, in both modes: ``eager`` (the eager
-loop of steps, ``graph=False``) and ``graph`` (the episode program's CUDA
-graph, on the card only: on a mesh the band's NCCL collectives are
-captured in it; emulated, it holds none), with the busy ms, idle share
-and device operations per step of one profiled episode each.
+Each of ``--graphs`` is a row per D, in both modes, on every path:
+``eager`` (the eager loop of steps, ``graph=False``) and ``graph`` (the
+episode program's CUDA graphs, on the card only: on a mesh the band's
+NCCL collectives are captured in them; emulated, they hold none), with
+the busy ms, idle share and device operations per step of one profiled
+episode each, and the graph row's steps per graph and nodes.
 * ``--mode mesh``: real ranks, one subprocess per rank (gloo on the CPU
   with ``--device cpu``; NCCL on the card, only for D up to the cards the
   machine has): the same rollout over a D-rank mesh, rank 0's ms per
@@ -49,10 +50,10 @@ and device operations per step of one profiled episode each.
 
 The policy: K = 3, hidden 32x2, seeded random weights, FlockingRelative,
 on ``--path`` (the JAX script's choices: pcells, the default, with edge_mult
-1 and cap 16; cells, cap 12; blocked) in both modes. The band kernels and
-the collectives are timed on the pcells path only: the cells and blocked
-paths launch no cell kernel, and their collectives are the frame's and
-the applies' tables (``collective_mb``).
+1 and cap 16; cells, cap 12; blocked; and the port's binned, cap 32) in
+both modes. The band kernels and the collectives are timed on the pcells
+path only: the other paths launch no cell kernel, and their collectives
+are the frame's and the applies' tables (``collective_mb``).
 """
 
 from __future__ import annotations
@@ -92,7 +93,7 @@ from multiagent_gnn_policies_tpu_torch.utils.profiling import (
 )
 
 K, F = 3, 6
-PATHS = ("pcells", "cells", "blocked")
+PATHS = ("pcells", "cells", "blocked", "binned")
 MODULE = "multiagent_gnn_policies_tpu_torch.scripts.bench_scaling"
 # the directory that holds the package, for the ranks' interpreters
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -107,9 +108,9 @@ def collective_mb(n: int, spec: cc.PCellSpec, d: int, k: int = K,
     policy). pcells: the (N, 10 + (K-1)F) frame_apply table and the K-2
     historical applies' (N, (K-1-s)F) tables reduced, the (N, 4) state and
     the grid build's (N, 2) slots and positions and (D, cx·cy) counts
-    gathered, the origin reduced. cells and blocked: the (N, 9) frame
-    table (reduced or gathered) and min r², the K-1 applies' (N, (K-1-s)F)
-    tables reduced, the (N, 4) state gathered."""
+    gathered, the origin reduced. cells, blocked and binned: the (N, 9)
+    frame table (reduced or gathered) and min r², the K-1 applies' (N,
+    (K-1-s)F) tables reduced or gathered, the (N, 4) state gathered."""
     if path != "pcells":
         floats = 9 * n + 1 + sum(n * (k - 1 - s) * F for s in range(k - 1))
         return 4 * (floats + 4 * n) / 1e6
@@ -136,14 +137,12 @@ def _chain(actor, acfg, p, args, device, mesh, force, seed, episodes,
 
 
 def modes_of(args, device):
-    """The ``--graphs`` modes this run times: a graph needs the card and
-    the pcells path."""
+    """The ``--graphs`` modes this run times: a graph needs the card."""
     modes = []
     for mode in args.graphs:
-        if mode == "graph" and (device.type != "cuda"
-                                or args.path != "pcells"):
-            print(f"{mode}: skipped (a CUDA graph needs the card and the "
-                  f"pcells path)", flush=True)
+        if mode == "graph" and device.type != "cuda":
+            print(f"{mode}: skipped (a CUDA graph needs the card)",
+                  flush=True)
         else:
             modes.append(mode)
     return modes
@@ -243,7 +242,14 @@ def band_row(d, actor, acfg, p, args, device, mesh, mode):
     ms = time_chains(run, args, device)
     med = statistics.median(ms)
     row = {"D": d, "mode": mode, "ms": med, "spread": [min(ms), max(ms)],
-           "busy_ms": None, "idle": None, "ops": None, "kernel_ms": None}
+           "busy_ms": None, "idle": None, "ops": None, "kernel_ms": None,
+           "steps_per_graph": None, "nodes": None}
+    if mode == "graph":
+        prog = ln.episode_program(ln.make_config(
+            p, path=args.path, cap=args.cap, cell_edge_mult=args.edge_mult,
+            mesh=mesh if d else None, force_n_dev=force), acfg, args.steps,
+            device)
+        row.update(steps_per_graph=prog.steps_per_graph, nodes=prog.nodes)
     from torch.profiler import ProfilerActivity, profile
 
     acts = ([ProfilerActivity.CUDA] if device.type == "cuda"
@@ -400,7 +406,7 @@ def main(argv=None) -> int:
                     choices=("eager", "graph"),
                     help="modes per D, timed one after the other: the "
                          "eager loop of steps, and the episode program's "
-                         "CUDA graph (on the card, pcells only)")
+                         "CUDA graphs (on the card only)")
     ap.add_argument("--rank-of", type=int, nargs=3, default=None,
                     metavar=("RANK", "WORLD", "PORT"), help=argparse.SUPPRESS)
     add_device_arg(ap)
@@ -450,7 +456,9 @@ def main(argv=None) -> int:
               + ("/".join(f"{kms[k]:.4f}" for k in KERNELS) if kms
                  else "not measured")
               + f" ms, eff {fmt(eff, '.3f')} (busy {fmt(eff_busy, '.3f')}), "
-              f"collectives {r['collective_mb']:.2f} MB/step", flush=True)
+              f"collectives {r['collective_mb']:.2f} MB/step"
+              + (f", {r['steps_per_graph']} steps per graph, {r['nodes']} "
+                 f"nodes a graph" if r.get("nodes") else ""), flush=True)
     print(json.dumps({"mode": args.mode, "path": args.path, "n": args.n,
                       "steps": args.steps,
                       "rows": rows}), flush=True)

@@ -17,7 +17,9 @@ they share:
 * :func:`capture`: a warm-up on the capture stream (cuBLAS's workspace,
   the kernels' first loads, Adam's lazy state, NCCL's communicators; a
   capture without it is invalidated), then the capture in CUDA's
-  thread-local mode, timed;
+  thread-local mode, timed, the graph's nodes counted
+  (:func:`graph_nodes`; :func:`steps_per_graph` splits an episode whose
+  graph would be too large);
 * :func:`generator_handover`: a program draws from a generator of its
   own, registered with its graph; the caller's state is copied in before
   the replays and the advanced state handed back after, so the draws are
@@ -48,6 +50,9 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import strict_fp32
 
 PROGRAMS_KEPT = 16    # programs cached per setup kind, least recently used out
 WARMUP_STEPS = 2      # steps (updates) of a body run before its capture
+# nodes an episode program's graph holds at most: graphs of 18k-31k nodes
+# captured in 0.36-1.28 s on the H100 (PERF.md section 5)
+GRAPH_NODES = 32_768
 _STREAMS: dict = {}   # per device: the stream every program captures on
 _POOLS: dict = {}     # per device: the programs' shared memory pool
 
@@ -93,16 +98,41 @@ def program_generator(device, draws: bool) -> Optional[torch.Generator]:
 
 class Captured(NamedTuple):
     """A captured graph, with the capture's and the instantiation's
-    seconds and the pool's growth over them (the reserved memory's)."""
+    seconds, the pool's growth over them (the reserved memory's) and the
+    graph's nodes (its kernels, copies and memsets)."""
 
     graph: torch.cuda.CUDAGraph
     capture_s: float
     instantiate_s: float
     pool_mb: float
+    nodes: int
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> int:
+    """The nodes of a graph captured with ``keep_graph=True``, by
+    ``libcuda``'s ``cuGraphGetNodes``."""
+    import ctypes
+
+    count = ctypes.c_size_t(0)
+    rc = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes(
+        ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(count))
+    if rc:
+        raise RuntimeError(f"cuGraphGetNodes failed with CUresult {rc}")
+    return count.value
+
+
+def steps_per_graph(nodes_per_step: int, steps: int) -> int:
+    """Steps per graph of an episode of ``steps`` steps of
+    ``nodes_per_step`` nodes each: the fewest even chunks whose graphs
+    hold at most ``GRAPH_NODES`` nodes (at least one step a graph)."""
+    most = max(1, GRAPH_NODES // max(nodes_per_step, 1))
+    chunks = -(-steps // most)
+    return -(-steps // chunks)
 
 
 def capture(device, warmup: Callable[[], None], body: Callable[[], None],
-            gen: Optional[torch.Generator] = None) -> Captured:
+            gen: Optional[torch.Generator] = None,
+            instantiate: bool = True) -> Captured:
     """Run ``warmup()`` on the capture stream, then capture ``body()``
     into a graph on the device's shared pool, ``gen`` registered with it.
     ``warmup`` must leave the program's state as it found it; what it
@@ -119,6 +149,11 @@ def capture(device, warmup: Callable[[], None], body: Callable[[], None],
     collectives while a capture may be open). The device is synchronised
     first, so no collective issued before it is still in flight.
 
+    The graph is kept (``keep_graph=True``) so that its nodes can be
+    counted, then instantiated (not with ``instantiate`` False: a graph
+    captured only to be counted); ``instantiate_s`` times the
+    instantiation, ``capture_s`` the capture up to the body's end.
+
     A failed capture raises, after it has stopped routing allocations to
     the pool and dropped the pool: the process may capture again."""
     strict_fp32()
@@ -130,7 +165,7 @@ def capture(device, warmup: Callable[[], None], body: Callable[[], None],
     with torch.cuda.stream(stream):
         warmup()
     torch.cuda.current_stream(device).wait_stream(stream)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     if gen is not None:
         graph.register_generator_state(gen)
     torch.cuda.synchronize(device)
@@ -150,8 +185,13 @@ def capture(device, warmup: Callable[[], None], body: Callable[[], None],
     except BaseException:
         _abandon_pool(device)
         raise
-    return Captured(graph, t1 - t0, time.perf_counter() - t1,
-                    (torch.cuda.memory_reserved(device) - reserved) / 2**20)
+    nodes = graph_nodes(graph)
+    t2 = time.perf_counter()
+    if instantiate:
+        graph.instantiate()
+    return Captured(graph, t1 - t0, time.perf_counter() - t2,
+                    (torch.cuda.memory_reserved(device) - reserved) / 2**20,
+                    nodes)
 
 
 def _abandon_pool(device: torch.device) -> None:
@@ -265,6 +305,7 @@ class Program:
         self._gen = program_generator(self.device, draws)
         self._graph = None
         self.capture_s = self.instantiate_s = self.pool_mb = None
+        self.nodes = None
 
     def run(self, inputs: Sequence[torch.Tensor],
             gen: Optional[torch.Generator],
@@ -283,8 +324,9 @@ class Program:
             return
         if self._graph is None:
             (self._graph, self.capture_s, self.instantiate_s,
-             self.pool_mb) = capture(self.device, lambda: warmup(self._gen),
-                                     lambda: body(self._gen), self._gen)
+             self.pool_mb, self.nodes) = capture(
+                self.device, lambda: warmup(self._gen),
+                lambda: body(self._gen), self._gen)
             Program.captures += 1
         with generator_handover(self._gen, gen, self.device):
             self._graph.replay()

@@ -12,8 +12,8 @@ buffers:
 * ``block=`` sets the blocked path's rows per block as the JAX package's
   argument does;
 * the refusals: ``n_episodes > 1`` with ``scan_chunks > 1``, a graph asked
-  for on the CPU (with a mesh too: a mesh's episode runs its program) or
-  off the pcells path;
+  for on the CPU, on every path (with a mesh too: a mesh's episode runs
+  its program), a program run on a state of another setup;
 * the kernels' launches read from a profiler trace's kernel names.
 
 jax.random and torch generators give different numbers, so the port is
@@ -200,15 +200,16 @@ def test_block_sets_the_blocked_paths_rows_per_block():
     (dict(graph=True), "on the CPU"),
     (dict(graph="step"), "graph must be None, False or True"),
     (dict(graph=True, mesh=object()), "on the CPU"),
-    (dict(graph=True, mesh=object(), path="binned"), "on the binned path"),
-    (dict(graph=True, path="blocked"), "on the blocked path"),
-    (dict(graph=True, path="cells"), "on the cells path"),
+    (dict(graph=True, mesh=object(), path="binned"), "on the CPU"),
+    (dict(graph=True, path="blocked"), "on the CPU"),
+    (dict(graph=True, path="cells"), "on the CPU"),
     (dict(graph="nonsense"), "graph must be None, False or True"),
 ], ids=["episodes_and_chunks", "no_chunks", "cpu", "cpu_step", "mesh",
         "mesh_binned", "blocked", "cells", "unknown"])
 def test_refusals(kw, match):
     """What the episode program does not run raises ValueError before any
-    work; nothing falls back to the eager loop."""
+    work; nothing falls back to the eager loop. A graph runs on every path
+    on the card, so off pcells too the CPU is what refuses it."""
     p = tfl.FlockingParams(n_agents=48, episode_steps=2)
     tcfg, actor = _actor(3)
     with pytest.raises(ValueError, match=match):
@@ -216,21 +217,30 @@ def test_refusals(kw, match):
 
 
 def test_program_refuses_what_it_cannot_capture():
-    """An ``EpisodeProgram`` refuses another path, and a policy's program
-    an episode without an actor; the cache returns one program per
-    setup."""
+    """An ``EpisodeProgram`` runs every path but refuses a state of another
+    path's setup (a blocked state, with no grid, in a pcells program), no
+    steps and no steps per graph, and a policy's program an episode
+    without an actor; the cache returns one program per setup."""
     p = tfl.FlockingParams(n_agents=48, episode_steps=2)
-    tcfg, _ = _actor(3)
-    with pytest.raises(ValueError, match="pcells path, not the blocked"):
-        tln.EpisodeProgram(tln.make_config(p, path="blocked"), tcfg, 2,
-                           "cpu")
+    tcfg, actor = _actor(3)
+    bcfg = tln.make_config(p, path="blocked")
+    x0 = tfl._init_candidate(torch.Generator().manual_seed(1), p, "cpu")
+    blocked = tln._episode_init(bcfg, tcfg, None, "cpu", x0)
+    prog = tln.EpisodeProgram(tln.make_config(p), tcfg, 2, "cpu")
+    prog.run(tln._episode_init(tln.make_config(p), tcfg, None, "cpu", x0),
+             actor)
+    with pytest.raises(ValueError, match="not of this program's setup"):
+        prog.run(blocked, actor)
+    for steps, per_graph in ((0, None), (2, 0)):
+        with pytest.raises(ValueError, match="steps >= 1"):
+            tln.EpisodeProgram(bcfg, tcfg, steps, "cpu",
+                               steps_per_graph=per_graph)
     cfg = tln.make_config(p)
     a = tln.episode_program(cfg, tcfg, 2, "cpu")
     assert tln.episode_program(cfg, tcfg, 2, torch.device("cpu")) is a
     assert tln.episode_program(cfg, tcfg, 3, "cpu") is not a
     assert tln.episode_program(cfg, tcfg, 2, "cpu",
                                step=til.collect_step) is not a
-    x0 = tfl._init_candidate(torch.Generator().manual_seed(1), p, "cpu")
     with pytest.raises(ValueError, match="needs an actor"):
         a.run(tln._episode_init(cfg, tcfg, None, "cpu", x0))
 

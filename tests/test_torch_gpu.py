@@ -1059,9 +1059,10 @@ def test_resume_into_a_learner_that_captured_on_gpu(tmp_path):
 @pytest.mark.gpu
 def test_graph_true_raises_on_a_one_rank_mesh_on_gpu():
     """On a mesh the round's loops run as programs: ``graph=True`` raises
-    only where a program does not apply, on the CPU and off the pcells
-    path, and ``graph=None`` builds the programs (the update program with
-    its collectives). A one-rank gloo group, destroyed after."""
+    only where a program does not apply, on the CPU (off the pcells path
+    it builds the learner's programs on the card), and ``graph=None``
+    builds the programs (the update program with its collectives). A
+    one-rank gloo group, destroyed after."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     import dataclasses
@@ -1085,10 +1086,10 @@ def test_graph_true_raises_on_a_one_rank_mesh_on_gpu():
         with pytest.raises(ValueError, match="on the CPU"):
             ShardedImitationLearner(_round_cfg(False), mesh, device="cpu",
                                     graph=True)
-        with pytest.raises(ValueError, match="on the cells path"):
-            til.LargeNImitationLearner(
-                dataclasses.replace(_round_cfg(True), graph_path="cells"),
-                device="cuda", mesh=mesh, graph=True)
+        cells = til.LargeNImitationLearner(
+            dataclasses.replace(_round_cfg(True), graph_path="cells"),
+            device="cuda", mesh=mesh, graph=True)
+        assert cells._lcfg.path == "cells" and cells._graph is None
         lrn = ShardedImitationLearner(_round_cfg(False), mesh, device="cuda")
         assert lrn._updates.update == lrn._update and lrn._graph is None
     finally:
@@ -1261,7 +1262,7 @@ def test_a_failed_mesh_capture_raises_on_gpu(nccl_mesh):
         device=dev).manual_seed(1), dev)
     with pytest.raises(RuntimeError):
         prog.run(state, actor)
-    assert prog._graph is None
+    assert not prog.captured
     runs = [tln.rollout_large(actor, acfg, torch.Generator(
         device=dev).manual_seed(3), p, device=dev, mesh=nccl_mesh,
         graph=g) for g in (True, False)]
@@ -1492,3 +1493,193 @@ def test_ddpg_capturable_adam_against_adam_on_gpu():
             bound = (1e-6 * float(w.abs().max())
                      + steps * adam_step_max * lr * bc_rel)
             assert err <= bound, (name, err, bound)
+
+
+# --- the episode program off pcells, and the trajectory program -------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["blocked", "cells", "binned"])
+@pytest.mark.parametrize("case", ["k3", "stochastic", "expert_chunks",
+                                  "traj_agents", "n_episodes"])
+def test_backend_graph_episode_equals_the_eager_loop_on_gpu(path, case):
+    """``rollout_large(path=)`` on the blocked, cells and binned paths
+    through its episode program (CUDA graphs: a capture, then a replay)
+    against the eager loop on the same generator: every output and the
+    generator's state bit for bit; one program captured per chunk length,
+    its graphs' nodes counted."""
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    dev = torch.device("cuda")
+    p, kw, k = _graph_case(case)
+    acfg, actor = seeded_actor(k, 0, dev)
+    tln.clear_programs()
+    out = {}
+    for name, graph in (("eager", False), ("capture", True),
+                        ("replay", True)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        out[name] = (tln.rollout_large(actor, acfg, gen, p, device=dev,
+                                       return_overflow=True, path=path,
+                                       graph=graph, **kw), gen.get_state())
+    for name in ("capture", "replay"):
+        for a, b in zip(out[name][0], out["eager"][0], strict=True):
+            assert torch.equal(a, b), name
+        assert torch.equal(out[name][1], out["eager"][1]), name
+    assert int(out["eager"][0][2]) == 0
+    progs = list(tln._PROGRAMS.values())
+    assert progs and all(prog.captured and prog.nodes > 0 for prog in progs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["blocked", "cells", "binned"])
+def test_backend_graph_replay_never_waits_for_the_device(path):
+    """Once captured, an episode on ``path`` through its program (the eager
+    lattice reset, the copies into the static buffers, the replays of its
+    chunks with their inputs and outputs copied, the generator's
+    hand-over) issues no operation that synchronises the host; its
+    program in graphs of 5 steps (5, 5, 3) equals the eager loop."""
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the host-sync check is CUDA's)")
+    dev = torch.device("cuda")
+    p, _, k = _graph_case("stochastic")
+    acfg, actor = seeded_actor(k, 0, dev)
+    cfg = tln.make_config(p, path=path)
+    prog = tln.EpisodeProgram(cfg, acfg, GRAPH_T, dev, steps_per_graph=5)
+
+    def episode(graph):
+        gen = torch.Generator(device=dev).manual_seed(2)
+        state = tln._episode_init(cfg, acfg, gen, dev)
+        if not graph:
+            return tln._scan_steps(cfg, actor, state, GRAPH_T, gen)[1]
+        prog.run(state, actor, gen)
+        return prog.rewards.clone()
+
+    first = episode(True)                  # captures
+    again = _no_sync(episode, True)
+    assert prog._chunks() == [(0, 5), (5, 5), (10, 3)]
+    assert torch.equal(first, again)
+    assert torch.equal(again, episode(False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["cells", "blocked"])
+def test_backend_graph_collection_in_chunks_on_gpu(path):
+    """The large learner's DAGGER collection on ``path`` through its
+    program, whole and in graphs of 4 steps (the subsample and coin
+    copied in per chunk, the records out), against the eager loop:
+    records, reward, overflow and the generator's state bit for bit."""
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as til
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import ENV_REGISTRY
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    dev = torch.device("cuda")
+    p = ENV_REGISTRY["FlockingStochastic-v0"](
+        FlockingParams(n_agents=GRAPH_N, episode_steps=GRAPH_T))
+    cfg = tln.make_config(p, path=path, need_expert=True)
+    acfg, actor = seeded_actor(3, 0, dev)
+
+    def collect(graph):
+        gen = torch.Generator(device=dev).manual_seed(8)
+        samples, r, ovf = til.collect_episode(cfg, actor, acfg, "dagger",
+                                              256, gen, 0.5, dev, graph=graph)
+        return samples["agg"], samples["act"], r, ovf, gen.get_state()
+
+    want = collect(False)
+    tln.clear_programs()
+    for per_graph in (None, 4):
+        prog = til.collection_program(cfg, acfg, "dagger", 256, dev)
+        prog.steps_per_graph = per_graph
+        for _ in range(2):                 # capture, replay
+            got = collect(True)
+            for a, b in zip(got, want, strict=True):
+                assert torch.equal(a, b), per_graph
+        tln.clear_programs()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", ["blocked", "cells", "binned"])
+def test_mesh_backend_graph_equals_the_eager_loop_on_gpu(nccl_mesh, path):
+    """``rollout_large(mesh=, path=)`` on a one-rank NCCL mesh through its
+    program (the frames' gathers, the applies' collectives and the state
+    gather captured: a capture, then a replay) against the mesh's eager
+    loop and the episode with no mesh, bit for bit; ``force_n_dev=2``
+    (the emulated rank, no collective) through its program against its
+    eager loop."""
+    from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    dev = torch.device("cuda")
+    p, _, k = _graph_case("stochastic")
+    acfg, actor = seeded_actor(k, 0, dev)
+    runs = []
+    for mesh, graph in ((nccl_mesh, False), (nccl_mesh, True),
+                        (nccl_mesh, True), (None, False)):
+        gen = torch.Generator(device=dev).manual_seed(5)
+        runs.append(tln.rollout_large(actor, acfg, gen, p, device=dev,
+                                      return_overflow=True, mesh=mesh,
+                                      path=path, graph=graph)
+                    + (gen.get_state(),))
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0], strict=True):
+            assert torch.equal(a, b)
+    assert int(runs[0][2]) == 0
+    forced = [tln.rollout_large(actor, acfg, torch.Generator(
+        device=dev).manual_seed(5), p, device=dev, return_overflow=True,
+        mesh=nccl_mesh, force_n_dev=2, path=path, graph=graph)
+        for graph in (False, True, True)]
+    for run in forced[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, forced[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("env", ["FlockingRelative-v0",
+                                 "FlockingStochastic-v0"])
+def test_trajectory_program_equals_the_eager_loop_on_gpu(env):
+    """``rollout_trajectory`` through its program (the reset eager, the T
+    steps one CUDA graph: a capture, then a replay) against its eager loop
+    from one generator: states, rewards and the generator's state bit for
+    bit; the replay waits for the device nowhere."""
+    from multiagent_gnn_policies_tpu_torch.algos import imitation as tim
+    from multiagent_gnn_policies_tpu_torch.envs.flocking import make_env
+    from multiagent_gnn_policies_tpu_torch.scripts._common import (
+        seeded_actor)
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA graphs)")
+    dev = torch.device("cuda")
+    fenv = make_env(env, FlockingParams(n_agents=100, episode_steps=50))
+    acfg, actor = seeded_actor(3, 0, dev)
+
+    def run(graph):
+        gen = torch.Generator(device=dev).manual_seed(4)
+        return tim.rollout_trajectory(actor, gen, fenv, acfg,
+                                      graph=graph) + (gen.get_state(),)
+
+    want = run(False)
+    captures = tim.TrajectoryProgram.captures
+    for got in (run(True), run(True)):
+        for a, b in zip(got, want, strict=True):
+            assert torch.equal(a, b)
+    assert tim.TrajectoryProgram.captures == captures + 1
+    renv = make_env("FlockingRelative-v0",
+                    FlockingParams(n_agents=100, episode_steps=50))
+    x0 = torch.zeros((100, 4), device=dev)
+    x0[:, 0] = torch.arange(100, device=dev) % 10 * 0.5
+    x0[:, 1] = torch.arange(100, device=dev) // 10 * 0.5
+    want = tim.rollout_trajectory(actor, None, renv, acfg, x0, graph=False)
+    tim.rollout_trajectory(actor, None, renv, acfg, x0)        # captures
+    got = _no_sync(tim.rollout_trajectory, actor, None, renv, acfg, x0)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

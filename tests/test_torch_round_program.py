@@ -342,9 +342,10 @@ def test_a_learner_that_stepped_resumes_in_place(tmp_path):
 
 
 def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
-    """``graph=True`` raises on the CPU, with a mesh or without, and off
-    the pcells path; on a mesh ``graph=None`` builds the programs, the
-    update program over the learner's own update with its collective."""
+    """``graph=True`` raises on the CPU, with a mesh or without, on the
+    pcells path and off it (a program runs on every path on the card); on
+    a mesh ``graph=None`` builds the programs, the update program over the
+    learner's own update with its collective."""
     with pytest.raises(ValueError, match="on the CPU"):
         tim.ImitationLearner(_dense_cfg(), device="cpu", graph=True)
     with socket.socket() as s:
@@ -356,7 +357,7 @@ def test_graph_true_raises_on_the_cpu_and_on_a_mesh():
         with pytest.raises(ValueError, match="on the CPU"):
             ShardedImitationLearner(_dense_cfg(), mesh, device="cpu",
                                     graph=True)
-        with pytest.raises(ValueError, match="on the blocked path"):
+        with pytest.raises(ValueError, match="on the CPU"):
             til.LargeNImitationLearner(
                 dataclasses.replace(_large_cfg(), graph_path="blocked"),
                 device="cpu", mesh=mesh, graph=True)
