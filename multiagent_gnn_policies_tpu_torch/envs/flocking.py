@@ -53,6 +53,20 @@ class FlockingParams:
     def bias(self) -> float:
         return self.v_max if self.v_bias is None else self.v_bias
 
+    @classmethod
+    def from_cfg(cls, args, **overrides) -> "FlockingParams":
+        """From a configparser section, as the reference's
+        ``params_from_cfg``: ``n_agents``, ``comm_radius``, ``dt`` and
+        ``v_max``, then ``overrides``."""
+        kw = dict(
+            n_agents=args.getint("n_agents"),
+            comm_radius=args.getfloat("comm_radius"),
+            dt=args.getfloat("dt"),
+            v_max=args.getfloat("v_max"),
+        )
+        kw.update(overrides)
+        return cls(**kw)
+
 
 # Exact f32 co-location must give a huge but finite repulsion, not inf ->
 # NaN: every observation and expert path clamps r^2 from below by this.
@@ -396,6 +410,10 @@ class FlockingEnv:
 
     def observe(self, state: EnvState) -> Obs:
         return observe(state.x, self.params)
+
+    @property
+    def n_agents(self) -> int:
+        return self.params.n_agents
 
 
 def make_env(name: str,

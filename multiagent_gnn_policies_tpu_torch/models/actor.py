@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -116,3 +116,14 @@ def init_actor_(actor: Actor, gen: Optional[torch.Generator] = None) -> Actor:
             layer.weight.uniform_(-bound, bound, generator=gen)
             layer.bias.uniform_(-bound, bound, generator=gen)
     return actor
+
+
+def actor_param_count(layers: List[dict]) -> int:
+    """The number of weights and biases in JAX-layout ``layers`` (numpy
+    arrays or tensors)."""
+    return sum(math.prod(v.shape) for layer in layers for v in layer.values())
+
+
+def hidden_layers(hidden_size: int, n_layers: int) -> Sequence[int]:
+    """The reference's convention: ``n_layers`` copies of ``hidden_size``."""
+    return tuple([hidden_size] * n_layers)

@@ -12,7 +12,12 @@ axis; later layers take ``w[:, :, 0]``. The reference's state_dict holds
 JAX critic layer ``i`` is ``{'w': (W_out, C, W_in), 'b': (W_out,)}`` plus,
 on hidden layers with GroupNorm, ``gn_scale`` and ``gn_bias`` (W_out,).
 The port's ``nn.Linear`` reads the (C, W) channels flattened c-major, so
-its weight is ``w`` reshaped to (W_out, C·W_in), with no transpose.
+its weight is ``w`` reshaped to (W_out, C·W_in), with no transpose. The
+reference critic's state_dict holds ``conv_layers.{i}.weight`` ``(W_out,
+C, W_in, 1)``, ``conv_layers.{i}.bias`` and, where it normalises,
+``layer_norms.{i}.{weight,bias}``; :func:`critic_params_from_state_dict`
+reads it into JAX-layout layers, which :func:`critic_params_from_numpy`
+loads into ``Critic``.
 """
 
 from __future__ import annotations
@@ -88,6 +93,29 @@ def actor_state_dict_from_params(layers: List[dict]) -> Dict[str, np.ndarray]:
         sd[f"conv_layers.{i}.weight"] = _to_numpy(layer["w"])[:, :, :, None]
         sd[f"conv_layers.{i}.bias"] = _to_numpy(layer["b"])
     return sd
+
+
+def critic_params_from_state_dict(sd: Mapping[str, object]) -> List[dict]:
+    """Reference Critic state_dict -> JAX-layout layers (numpy):
+    ``conv_layers.{i}.weight (W_out, C, W_in, 1)`` -> ``w (W_out, C,
+    W_in)``; ``layer_norms.{i}.{weight,bias}`` -> ``gn_scale``/``gn_bias``."""
+    layers = []
+    i = 0
+    while f"conv_layers.{i}.weight" in sd:
+        w = _to_numpy(sd[f"conv_layers.{i}.weight"])
+        if w.ndim != 4 or w.shape[-1] != 1:
+            raise ValueError(f"conv_layers.{i}.weight: want (W_out, C, "
+                             f"W_in, 1), got {w.shape}")
+        layer = {"w": np.ascontiguousarray(w[:, :, :, 0]),
+                 "b": _to_numpy(sd[f"conv_layers.{i}.bias"])}
+        if f"layer_norms.{i}.weight" in sd:
+            layer["gn_scale"] = _to_numpy(sd[f"layer_norms.{i}.weight"])
+            layer["gn_bias"] = _to_numpy(sd[f"layer_norms.{i}.bias"])
+        layers.append(layer)
+        i += 1
+    if not layers:
+        raise ValueError("no conv_layers.* keys found in state_dict")
+    return layers
 
 
 def critic_params_from_numpy(layers: List[dict]) -> Dict[str, torch.Tensor]:

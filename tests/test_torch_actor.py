@@ -2,7 +2,8 @@
 its weight import against the JAX package: the same numpy weights give the
 same actions, and the numpy-only ``.npz`` reader returns exactly the leaves
 the JAX package's checkpoint loader returns for the in-repo N = 32,768
-checkpoint.
+checkpoint; the parameter count and the hidden widths' helper give the
+JAX values.
 
 Tolerance: float32 matrix products in different summation orders; actions
 agree to 1e-5 of their largest magnitude (the stated bound is 1e-4).
@@ -111,3 +112,23 @@ def test_treedef_string_matches_jax():
     treedef = jax.tree_util.tree_structure(
         jac.init_actor(jax.random.key(0), jcfg))
     assert tck.actor_treedef(3) == str(treedef)
+
+
+@pytest.mark.parametrize("k,hidden",
+                         [(1, (8,)), (3, (32, 32)), (4, (16, 24, 8))])
+def test_param_count_and_hidden_layers_match_jax(k, hidden):
+    """``actor_param_count`` over JAX-layout layers (numpy, tensors, or the
+    JAX package's own arrays) and ``hidden_layers`` give the JAX values."""
+    jcfg = jac.ActorConfig(n_s=6, n_a=2, hidden=hidden, k=k)
+    params = jac.init_actor(jax.random.key(k), jcfg)
+    layers = _numpy_layers(jcfg, seed=k)
+    want = jac.actor_param_count(params)
+    assert tac.actor_param_count(layers) == want
+    tensors = [{n: torch.from_numpy(v) for n, v in l.items()}
+               for l in layers]
+    assert tac.actor_param_count(tensors) == want
+    assert tac.actor_param_count(params) == want
+    actor = _torch_actor(jcfg, layers)
+    assert want == sum(p.numel() for p in actor.parameters())
+    for size, n in ((32, 2), (hidden[0], len(hidden)), (7, 0)):
+        assert tac.hidden_layers(size, n) == jac.hidden_layers(size, n)

@@ -2,10 +2,10 @@
 against the JAX package's (ops/pallas_cells.py, Pallas kernels in interpret
 mode on the CPU): the grid build and its overflow count, frame, frame_apply,
 apply_adjT, ystack_pre and the O(N²) delayed_ystack, on the same numpy
-inputs. On the CPU every port
-wrapper takes its kernel's plain PyTorch version; the kernels themselves are
-held against those plain versions on the card by tests/test_torch_gpu.py
-and chip_smoke.py.
+inputs; and the route frame_apply + ystack_pre against JAX ystack. On
+the CPU every port wrapper takes its kernel's plain PyTorch version; the
+kernels themselves are held against those plain versions on the card by
+tests/test_torch_gpu.py and chip_smoke.py.
 
 Tolerances: both sides compute in float32 over the same candidates but sum
 in different orders, so a channel agrees to a few float32 ulps of its
@@ -242,6 +242,44 @@ def test_delayed_ystack_matches_jax(k):
     grid_hist = tuple(tcc.build_pcell_grid(ph, ts) for ph in t_pos_hist)
     pre = tcc.ystack_pre(tcarry, s0, ts, tp, grid_hist=grid_hist)
     _close(pre.reshape(-1, f), got.reshape(-1, f), rel=1e-4)
+
+
+@pytest.mark.parametrize("k,max_cols", [(3, None), (4, 6)],
+                         ids=["k3-one-sweep", "k4-chunked"])
+def test_ystack_route_matches_jax_ystack(k, max_cols):
+    """JAX ``ystack`` does every delayed apply in one call; the port
+    splits it: :func:`frame_apply` does the s = 0 apply over the current
+    graph in the step's fused pass (K2), ``ystack_pre`` the historical
+    ones (K3). With the grids carried as the rollout carries them, the
+    port's route gives the JAX stack, also against JAX's column chunks
+    (``max_cols = 6``, the 1M rollout's setting)."""
+    n, f = 48, 6
+    rng = np.random.default_rng(30 + k)
+    jp, tp, js, ts = _specs(n)
+    hist = rng.normal(size=(k, n, f)).astype(np.float32)
+    x_now = _swarm(40 + k, n, 3.0)
+    x_hist = [_swarm(50 + k + s, n, 3.0) for s in range(k - 2)]
+    pos_hist = np.stack([x[:, :2] for x in x_hist])
+    deg_hist = np.stack([tbl.blocked_frame(torch.from_numpy(x), tp, block=n)
+                         .degree.numpy() for x in x_hist])
+    deg_now = tbl.blocked_frame(torch.from_numpy(x_now), tp, block=n).degree
+    jcarry = jbl.DelayCarry(jnp.asarray(hist), jnp.asarray(pos_hist),
+                            jnp.asarray(deg_hist))
+    tcarry = tbl.DelayCarry(torch.from_numpy(hist), torch.from_numpy(pos_hist),
+                            torch.from_numpy(deg_hist))
+    jg, tg = _grids(x_now, js, ts)
+    jgh = tuple(jpc.build_pcell_grid(jnp.asarray(ph), js) for ph in pos_hist)
+    tgh = tuple(tcc.build_pcell_grid(torch.from_numpy(ph), ts)
+                for ph in pos_hist)
+    want = jpc.ystack(jcarry, jg, jnp.asarray(x_now),
+                      jnp.asarray(deg_now.numpy()), js, jp, grid_hist=jgh,
+                      max_cols=max_cols)
+    s0_cols = tcarry.history[1:].transpose(0, 1).reshape(n, (k - 1) * f)
+    fq, s0 = tcc.frame_apply(torch.from_numpy(x_now), s0_cols, tg, ts, tp)
+    assert torch.equal(fq.degree, deg_now)
+    got = tcc.ystack_pre(tcarry, s0, ts, tp, grid_hist=tgh)
+    assert got.shape == (k, n, f)
+    _close(got.reshape(-1, f), np.asarray(want).reshape(-1, f))
 
 
 @pytest.mark.parametrize("centralized", [True, False])

@@ -3,7 +3,8 @@
 JAX package: the same numpy weights and inputs give the same Q values and
 actions; the weight converters round-trip; the init draws inside the JAX
 bounds; the in-repo DDPG actor and critic files load in the port and act
-as the JAX package's; and each package reads the other's critic files.
+as the JAX package's; each package reads the other's critic files; and
+the reference critic's state_dict reads into the same layers in both.
 
 Tolerance: float32 products in different summation orders; outputs agree
 within 1e-5 of their largest magnitude.
@@ -19,6 +20,7 @@ import torch
 
 from multiagent_gnn_policies_tpu.models import actor as jac
 from multiagent_gnn_policies_tpu.models import critic as jcr
+from multiagent_gnn_policies_tpu.models import torch_import as jti
 from multiagent_gnn_policies_tpu.ops import graph as jgr
 from multiagent_gnn_policies_tpu.utils import checkpoint as jck
 from multiagent_gnn_policies_tpu_torch.models import actor as tac
@@ -255,3 +257,66 @@ def test_critic_files_read_by_both_packages(tmp_path, gn):
     # another architecture is refused
     with pytest.raises(ValueError, match="mismatch|layer"):
         tck.load_critic_npz(path, _cfgs(2, not gn)[1])
+
+
+def _reference_state_dict(jcfg, seed, as_torch):
+    """A reference-layout critic state_dict drawn with numpy:
+    ``conv_layers.{i}.weight (W_out, C, W_in, 1)`` and ``.bias``, and
+    ``layer_norms.{i}.{weight,bias}`` on the layers that normalise."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for i, layer in enumerate(jcr.init_critic(jax.random.key(seed), jcfg)):
+        w_out, c, w_in = layer["w"].shape
+        sd[f"conv_layers.{i}.weight"] = rng.uniform(
+            -0.4, 0.4, (w_out, c, w_in, 1)).astype(np.float32)
+        sd[f"conv_layers.{i}.bias"] = rng.uniform(
+            -0.4, 0.4, (w_out,)).astype(np.float32)
+        if "gn_scale" in layer:
+            sd[f"layer_norms.{i}.weight"] = rng.uniform(
+                0.5, 1.5, (w_out,)).astype(np.float32)
+            sd[f"layer_norms.{i}.bias"] = rng.normal(
+                0, 0.2, (w_out,)).astype(np.float32)
+    if as_torch:
+        sd = {k: torch.from_numpy(v) for k, v in sd.items()}
+    return sd
+
+
+@pytest.mark.parametrize("as_torch", [True, False], ids=["torch", "numpy"])
+@pytest.mark.parametrize("gn", [True, False], ids=["gn", "no-gn"])
+@pytest.mark.parametrize("k", [2, 3])
+def test_critic_params_from_state_dict_matches_jax(k, gn, as_torch):
+    """The reference critic's state_dict read by both packages gives the
+    same layers bit for bit, and the port's ``Critic`` loaded from them
+    gives JAX ``critic_forward``'s Q values."""
+    jcfg, tcfg = _cfgs(k, gn)
+    sd = _reference_state_dict(jcfg, 20 + k, as_torch)
+    want = jti.critic_params_from_state_dict(sd)
+    got = tti.critic_params_from_state_dict(sd)
+    assert len(got) == len(want) == jcfg.n_layers
+    for g, w in zip(got, want):
+        assert sorted(g) == sorted(w)
+        for name in w:
+            assert g[name].dtype == np.float32
+            np.testing.assert_array_equal(g[name], np.asarray(w[name]))
+    assert any("gn_scale" in l for l in got) == gn
+    critic = _port_critic(got, tcfg)
+    rng = np.random.default_rng(30 + k)
+    s = (rng.normal(size=(N, 6)) * np.array([1, 50, 5, 1, 50, 5])
+         ).astype(np.float32)
+    a = rng.uniform(-1, 1, size=(N, 2)).astype(np.float32)
+    _, gso = _gso(rng, k=k)
+    want_q = np.asarray(jcr.critic_forward(want, jcfg, jnp.asarray(s),
+                                           jnp.asarray(a), jnp.asarray(gso)))
+    with torch.no_grad():
+        got_q = critic(torch.from_numpy(s), torch.from_numpy(a),
+                       torch.from_numpy(gso))
+    _close(got_q, want_q, "Q")
+
+
+@pytest.mark.parametrize("sd", [{}, {"layers.0.weight": np.zeros((2, 2))}],
+                         ids=["empty", "no-conv-layers"])
+def test_critic_params_from_state_dict_refuses_without_conv_layers(sd):
+    for fn in (jti.critic_params_from_state_dict,
+               tti.critic_params_from_state_dict):
+        with pytest.raises(ValueError, match="conv_layers"):
+            fn(sd)

@@ -1,5 +1,6 @@
 """The port's config, environment and O(N²) graph oracle against the JAX
-package, on the same numpy inputs: INI parsing, the env registry, the
+package, on the same numpy inputs: INI parsing (the experiment config
+and ``FlockingParams.from_cfg``), the env registry, the
 lattice reset's contract, the double-integrator step and reward, the
 blocked frame and transpose-apply, and the delay carry. Also the rule that
 the port and chip_smoke.py import neither JAX nor the JAX package.
@@ -255,3 +256,22 @@ def test_port_imports_no_jax(path):
         top = mod.split(".")[0]
         assert top != "jax" and top != "multiagent_gnn_policies_tpu", (
             f"{path.name} imports {mod}")
+
+
+@pytest.mark.parametrize(
+    "path", sorted(glob.glob(str(ROOT / "cfg" / "*.cfg"))),
+    ids=lambda p: os.path.basename(p))
+def test_params_from_cfg_match_jax(path):
+    """``FlockingParams.from_cfg`` reads the same four keys of every
+    section of every cfg file as the JAX package, overrides included, and
+    ``FlockingEnv.n_agents`` reads them back."""
+    jcp, tcp = jcfg.load_ini(path), tcfg.load_ini(path)
+    for name in tcp.sections() or [tcp.default_section]:
+        for over in ({}, {"episode_steps": 7, "n_leaders": 2}):
+            want = jfl.FlockingParams.from_cfg(jcp[name], **over)
+            got = tfl.FlockingParams.from_cfg(tcp[name], **over)
+            assert dataclasses.asdict(got) == dataclasses.asdict(want), (
+                name, over)
+            env = tfl.make_env("FlockingRelative-v0", got)
+            assert env.n_agents == jfl.make_env(
+                "FlockingRelative-v0", want).n_agents == got.n_agents
