@@ -3,7 +3,12 @@
 
     python3 chip_smoke.py
 
-Phases, one progress line each (``# phase ...``, with wall seconds).
+Phases, one progress line each (``# phase ...``, with wall seconds), in
+the order 1-5, 20, 6-8, 10-16, 18, 19, 21, 17; a phase's larger sub-steps
+print their seconds too (``#   step ...``), to see where the run's time
+goes. The run must end within BUDGET_S: a phase that outgrows it is cut
+in depth, never given more time, and each cut is written below where its
+phase is ("cut in depth: X, not Y", with why the check still holds).
 
 Launches. On one card the large-N entry points run each episode's steps
 as the episode program's CUDA graph (``parallel/large_n.py``), whose
@@ -21,17 +26,27 @@ and per capture its warm-up and its 200 recorded steps (the captures
 are counted).
 
 Graph against eager. Where a phase below prints ms, busy ms, idle share
-and device ops per step "of each loop" (phases 14 (d), 16, 18, 20, 21),
-the graph's come from one run under the profiler (its ms under it), the
-eager loop's ms from one timed run: its busy ms, idle share and device
-ops read "not measured" (cut in depth: tracing an eager loop of ~10^5
-launches took up to 14 s of the run; PERF.md section 5 has the eager
-loops' traces). Phase 19 traces both loops.
+and device ops per step "of each loop" (phases 14 (d), 16, 18, 19, 20,
+21), the eager loop's ms is the wall of an eager run the phase made
+anyway (its twin's episode, round or Adam updates), and its busy ms,
+idle share and device ops read "not measured" (tracing an eager loop of
+~10^5 launches took up to 14 s of the run; PERF.md section 5 has the
+eager loops' traces). The graph's come from one run under the profiler
+(its ms under it): a run the phase made anyway where one was traced
+(phase 14's profiled episode), TRACE_UPDATES replays of an Adam update
+program, or a short episode; where the phase traced a replay for its
+launches (phases 16 (b) and 20), that replay's ms alone, the rest "not
+measured". Cut in depth: one more episode or round of updates of each
+loop, run only to time it (13 of them, ~25 s of the run).
 
 1. device: fails without ``torch.cuda.is_available()``; prints nvidia-smi's
    name and power limit and ``torch.cuda.get_device_name(0)``;
 2. build: the one ``nvcc`` call of ``ops/_build.py``, with its seconds and
-   the ``-Xptxas -v`` register and shared-memory lines;
+   the ``-Xptxas -v`` register and shared-memory lines, run in a thread;
+   beside it, in the main thread, the profiler's start-up (a device-only
+   window around one small operation: CUPTI's first start, 8-12 s on the
+   H100, which the first traced window, phase 4's, paid before), with its
+   seconds;
 3. kernels: a lattice reset at N = 32,768 and 3 policy steps (so the
    history and the delayed graphs are non-trivial), then each kernel at
    this slice's shapes against its plain PyTorch version on the card
@@ -85,10 +100,12 @@ loops' traces). Phase 19 traces both loops.
 8. dagger: ``cfg/dagger.cfg [test]`` at full width for 3 rounds through
    the learner's ``train``: the eval at episode 0, finite losses with the
    third round's sum below the first's, rollout ms per env step, ms per
-   Adam update and env steps per second; then a run stopped after 2
-   rounds with its state saved, and a fresh learner that resumes it for
-   the third round: its params must equal the uninterrupted run's (the
-   max difference is printed; bit for bit is expected); the actor export
+   Adam update and env steps per second; the run stops after 2 rounds
+   with its state saved (a stop and a later call are one uninterrupted
+   run; cut in depth: a second learner that reran 2 rounds to save it),
+   and a fresh learner that resumes it for the third round: its params
+   must equal the uninterrupted run's (the max difference is printed;
+   bit for bit is expected); the actor export
    read back by the port's loader gives the same actions; then one more
    round under torch.profiler, read as phase 5 reads its steps (per env
    step with its Adam update). Files go to a temporary directory only.
@@ -108,10 +125,11 @@ loops' traces). Phase 19 traces both loops.
     collection episode; round 1 also its eval episode, and the captures
     of the programs not yet cached);
     finite loss sums with the third below the first; collection ms per
-    env step and ms per Adam update; a run stopped after 2 rounds, its
-    state saved to a temporary directory, resumed by a fresh learner for
-    the third round: its params and buffer must equal the uninterrupted
-    run's bit for bit; then one more round under torch.profiler, read as
+    env step and ms per Adam update; the run's state after 2 rounds,
+    saved to a temporary directory as phase 8 saves it, resumed by a
+    fresh learner for the third round: its params and buffer must equal
+    the uninterrupted run's bit for bit; then one more round under
+    torch.profiler, read as
     phase 8 reads its round (per collection step with its Adam update);
 12. variants: one greedy episode of each in-repo
     ``models/actor_Flocking{Leader,Stochastic,AirsimAccel,TwoFlocks}-v0_dagger_*_n32k.npz``
@@ -144,10 +162,13 @@ loops' traces). Phase 19 traces both loops.
     201/200/400, 201/200/200, 201/200/0 and 201/0/0 for K = 4, 3, 2, 1
     (and each capture's warm-up); rewards and ms per step (under the
     profiler) printed. No JAX number exists at this N, so the same
-    evaluation at N = 4,096 with 3 episodes per section (and a
-    ``--save-trajectory`` file, its keys and shapes checked) must land
-    within +-1.5 of the JAX package's means there (-25.05, -25.71,
-    -26.55, -28.62), overflow 0. (c) One 20-step K = 4 and one K = 1
+    evaluation at N = 4,096 with 3 episodes per section must land within
+    +-1.5 of the JAX package's means there (-25.05, -25.71, -26.55,
+    -28.62), overflow 0; then the CLI on section [4] alone, 1 episode at
+    N = 4,096 with ``--save-trajectory``: the file's keys and shapes
+    checked (cut in depth: the file from every section's first episode,
+    each recorded through a program of its own, captured for it). (c) One
+    20-step K = 4 and one K = 1
     episode at N = 4,096 (noiseless, x0 drawn on the card) on the card
     and through the plain versions on the CPU: rewards and final states
     within 1e-4. (d) The dense route (no ``--n-agents``): N = 50, 20
@@ -181,57 +202,55 @@ loops' traces). Phase 19 traces both loops.
     Adam's largest steps);
     the same step with TF32 allowed printed beside it. (c) Training at
     full width through the learner's ``train``, routed as the train CLI
-    routes: ``ddpg_toy.cfg [test]`` 4 episodes (gradient steps from
-    episode 3), ``ddpg.cfg [test]`` 2 (cut in depth to 100-step episodes,
-    not 200), ``ddpg_n4k.cfg [n4k]`` 2 (cut from 3; N = 4,096, positions
-    record; DDPG_TRAIN says why); finite rewards, losses and evals, ms per env
-    step with its gradient step; for toy (n4k's resume, a 750 MiB state
-    file, is cut in depth; tests/test_torch_ddpg_large.py resumes the
-    large learner) the state of an eager run stopped one episode early,
-    saved to a temporary directory, resumed by a fresh learner and by the
-    learner that captured (no new capture): each must equal the
-    uninterrupted run's training state bit for bit;
-    then one more episode under torch.profiler, read as phase 8 reads its
-    round (a replay calls none of the step's functions: the layers are
-    the program's run and the eager reset). (d) Each of those learners
-    against an eager twin (``graph=False``) that ran the same episodes,
-    which cover every gate step of the config (toy: the gate opens after
-    episodes 0 and 1 and at episode 2's first step; ``ddpg.cfg``, its
-    episodes cut to 100 steps: not in episode 0, then at 0; n4k: at step
-    8, then 0): the training state and the
-    summed reward and losses bit for bit; each program's capture and
-    instantiate seconds and pool MB; ms per env step with its gradient
-    steps of one more episode of each loop, and the graph's busy ms, idle
-    share and device ops per step (cut in depth, here and in phases 16,
-    18, 20 and 21: the eager loop is timed, not traced); the eval's wall
-    through its program and
-    eagerly, bit for bit; last, one more episode's replay behind its
-    eager reset under CUDA's sync debug mode "error" (finite sums, no new
-    capture);
+    routes, DDPG_TRAIN's episodes (cut in depth there, with why):
+    ``ddpg_toy.cfg [test]`` 3 episodes (gradient steps from episode 3),
+    ``ddpg.cfg [test]`` 3 of 50 steps, not 200, ``ddpg_n4k.cfg [n4k]`` 2
+    of 25 steps (N = 4,096, positions record); finite rewards, losses
+    and evals, ms per env step with its gradient step; for toy (n4k's
+    resume, a 750 MiB state file, is cut in depth;
+    tests/test_torch_ddpg_large.py resumes the large learner) the state
+    of the eager twin (d) stopped one episode early, saved to a temporary
+    directory, resumed by the learner that captured (no new capture) and
+    by a fresh learner: each must equal the uninterrupted run's training
+    state bit for bit (cut in depth: a third learner that reran those
+    episodes to save the state); then one more episode under
+    torch.profiler, read as phase 8 reads its round (a replay calls none
+    of the step's functions: the layers are the program's run and the
+    eager reset). (d) Each of those learners against an eager twin
+    (``graph=False``) that ran the same episodes, which cover every gate
+    step of the config (toy and ``ddpg.cfg``: the gate opens after
+    episodes 0 and 1 and at episode 2's first step; n4k: at step 8, then
+    0): the training state and the summed reward
+    and losses bit for bit; each program's capture and instantiate
+    seconds and pool MB; ms per env step with its gradient steps of each
+    loop (the eager twin's last episode; (c)'s profiled episode, with the
+    graph's busy ms, idle share and device ops per step); the eval's wall
+    through its program and eagerly, bit for bit (the program's rewards
+    are (c)'s eval after training; cut in depth: a second eval); last,
+    one more episode's replay behind its eager reset under CUDA's sync
+    debug mode "error" (finite sums, no new capture);
 15. tools: each measurement tool's ``main(argv)`` in-process on the
     card, its output printed indented; a non-zero exit, a ``[FAIL]`` or a
     SUSPECT line fails the phase. Cut in depth: ``bench --reps 1 --chains
-    1 --steps 50 --no-large-n`` (one timed call of the single-env and
+    1 --steps 10 --no-large-n`` (one timed call of the single-env and
     128-env figures and one sustained chain of 8 batches, not 5, 5 and 2,
-    of 50-step episodes, not 200, cut from 100 when phase 19's episode
-    programs joined; no large-N detail; the one-thread
-    baseline in its subprocess as always; its JSON line must parse with
-    the four keys); ``smoke_env --episodes
-    1`` (all five envs, 1 episode each, not 2); ``bench_large_n --n 10000
-    --paths blocked cells binned pcells --steps 5 --repeats 1 --episodes
-    1`` (5-step episodes, not 25: a first one, 1 timed chain of 1, not 3
-    of 2, and one profiled, eagerly and through the graphs on every path;
-    cut from 25 steps and 2 chains when the cells and binned rows joined,
-    and from 10 steps when their graph rows did, to hold the run's
-    budget) and ``--n 1000000
-    --paths pcells --steps 25 --edge-mult 2 --cap 32 --repeats 1
-    --episodes 1`` (25-step episodes: a first one, 1 timed chain of 1,
-    not 3 of 2, and one profiled); ``verify_cells --quick`` (no N = 100,000 size;
-    the 1M geometry kept); ``run_1m --steps 100`` at its full N =
-    1,000,000, edge_mult 2, cap 32, T = 100, not 200 (two episodes and the
-    second again under torch.profiler; it exits 1 unless overflow 0,
-    finite rewards and, in the trace, launches 101/100/100); and
-    ``profile_large_n --n 100000 --steps 5`` (not 25), its trace in a
+    of 10-step episodes, not 200, cut from 50 to hold the run's budget;
+    no large-N detail; the one-thread baseline in its subprocess as
+    always; its JSON line must parse with the four keys); ``smoke_env
+    --episodes 1`` (all five envs, 1 episode each, not 2); ``bench_large_n
+    --n 4096 --paths blocked cells binned pcells --steps 5 --repeats 1
+    --episodes 1`` (5-step episodes, not 25: a first one, 1 timed chain
+    of 1, not 3 of 2, and one profiled, eagerly and through the graphs on
+    every path; N cut from 10,000, where the O(N^2) blocked path's step
+    took ~27 ms, to hold the run's budget: its rows are the same at any
+    N) and ``--n 1000000 --paths pcells --steps 25 --edge-mult 2 --cap 32
+    --repeats 1 --episodes 1`` (25-step episodes: a first one, 1 timed
+    chain of 1, not 3 of 2, and one profiled); ``verify_cells --quick``
+    (no N = 100,000 size; the 1M geometry kept); ``run_1m --steps 100``
+    at its full N = 1,000,000, edge_mult 2, cap 32, T = 100, not 200 (two
+    episodes and the second again under torch.profiler; it exits 1 unless
+    overflow 0, finite rewards and, in the trace, launches 101/100/100);
+    and ``profile_large_n --n 100000 --steps 5`` (not 25), its trace in a
     temporary directory. Each cut holds the run's budget as the slices'
     phases join;
 16. mesh, the agent-sharded path (every rank sweeps its band of grid
@@ -250,33 +269,41 @@ loops' traces). Phase 19 traces both loops.
     for bit; then the same episode through ``rollout_large(mesh=)``
     replayed under CUDA's sync debug mode "error", replayed under the
     profiler, and eagerly (``graph=False``): rewards, final state and
-    overflow bit for bit, launches as phase 20 (a) wants them (203/202/202
-    counted for the capturing episode, 201/200/200 in the device's trace
-    of the replay and counted for the eager loop); capture and instantiate seconds, the pool's
-    growth, and ms, busy ms, idle share and device ops per step of one
-    more episode of each loop; then a program of that setup whose step
+    overflow bit for bit, launches as phase 20 (a) wants them
+    (203/202/202 counted for the capturing episode, 201/200/200 in the
+    device's trace of the replay and counted for the eager loop); capture
+    and instantiate seconds, the pool's growth, and ms per step of each
+    loop (the eager episode's, the traced replay's); then a program of
+    that setup whose step
     waits for the device (a read on the host, before its first
     collective): its capture must raise and leave no graph, nothing
     falling back to the eager loop. (c) On that mesh,
     ``rollout_large(force_n_dev=4)`` at N = 100,000 for 10 steps (cut from
-    25 when phase 19's programs joined; and the
-    real one-rank mesh beside it), each through its graph (the emulated
-    rank holds no collective) and eagerly: bit for bit, and ms, busy ms,
-    idle share and device ops per step of each loop printed, not gated;
+    25 when phase 19's programs joined; and the real one-rank mesh beside
+    it), each through its graph (the emulated rank holds no collective),
+    captured and then replayed under the profiler, and eagerly, timed:
+    bit for bit, and ms per step of each loop and the graph's busy ms,
+    idle share and device ops per step printed, not gated;
     the emulated run's results are not valid by design. The programs are
     dropped and the group destroyed after; any failure raises;
 18. dp training, this slice's main path (data-parallel imitation
     training) on a one-rank NCCL process group and ``make_mesh(1, 1)``, as
     phase 16 (b) builds them. (a) ``cfg/dagger.cfg [test]`` at full width,
-    1 round through ``ShardedImitationLearner``'s programs (its slice of
+    cut in depth as phase 21 is (ROUND_STEPS-step episodes, ROUND_UPDATES
+    updates a round, not 200 and 200: the dense N = 100 learner holds no
+    cell kernel, and the check, sharded against one process, is the same
+    at any depth), 1 round through ``ShardedImitationLearner``'s programs
+    (its slice of
     the envs through the dense episode program, each Adam update with its
     gradient all_reduce through the update program) against the
     one-process learner's first round from the same seed: parameters
     within 1e-6 (bit for bit expected; the max difference printed), and
     against its eager twin (``graph=False``) bit for bit; no cell kernel
-    launched; ms, busy ms, idle share and device ops per update of each
-    loop's sharded Adam updates. (b) ``cfg/dagger_n32k.cfg [n32k]`` at full width, cut in
-    depth as phase 11 is (LARGE_BUFFER records, 1 eval episode), 1 round of
+    launched; ms per update of each loop's sharded Adam updates (the eager
+    twin's round's, TRACE_UPDATES replays traced) and the graph's busy
+    ms, idle share and device ops per update. (b) ``cfg/dagger_n32k.cfg
+    [n32k]`` at full width, cut in depth as phase 11 is (LARGE_BUFFER
+    records, 1 eval episode), 1 round of
     ``LargeNImitationLearner`` on that ``("env", "agents")`` mesh through
     its programs (the banded collection and eval episodes as CUDA graphs
     with their collectives), under the profiler: the device's trace must
@@ -285,10 +312,13 @@ loops' traces). Phase 19 traces both loops.
     overflow 0 (the gates raise otherwise); the training state equal to
     its eager twin's and the parameters and buffer to the no-mesh
     learner's first round bit for bit; collection ms per env step and ms
-    per Adam update of the three printed beside phase 11's; then ms, busy
-    ms, idle share and device ops per step (per update) of one more
-    collection episode and Adam updates of each loop. (c) The same learner with
-    one slot per cell (``cell_cap`` 1): the round's overflow gate raises on
+    per Adam update of the three printed beside phase 11's; then ms per
+    step (per update) of each loop's collection episode and Adam updates
+    (the eager twin's round's; one more collection episode and
+    TRACE_UPDATES updates through the graphs, traced) and the graph's busy
+    ms, idle share and device ops per step (per update). (c) The same
+    learner with one slot per cell (``cell_cap`` 1): the round's overflow
+    gate raises on
     the rank within DP_OVERFLOW_S, nothing stored. The programs are
     dropped and the group destroyed after;
 19. backends: the blocked, cells and binned graph backends
@@ -306,50 +336,58 @@ loops' traces). Phase 19 traces both loops.
     cell and binned at its 32, both at N = 32,768 for 200 steps): through
     its episode program (its CUDA graphs, a chunk of steps each where the
     episode's graph would exceed ``graphs.GRAPH_NODES`` nodes) capturing
-    and replaying its chunks under CUDA's sync debug mode "error", then
-    eagerly: bit for bit, overflow 0, one program captured, K1-K3
-    counters 0, cells' and binned's rewards within -458.8 +- 15 (phase
-    4's band); then a BACKEND_TRACE_STEPS-step episode through its graphs
-    and eagerly, each under the profiler, bit for bit (cut in depth: a
-    trace of a 200-step eager cells episode, ~10^5 launches, takes ~12
-    s); printed per path: steps per graph, nodes a graph, capture and
-    instantiate seconds, pool MB, the 200-step episodes' walls; per loop
-    of the traced episodes: ms per step, busy ms, idle share, device ops
-    per step. Then the
-    cells episode at the module's default cap 12: its overflow printed
-    beside cap 16's, not gated. Then BACKEND_PARITY_STEPS-step episodes
-    from one x0 on pcells, cells and binned, eagerly: rewards and final
-    states within 1e-4 of pcells'. (c) One round of ``cfg/dagger_n32k.cfg
-    [n32k]`` with ``graph_path = cells`` and ``cell_cap =
-    BACKEND_CELL_CAP``, cut in depth as phase 11 (LARGE_BUFFER records, 1
-    eval episode) and to BACKEND_LEARNER_STEPS steps per episode, not 200
-    (the cells step at cap 16 takes ~24 ms), through the programs and
-    through a ``graph=False`` twin: the training states bit for bit,
-    finite loss sum, overflow 0 (the gate raises otherwise), no cell
-    kernel launched (counted); each learner's collection ms per env step
-    and ms per Adam update printed. (d) On a one-rank NCCL group and
+    and replaying its chunks under CUDA's sync debug mode "error":
+    overflow 0, one program captured, K1-K3 counters 0, cells' and
+    binned's rewards within -458.8 +- 15 (phase 4's band); blocked's and
+    binned's then eagerly, bit for bit; then a BACKEND_TRACE_STEPS-step
+    episode of each path through its graph under the profiler and
+    eagerly, timed, bit for bit. Cut in depth: cells' 200-step eager twin
+    (~5 s of device time: the cells step at cap 16 is device-bound) and
+    the cells episode at its default cap 12 (~5 s; its overflow, 1 agent
+    in a 200-step episode, was printed, never checked, and is why cells
+    runs at BACKEND_CELL_CAP). Cells' graph against eager rests on the
+    short episodes (the capture, a replay after a reset); the hand-off
+    between chunks, one loop for every path, on blocked's 2 chunks and
+    binned's 2, each against its 200- or 50-step eager twin. Printed per
+    path: steps per graph, nodes a graph, capture and instantiate
+    seconds, pool MB, the long episodes' walls; per loop of the short
+    episodes: ms per step, and the graph's busy ms, idle share and device
+    ops per step (cut in depth: the eager short episode is timed, not
+    traced). Then BACKEND_PARITY_STEPS-step episodes from one x0 on
+    pcells, cells and binned, eagerly: rewards and final states within
+    1e-4 of pcells'. (c) One round of ``cfg/dagger_n32k.cfg [n32k]`` with
+    ``graph_path = cells`` and ``cell_cap = BACKEND_CELL_CAP``, cut in
+    depth as phase 11 (LARGE_BUFFER records, 1 eval episode), to
+    BACKEND_LEARNER_STEPS steps per episode, not 200 (the cells step at
+    cap 16 takes ~24 ms; 25 records exceed a batch of 20, so the round
+    updates), and to ROUND_UPDATES Adam updates, not 200, through the
+    programs and through a ``graph=False`` twin: the training states bit
+    for bit, finite loss sum, overflow 0 (the gate raises otherwise), no
+    cell kernel launched (counted); each learner's collection ms per env
+    step and ms per Adam update printed. (d) On a one-rank NCCL group and
     ``make_mesh(1, 1)``, built as phase 18 builds them: a
-    BACKEND_MESH_STEPS-step episode of each path (blocked at BLOCKED_N)
-    on the mesh through its graphs (captured and replayed: the frames'
-    gathers, the applies' collectives and the state gather in them) and
-    eagerly, each equal to the same episode eagerly with no mesh, bit for
-    bit.
-    The programs are dropped and the group destroyed after;
-20. graph: the episode program (``parallel/large_n.py``) against the
-    eager loop (``graph=False``), the oracle of phases 4 and 10-13. (a)
-    Phase 4's episode (its section, generator and grid) through the
-    graph, a first episode capturing (capture and instantiate seconds, the
-    pool's growth), a second replaying under CUDA's sync debug mode
+    BACKEND_MESH_STEPS-step episode of each path (blocked at BLOCKED_N;
+    cut from 10 steps, the K = 3 stack full from step 3) on the mesh
+    through its graphs (captured and replayed: the frames' gathers, the
+    applies' collectives and the state gather in them) and eagerly, each
+    equal to the same episode eagerly with no mesh, bit for bit. The
+    programs are dropped and the group destroyed after;
+20. graph, run after phase 5: the episode program
+    (``parallel/large_n.py``) against the eager loop (``graph=False``),
+    the oracle of phases 4 and 10-13. (a) Phase 4's episode (its section,
+    generator and grid) through the graph: phase 4's capturing episode is
+    its first, its program still cached (capture and instantiate seconds,
+    the pool's growth; cut in depth: the programs dropped and the episode
+    captured again), a second replaying under CUDA's sync debug mode
     "error" (no host synchronisation from the eager reset to the
     generator's hand-back), a third replaying, counted, and eagerly,
-    counted: rewards, final state and overflow bit for bit, the reward
-    equal to phase 4's; launches on the device (the replay's read from
-    its trace) 201/200/200 for the replay and the eager episode and
-    203/202/202 for the capturing one (its warm-up), the wrappers' calls
-    equal to them eagerly and at the capture and the reset's K1 alone for
-    the replay; ms per step, device
-    busy ms, idle share and device ops per step of one more episode of
-    each. (b) One DAGGER collection episode of the ``[n32k]`` learner's
+    counted: rewards, final state and overflow of the replays and the
+    eager episode bit for bit, their reward equal to phase 4's; launches
+    on the device (the replay's read from its trace) 201/200/200 for the
+    replay and the eager episode and 203/202/202 for the capturing one
+    (its warm-up), the wrappers' calls equal to them eagerly and at the
+    capture and the reset's K1 alone for the replay; ms per step of each
+    loop. (b) One DAGGER collection episode of the ``[n32k]`` learner's
     setup (S = 4,096, beta 0.5) through the graph (capture, then replay)
     and eagerly, each counted: records, reward and overflow bit for bit,
     the launches as (a)'s; the same numbers as (a);
@@ -357,24 +395,28 @@ loops' traces). Phase 19 traces both loops.
     update program and the dense episode program) against the eager
     loops (``graph=False``), the oracle of phases 6-8 and 11. For
     ``cfg/dagger.cfg [test]`` (N = 100) and ``cfg/dagger_n32k.cfg
-    [n32k]`` cut as phase 11 (LARGE_BUFFER records, 1 eval episode): two
-    DAGGER rounds, the eval at episode 0 included, through the programs
-    and eagerly: the whole training state bit for bit (parameters, Adam's
-    state, buffer, generator, best eval) and the loss sums; then round
-    1's state file, saved by the eager learner, loaded into the learner
-    whose programs were captured, and its round 2 run again: bit for bit
-    again, with no new capture. Printed: the update program's capture,
-    instantiate seconds and pool (and the dense DAGGER episode
-    program's), each learner's rollout ms per env step
-    and ms per Adam update, and ms per update and per dense DAGGER
-    episode step (reset included) with device busy ms, idle share and
-    device ops per step of one more run of each loop (the graph's top 5
-    device operations); the dense episode graph against eager bit for
-    bit; a one-env reset's and the batched eval's walls (graph and
-    eager, 3 calls each). Then each ``cfg/baseline.cfg`` section's expert
-    episode through the program and eagerly, bit for bit, and the
-    baseline trainer's stats (its wall printed) equal to the eager
-    rewards';
+    [n32k]`` cut as phase 11 (LARGE_BUFFER records, 1 eval episode), and
+    both cut in depth to ROUND_STEPS-step episodes and ROUND_UPDATES Adam
+    updates a round, not 200 and 200 (both rounds still update, the eval
+    at episode 0 still runs, and the captures, the replays after a reset
+    and the resume are the same at any depth): two DAGGER rounds, the
+    eval at episode 0 included, through the programs and eagerly: the
+    whole training state bit for bit (parameters, Adam's state, buffer,
+    generator, best eval) and the loss sums; then round 1's state file,
+    saved by the eager learner, loaded into the learner whose programs
+    were captured, and its round 2 run again: bit for bit again, with no
+    new capture. Printed: the update program's capture, instantiate
+    seconds and pool (and the dense DAGGER episode program's), each
+    learner's rollout ms per env step and ms per Adam update, and ms per
+    update (the eager learner's rounds', TRACE_UPDATES replays traced)
+    and per dense DAGGER episode step (reset included; one episode
+    eagerly, timed, and one through the graph, traced, bit for bit) of
+    each loop, with the graph's device busy ms, idle share and device ops
+    (its top 5 device operations); a one-env reset's and the batched
+    eval's walls (graph and eager, 3 calls each). Then each
+    ``cfg/baseline.cfg`` section's expert episode through the program and
+    eagerly, bit for bit, and the baseline trainer's stats (its wall
+    printed) equal to the eager rewards';
 17. budget, run last: the run, build included, must finish in BUDGET_S; a
     watchdog ends it with a non-zero exit after WATCHDOG_S.
 
@@ -393,6 +435,7 @@ uncaught exception and a non-zero exit, as is a run outside a checkout of
 the repository.
 """
 
+import concurrent.futures
 import copy
 import dataclasses
 import faulthandler
@@ -408,6 +451,7 @@ import tempfile
 import time
 import typing
 
+T_START = time.perf_counter()
 sys.dont_write_bytecode = True   # write nothing outside the build directory
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -487,17 +531,19 @@ DDPG_EVALS = (("ddpg_toy", "test", "ddpg_toy_k2", (-23.45, 6.4)),
               ("ddpg", "test_unbounded", "ddpg_unbounded_k2",
                (-1302.3, 38.3)))
 DDPG_EVAL_EPISODES = 100
-# (config, section, training episodes, resume checked)
 # (config, section, training episodes, resume checked, episode steps: None
 # the section's). Cut in depth: the n4k learner's resume (a 750 MiB state
 # file written and read three times, ~14 s; the toy learner's resume holds
 # the mechanism, tests/test_torch_ddpg_large.py the large learner's), its
-# episodes from 3 to 2 (both gate steps, 8 and 0, met), and ddpg.cfg's
-# episodes from 200 steps to 100 (its gate steps T and 0; n4k's holds a
-# gate inside an episode)
-DDPG_TRAIN = (("ddpg_toy", "test", 4, True, None),
-              ("ddpg", "test", 2, False, 100),
-              ("ddpg_n4k", "n4k", 2, False, None))
+# episodes from 3 to 2 and from 50 steps to 25 (both gate steps, 8 and 0,
+# met), ddpg.cfg's from 200 steps to 50, 3 of them (gate steps T, T and
+# 0, as toy's; a batch of 100 records fills after 2 episodes; n4k's holds
+# a gate inside an episode), and toy's from 4 to 3 (gate steps T, T and
+# 0: the gate-0 program's replay after a reset is the resumed episode's,
+# the sync-debug episode's and the profiled one's)
+DDPG_TRAIN = (("ddpg_toy", "test", 3, True, None),
+              ("ddpg", "test", 3, False, 50),
+              ("ddpg_n4k", "n4k", 2, False, 25))
 DDPG_PARITY_N = 1024           # the large step's depth cut (its CPU side)
 REL_STEP = 1e-4
 # Adam's largest step, in units of lr: |m_hat| / sqrt(v_hat) is at most
@@ -507,34 +553,52 @@ MESH_N = 100_000              # phase 16: bands, and force_n_dev timing
 MESH_DEVS = (2, 4)
 MESH_FORCE = 4
 MESH_STEPS = 10
+# updates of an Adam update program replayed under the profiler for its
+# ms, busy ms, idle share and device ops per update (phases 18 and 21)
+TRACE_UPDATES = 20
+# phase 21's learners and phase 18 (a)'s, cut in depth (graph against
+# eager, bit for bit; 50 records a round exceed a batch of 20, so both
+# rounds update): episodes of 50 steps and 50 Adam updates a round, not
+# 200 and 200; phase 19 (c)'s 50 updates a round
+ROUND_STEPS = 50
+ROUND_UPDATES = 50
 DP_DENSE_TOL = 1e-6           # phase 18 (a): sharded vs one-process params
 DP_OVERFLOW_S = 60.0          # phase 18 (c): the gate raises within this
 BACKEND_PATHS = ("cells", "binned")   # phase 19: the other graph backends
 BACKEND_STEPS = 3             # (a): policy steps before the checks
 BACKEND_PARITY_STEPS = 20     # (b): pcells, cells, binned from one x0
-BACKEND_MESH_STEPS = 10       # (d): mesh vs no mesh
+BACKEND_MESH_STEPS = 5        # (d): mesh vs no mesh
 BACKEND_LEARNER_STEPS = 25    # (c): the cells learner's episodes
 # (b), (d): the blocked path at the JAX package's default N below 32,768,
 # its episode cut from 200 steps (~27 ms a step eagerly)
 BLOCKED_N = 10_000
 BLOCKED_STEPS = 50
-BACKEND_TRACE_STEPS = 10      # (b): the traced episodes of each loop
+BACKEND_TRACE_STEPS = 10      # (b): the short episodes (the graph's traced)
 # (b)-(d): the cells grid's slots per cell for the n32k policy. At the
 # module's default of 12 one agent of a 200-step episode overflowed (a
-# cell of 13); 16 is the pcells grid's capacity. (b) prints the default's
-# overflow beside it
+# cell of 13); 16 is the pcells grid's capacity
 BACKEND_CELL_CAP = 16
-CELLS_DEFAULT_CAP = 12
 KERNEL_SOURCE = "multiagent_gnn_policies_tpu_torch/csrc/cells.cu"
 TPU_SOURCE = "multiagent_gnn_policies_tpu/ops/pallas_cells.py"
 
 T0 = time.perf_counter()
+_LAP = [T0]     # the end of the last phase or sub-step
 
 
 def phase(name, t_start, **info):
     extra = " ".join(f"{k}={v}" for k, v in info.items())
     print(f"# phase {name}: {time.perf_counter() - t_start:.2f} s {extra}",
           flush=True)
+    _LAP[0] = time.perf_counter()
+
+
+def lap(step):
+    """Prints the wall seconds since the last phase line or ``lap``, as
+    ``#   step <step>: <s> s``: the sub-steps of a phase, to see where
+    its time goes."""
+    now = time.perf_counter()
+    print(f"#   step {step}: {now - _LAP[0]:.2f} s", flush=True)
+    _LAP[0] = now
 
 
 def nvidia_smi_line():
@@ -543,6 +607,21 @@ def nvidia_smi_line():
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
     return out.strip()
+
+
+def profiler_start_up(torch, dev):
+    """A device-only torch.profiler window around one small operation:
+    the profiler's first start (CUPTI's, ~8 s on the H100), which the
+    first traced window of the run would pay otherwise. Returns its
+    seconds."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device=dev).add_(1)
+        torch.cuda.synchronize()
+    trace_events(prof)
+    return time.perf_counter() - t
 
 
 def check_close(what, got, want, rel, exact_channels=()):
@@ -833,35 +912,41 @@ def dagger_phase(torch, im, load_actor_npz, actor_params_from_numpy, Actor,
     log = _Events()
     full = im.ImitationLearner(icfg, log, device=DEVICE)
     losses = []
-    for r in range(1, DENSE_ROUNDS + 1):
-        full.train(stop_after=r)
-        losses.append(float(full.last_loss_sum))
-    evals = [f for e, f in log.events if e == "eval"]
-    if [f["episode"] for f in evals] != [0] or not math.isfinite(
-            evals[0]["reward_mean"]):
-        raise AssertionError(f"evals {evals}")
-    print(f"#   dagger: eval at episode 0 {evals[0]['reward_mean']} +- "
-          f"{evals[0]['reward_std']}; loss sums per round {losses}",
-          flush=True)
-    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"loss sums {losses}")
-    timing = full.timing_summary()
-    print(f"#   dagger: rollout {timing['rollout_ms_per_step']:.4f} ms per "
-          f"env step, {timing['update_ms_per_update']:.4f} ms per Adam "
-          f"update, {timing['env_steps_per_s']:.1f} env steps/s "
-          f"({full.timing['rollout_steps']} steps, "
-          f"{full.timing['updates']} updates)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         state = os.path.join(tmp, "state.npz")
-        part = im.ImitationLearner(icfg, device=DEVICE)
-        if not part.train(state_path=state,
-                          stop_after=DENSE_ROUNDS - 1)["interrupted"]:
-            raise AssertionError("the stopped run did not stop")
+        for r in range(1, DENSE_ROUNDS + 1):
+            # stopped after round DENSE_ROUNDS - 1 with its state saved,
+            # then on: a stop and a later call are one uninterrupted run
+            # (cut in depth: no second learner reruns those rounds to save
+            # the state)
+            saving = r == DENSE_ROUNDS - 1
+            stopped = full.train(state_path=state if saving else None,
+                                 stop_after=r)
+            if saving:
+                if not stopped["interrupted"]:
+                    raise AssertionError("the stopped run did not stop")
+                stop_beta = full._beta
+            losses.append(float(full.last_loss_sum))
+        evals = [f for e, f in log.events if e == "eval"]
+        if [f["episode"] for f in evals] != [0] or not math.isfinite(
+                evals[0]["reward_mean"]):
+            raise AssertionError(f"evals {evals}")
+        print(f"#   dagger: eval at episode 0 {evals[0]['reward_mean']} +- "
+              f"{evals[0]['reward_std']}; loss sums per round {losses}",
+              flush=True)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"loss sums {losses}")
+        timing = full.timing_summary()
+        print(f"#   dagger: rollout {timing['rollout_ms_per_step']:.4f} ms "
+              f"per env step, {timing['update_ms_per_update']:.4f} ms per "
+              f"Adam update, {timing['env_steps_per_s']:.1f} env steps/s "
+              f"({full.timing['rollout_steps']} steps, "
+              f"{full.timing['updates']} updates)", flush=True)
         log2 = _Events()
         rest = im.ImitationLearner(icfg, log2, device=DEVICE)
         rest.train(state_path=state, stop_after=DENSE_ROUNDS)
         if log2.events[0] != ("resume", {"round": DENSE_ROUNDS - 1,
-                                         "beta": part._beta}):
+                                         "beta": stop_beta}):
             raise AssertionError(f"resume events {log2.events[:1]}")
         got, want = rest.actor.state_dict(), full.actor.state_dict()
         diff = max(float((got[k] - want[k]).abs().max()) for k in want)
@@ -1005,10 +1090,10 @@ def large_dagger_phase(torch, im, il, cc, ExperimentConfig, load_ini,
     records, one eval episode (at episode 0 only, as test_interval 40
     gives). Each round's launches (zeroed before it): a collection episode
     and, in round 1, the eval episode, 201/200/200 each. Finite loss sums,
-    the third below the first; a run stopped after 2 rounds and resumed
-    from its state file (a temporary directory) equals the uninterrupted
-    run bit for bit; one more round under torch.profiler, read as phase 8
-    reads its round."""
+    the third below the first; the run's state after 2 rounds (a
+    temporary directory), resumed by a fresh learner, equals the
+    uninterrupted run bit for bit; one more round under torch.profiler,
+    read as phase 8 reads its round."""
     import dataclasses as dc
 
     canon = ExperimentConfig.from_section(load_ini(CONFIG)["n32k"])
@@ -1018,38 +1103,39 @@ def large_dagger_phase(torch, im, il, cc, ExperimentConfig, load_ini,
     log = _Events()
     full = il.LargeNImitationLearner(lcfg, log, device=DEVICE)
     losses, total = [], {}
-    for r in range(1, LARGE_ROUNDS + 1):
-        _, launches = _counted(cc, lambda: full.train(stop_after=r))
-        losses.append(float(full.last_loss_sum))
-        want = _launches(2 if r == 1 else 1, captures=launches.captures,
-                         host=True)
-        if launches.host != want:
-            raise AssertionError(f"round {r}: launches {launches} != {want}")
-        total = {k: total.get(k, 0) + v for k, v in launches.host.items()}
-    evals = [f for e, f in log.events if e == "eval"]
-    if [f["episode"] for f in evals] != [0] or not math.isfinite(
-            evals[0]["reward_mean"]):
-        raise AssertionError(f"evals {evals}")
-    timing = full.timing_summary()
-    print(f"#   large dagger: N = {n_agents}, S = {lcfg.store_agents}, "
-          f"buffer {LARGE_BUFFER} records (cut from {canon.buffer_size}), "
-          f"1 eval episode (from {canon.n_test_episodes}): eval at episode 0 "
-          f"{evals[0]['reward_mean']}; "
-          f"loss sums per round {losses}; collection "
-          f"{timing['rollout_ms_per_step']:.4f} ms per env step, "
-          f"{timing['update_ms_per_update']:.4f} ms per Adam update, "
-          f"{timing['env_steps_per_s']:.1f} env steps/s; launches over the "
-          f"{LARGE_ROUNDS} rounds {total}", flush=True)
-    if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"loss sums {losses}")
     with tempfile.TemporaryDirectory() as tmp:
         state = os.path.join(tmp, "state.npz")
-        part = il.LargeNImitationLearner(lcfg, device=DEVICE)
-        if not part.train(state_path=state,
-                          stop_after=LARGE_ROUNDS - 1)["interrupted"]:
-            raise AssertionError("the stopped run did not stop")
+        for r in range(1, LARGE_ROUNDS + 1):
+            # stopped after round LARGE_ROUNDS - 1 with its state saved,
+            # then on, as phase 8's run
+            saving = r == LARGE_ROUNDS - 1
+            stopped, launches = _counted(cc, lambda: full.train(
+                state_path=state if saving else None, stop_after=r))
+            if saving and not stopped["interrupted"]:
+                raise AssertionError("the stopped run did not stop")
+            losses.append(float(full.last_loss_sum))
+            want = _launches(2 if r == 1 else 1, captures=launches.captures,
+                             host=True)
+            if launches.host != want:
+                raise AssertionError(f"round {r}: launches {launches} != "
+                                     f"{want}")
+            total = {k: total.get(k, 0) + v for k, v in launches.host.items()}
+        evals = [f for e, f in log.events if e == "eval"]
+        if [f["episode"] for f in evals] != [0] or not math.isfinite(
+                evals[0]["reward_mean"]):
+            raise AssertionError(f"evals {evals}")
+        timing = full.timing_summary()
+        print(f"#   large dagger: N = {n_agents}, S = {lcfg.store_agents}, "
+              f"buffer {LARGE_BUFFER} records (cut from {canon.buffer_size}),"
+              f" 1 eval episode (from {canon.n_test_episodes}): eval at "
+              f"episode 0 {evals[0]['reward_mean']}; loss sums per round "
+              f"{losses}; collection {timing['rollout_ms_per_step']:.4f} ms "
+              f"per env step, {timing['update_ms_per_update']:.4f} ms per "
+              f"Adam update, {timing['env_steps_per_s']:.1f} env steps/s; "
+              f"launches over the {LARGE_ROUNDS} rounds {total}", flush=True)
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"loss sums {losses}")
         state_mb = os.path.getsize(state) / 2**20
-        del part
         rest = il.LargeNImitationLearner(lcfg, device=DEVICE)
         rest.train(state_path=state, stop_after=LARGE_ROUNDS)
         got, want = rest.actor.state_dict(), full.actor.state_dict()
@@ -1178,7 +1264,7 @@ def tools_phase(cc):
 
     out = {}
     text, out["bench_s"] = _tool(bench.main, ["--reps", "1", "--chains", "1",
-                                              "--steps", "50",
+                                              "--steps", "10",
                                               "--no-large-n"])
     line = json.loads(text.strip())
     if (set(line) != {"metric", "value", "unit", "vs_baseline"}
@@ -1190,7 +1276,7 @@ def tools_phase(cc):
     if "SUSPECT" in text or text.count(" ok\n") != 5:
         raise AssertionError("smoke_env: a SUSPECT or missing episode")
     _, out["bench_large_n_s"] = _tool(bench_large_n.main, [
-        "--n", "10000", "--paths", "blocked", "cells", "binned", "pcells",
+        "--n", "4096", "--paths", "blocked", "cells", "binned", "pcells",
         "--steps", "5", "--repeats", "1", "--episodes", "1"])
     _, s = _tool(bench_large_n.main, [
         "--n", "1000000", "--paths", "pcells", "--edge-mult", "2", "--cap",
@@ -1281,6 +1367,7 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
             print(f"#   {name}: {d} bands sum to the full launch bit for "
                   f"bit", flush=True)
     out["band_max_abs_err"] = band_err
+    lap("16 (a) bands")
 
     # (b) a one-rank NCCL mesh: phase 4's episode through the evaluate
     # entry point (its program captured with the band's collectives), a
@@ -1294,6 +1381,7 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
         stats, captured = _counted(cc, lambda: ev.evaluate_blocked(
             section, CHECKPOINT, n_agents=N, n_episodes=1, device=DEVICE,
             mesh=mesh))
+        lap("16 (b) capturing episode")
         if stats["overflow"] != 0 or stats["mean"] != reward:
             raise AssertionError(f"mesh episode: reward {stats['mean']!r}, "
                                  f"overflow {stats['overflow']} (phase 4: "
@@ -1317,8 +1405,11 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
             synced = episode(True)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+        lap("16 (b) sync debug replay")
         graphed, replayed = _counted(cc, lambda: episode(True), traced=True)
+        lap("16 (b) traced replay")
         eager, eagerly = _counted(cc, lambda: episode(False))
+        lap("16 (b) eager episode")
         same = all(torch.equal(a, b) for run in (synced, graphed)
                    for a, b in zip(run, eager))
         prog = ln.episode_program(ln.make_config(
@@ -1345,10 +1436,14 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
                    mesh_capture_s=f"{prog.capture_s:.3f}",
                    mesh_instantiate_s=f"{prog.instantiate_s:.3f}",
                    mesh_pool_mb=f"{prog.pool_mb:.1f}")
-        out.update(_eager_and_graph_stats(torch, "mesh", episode,
-                                          p.episode_steps))
+        # each loop's ms per step: the eager episode's wall and the traced
+        # replay's (under the profiler)
+        steps = p.episode_steps
+        out.update(_loop_stats("mesh", 1e3 * eagerly.seconds / steps, (
+            None, None, None, 1e3 * replayed.seconds / steps)))
         out["mesh_capture_failure"] = _mesh_capture_failure(
             torch, ev, ln, prog.cfg, acfg, actor, xcfg.seed)
+        lap("16 (b) failed capture")
 
         # (c) force_n_dev: one rank's program of a MESH_FORCE-rank mesh,
         # and the real one-rank mesh, each eagerly and through its graph
@@ -1360,9 +1455,13 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
                                         mesh=mesh, force_n_dev=d,
                                         return_overflow=True, graph=graph)
 
-            runs = [run(g) for g in (True, False, True)]
-            same = all(torch.equal(a, b) for r in runs[::2]
-                       for a, b in zip(r, runs[1]))
+            # the capture, the eager loop timed, a replay traced
+            first = run(True)
+            eager, e_s = _wall(torch, lambda: run(False))
+            replayed, *g_stats = _traced(torch, lambda: run(True),
+                                         MESH_STEPS)
+            same = all(torch.equal(a, b) for r in (first, replayed)
+                       for a, b in zip(r, eager))
             prog = ln.episode_program(ln.make_config(
                 p100, mesh=mesh, force_n_dev=d), acfg, MESH_STEPS, dev)
             note = ("the real one-rank mesh, its collectives captured" if
@@ -1377,8 +1476,9 @@ def mesh_phase(torch, ev, ln, cc, FlockingParams, ExperimentConfig,
             if not same:
                 raise AssertionError(f"force_n_dev={d}: the graph differs "
                                      f"from the eager loop")
-            out.update(_eager_and_graph_stats(torch, f"D{d}", run,
-                                              MESH_STEPS, "step"))
+            out.update(_loop_stats(f"D{d}", 1e3 * e_s / MESH_STEPS,
+                                   g_stats, "step"))
+            lap(f"16 (c) force_n_dev={d}")
     finally:
         # the programs' graphs name the group's communicator
         ln.clear_programs()
@@ -1437,9 +1537,11 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
     distributed.initialize_distributed(f"127.0.0.1:{_free_port()}", 1, 0)
     try:
         mesh = pm.make_mesh(1, 1)
-        # (a) the dense round, sharded and not
-        icfg = im.ImitationConfig.from_experiment(ExperimentConfig.from_section(
-            load_ini(DAGGER_CONFIG)["test"]), mode="dagger")
+        # (a) the dense round, sharded and not, cut in depth as phase 21's
+        icfg = im.ImitationConfig.from_experiment(dc.replace(
+            ExperimentConfig.from_section(load_ini(DAGGER_CONFIG)["test"]),
+            episode_steps=ROUND_STEPS, updates_per_step=ROUND_UPDATES),
+            mode="dagger")
         dense = (ShardedImitationLearner(icfg, mesh, device=DEVICE),
                  im.ImitationLearner(icfg, device=DEVICE),
                  ShardedImitationLearner(icfg, mesh, device=DEVICE,
@@ -1448,6 +1550,7 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
         for lrn in dense:
             lrn.train(stop_after=1)
         torch.cuda.synchronize()
+        lap("18 (a) three dense rounds")
         diff, same = _param_diff(torch, *dense[:2])
         same_twin = _same_training_state(torch, dense[0], dense[2])
         speed, eager = (lrn.timing_summary() for lrn in dense[::2])
@@ -1470,18 +1573,13 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
                                  f"{cc.launch_counts()}")
         out.update(dense_max_param_diff=diff, dense_bit_for_bit=same,
                    dense_twin_bit_for_bit=same_twin)
-        # one more run of each loop's sharded updates (the all_reduce in
-        # each)
-        n_up, b = icfg.updates_per_episode, icfg.batch_size
-
-        def dense_updates(graph):
-            if graph:
-                return dense[0]._updates.run(n_up, dense[0].gen)
-            for _ in range(n_up):
-                dense[2]._update(dense[2].buffer.sample(dense[2].gen, b))
-
-        out.update(_eager_and_graph_stats(torch, "dp_dense_adam",
-                                          dense_updates, n_up, "update"))
+        # each loop's sharded updates (the all_reduce in each): the eager
+        # twin's round's, and TRACE_UPDATES more replays traced
+        _, *g_stats = _traced(torch, lambda: dense[0]._updates.run(
+            TRACE_UPDATES, dense[0].gen), TRACE_UPDATES)
+        out.update(_loop_stats("dp_dense_adam", eager["update_ms_per_update"],
+                               g_stats, "update"))
+        lap("18 (a) more updates, traced")
         del dense
 
         # (b) the large-N round on the mesh through its programs (the
@@ -1499,6 +1597,7 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
         # a replay calls no wrapper: the launches come from the trace
         _, launched = _counted(cc, lambda: meshed.train(stop_after=1),
                                traced=True)
+        lap("18 (b) mesh round, traced")
         launches = launched.device
         by_cols = {(fn, c): v for fn, cols in launched.by_cols.items()
                    for c, v in cols.items()}
@@ -1507,8 +1606,10 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
                                  f"203/202/202 for each of its captured "
                                  f"collection and eval episodes")
         twin.train(stop_after=1)
+        lap("18 (b) eager twin round")
         plain.train(stop_after=1)
         torch.cuda.synchronize()
+        lap("18 (b) no-mesh round")
         same_twin = _same_training_state(torch, meshed, twin)
         diff, same = _param_diff(torch, meshed, plain)
         same_buffer = all(torch.equal(meshed.buffer.data[k],
@@ -1543,28 +1644,22 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
                        f"{sp['rollout_ms_per_step']:.4f}"),
                    mesh_update_ms=f"{sm['update_ms_per_update']:.4f}",
                    plain_update_ms=f"{sp['update_ms_per_update']:.4f}")
-        # one more collection episode and Adam updates of each loop
+        # each loop's collection episode and Adam updates: the eager
+        # twin's round's, and one more collection episode and
+        # TRACE_UPDATES updates through the graphs, traced
         steps = lcfg.env.episode_steps
-
-        def collect(graph):
-            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
-            lrn = meshed if graph else twin
-            return il.collect_episode(
-                lrn._lcfg, lrn.actor, lcfg.actor, "dagger",
-                lrn.store_agents, gen, 0.5, DEVICE, graph=graph)
-
-        out.update(_eager_and_graph_stats(torch, "mesh_collection", collect,
-                                          steps))
-        n_up, b = lcfg.updates_per_episode, lcfg.batch_size
-
-        def updates(graph):
-            if graph:
-                return meshed._updates.run(n_up, meshed.gen)
-            for _ in range(n_up):
-                twin._update(twin.buffer.sample(twin.gen, b))
-
-        out.update(_eager_and_graph_stats(torch, "mesh_adam", updates, n_up,
-                                          "update"))
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+        _, *g_stats = _traced(torch, lambda: il.collect_episode(
+            meshed._lcfg, meshed.actor, lcfg.actor, "dagger",
+            meshed.store_agents, gen, 0.5, DEVICE, graph=True), steps)
+        out.update(_loop_stats("mesh_collection", st["rollout_ms_per_step"],
+                               g_stats))
+        lap("18 (b) one more collection, traced")
+        _, *g_stats = _traced(torch, lambda: meshed._updates.run(
+            TRACE_UPDATES, meshed.gen), TRACE_UPDATES)
+        out.update(_loop_stats("mesh_adam", st["update_ms_per_update"],
+                               g_stats, "update"))
+        lap("18 (b) more updates, traced")
         del meshed, twin, plain
 
         # (c) a forced overflow (one slot per cell) raises on the rank
@@ -1586,6 +1681,7 @@ def dp_phase(torch, im, il, cc, ExperimentConfig, load_ini, n_agents,
             raise AssertionError(f"the overflow gate took {raised_s} s or "
                                  f"stored {bad.buffer.size} records")
         out["overflow_raised_s"] = f"{raised_s:.2f}"
+        lap("18 (c) forced overflow")
         del bad
     finally:
         # the programs' graphs name the group's communicator
@@ -1692,6 +1788,7 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
             f"{path} ystack vs ystack_pre", g["ystack"].transpose(0, 1),
             want["ystack"].transpose(0, 1), REL_PLAIN))
     out["max_abs_err"] = f"{err:.3g}"
+    lap("19 (a) one step's inputs")
 
     # (b) each path's episode through its program (CUDA graphs) and its
     # eager loop: blocked at BLOCKED_N, cells and binned at N, phase 4's
@@ -1721,6 +1818,7 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
         check_close(f"{path} {BACKEND_PARITY_STEPS}-step rewards vs pcells",
                     ends[path][0][:, None], ends["pcells"][0][:, None],
                     REL_EPISODE)
+    lap("19 (b) 20-step parity")
     ln.clear_programs()
 
     # (c) one round of the n32k section on the cells path, cut in depth as
@@ -1728,7 +1826,8 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
     lcfg = il.LargeNImitationConfig.from_experiment(dc.replace(
         xcfg, n_agents=n_agents, buffer_size=LARGE_BUFFER, n_test_episodes=1,
         graph_path="cells", cell_cap=BACKEND_CELL_CAP,
-        episode_steps=BACKEND_LEARNER_STEPS), mode="dagger")
+        episode_steps=BACKEND_LEARNER_STEPS,
+        updates_per_step=ROUND_UPDATES), mode="dagger")
     learners = {}
     for name, graph in (("graph", None), ("eager", False)):
         lrn = learners[name] = il.LargeNImitationLearner(
@@ -1738,6 +1837,7 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
         if any(launches.host.values()):
             raise AssertionError(f"cells learner ({name}): launches "
                                  f"{launches}")
+        lap(f"19 (c) cells learner, {name}")
     lrn = learners["graph"]
     same = _same_training_state(torch, lrn, learners["eager"])
     loss = float(lrn.last_loss_sum)
@@ -1797,6 +1897,7 @@ def backends_phase(torch, ev, ln, cc, il, ExperimentConfig, load_ini,
             if not same or not prog.captured:
                 raise AssertionError(f"{path}: the mesh episode differs")
             out[f"{path}_mesh_bit_for_bit"] = same
+            lap(f"19 (d) {path} on the mesh")
     finally:
         ln.clear_programs()
         torch.distributed.destroy_process_group()
@@ -1841,18 +1942,21 @@ def backend_graphs(torch, ev, ln, cc, ExperimentConfig, section, actor,
     phase 4's reset (blocked at BLOCKED_N for BLOCKED_STEPS steps, cells at
     BACKEND_CELL_CAP and binned at N for 200) through its episode program:
     a first episode under CUDA's sync debug mode "error" (the eager reset,
-    the warm-up, the probe, the captures and every chunk's replay), then
-    the eager loop: bit for bit, overflow 0, no cell kernel launched,
-    cells and binned within phase 4's band; then a BACKEND_TRACE_STEPS-step
-    episode of each loop under the profiler (its program captured first),
-    bit for bit. Printed per path: steps per graph, nodes a graph,
-    capture and instantiate s, pool MB, both long episodes' walls; per
-    loop of the traced episodes: ms per step, busy ms, idle share, device
-    ops per step. Then the cells path at its default cap 12 through its
-    graphs: its overflow beside cap 16's. Returns what the phase line
-    prints."""
+    the warm-up, the probe, the captures and every chunk's replay): overflow
+    0, no cell kernel launched, cells and binned within phase 4's band;
+    then, for blocked and binned, the same episode eagerly, bit for bit;
+    then a BACKEND_TRACE_STEPS-step episode through the graph under the
+    profiler (its program captured first) and eagerly, timed, bit for bit.
+    Cut in depth: cells' 200-step eager twin (~5 s of device time) and
+    the cells episode at its default cap 12 (its overflow printed, never
+    checked); cells' graph against eager rests on the short episodes (the
+    capture, a replay after a reset), the hand-off between chunks, the
+    same loop on every path, on blocked's 2 chunks and binned's. Printed
+    per path: steps per graph, nodes a graph, capture and instantiate s,
+    pool MB, the long episodes' walls; per loop of the short episodes: ms
+    per step, and the graph's busy ms, idle share and device ops per step.
+    Returns what the phase line prints."""
     dev = torch.device(DEVICE)
-    fmt = lambda v, f: "not measured" if v is None else format(v, f)
     cap = {"cells": BACKEND_CELL_CAP, "binned": None, "blocked": None}
     out = {}
     for path, n, t_cut in (("blocked", BLOCKED_N, BLOCKED_STEPS),
@@ -1881,43 +1985,45 @@ def backend_graphs(torch, ev, ln, cc, ExperimentConfig, section, actor,
 
         ln.clear_programs()          # each path's graphs in a new pool
         (first, first_s), launched = _counted(cc, synced)
+        lap(f"19 (b) {path} capturing episode")
         prog = ln.episode_program(ln.make_config(
             p, path=path, cap=cap[path], centralized=xcfg.centralized),
             acfg, steps, dev)
-        eager, e_s = _wall(torch, lambda: episode(False))
-        # the loops' device time from shorter episodes: a trace of a
-        # 200-step eager cells episode (~10^5 launches) takes ~12 s
+        same, walls = True, f"capturing {first_s:.3f} s"
+        if path != "cells":
+            eager, e_s = _wall(torch, lambda: episode(False))
+            same = all(torch.equal(a, b) for a, b in zip(first, eager))
+            walls += (f", eager {e_s:.3f} s ({1e3 * e_s / steps:.4f} ms per "
+                      f"step)")
+            del eager
+            lap(f"19 (b) {path} eager episode")
+        # the graph's device time from a shorter episode: a trace of a
+        # 200-step cells episode's replays holds ~10^5 launches
         short = functools.partial(episode, p=p_stats)
         short(None)                  # its program's capture
         traced, *g_stats = _traced(torch, lambda: short(None),
                                    BACKEND_TRACE_STEPS)
-        traced_e, *e_stats = _traced(torch, lambda: short(False),
-                                     BACKEND_TRACE_STEPS)
-        same = (all(torch.equal(a, b) for a, b in zip(first, eager))
-                and all(torch.equal(a, b) for a, b in zip(traced, traced_e)))
-        total, ovf = float(eager[0].sum()), int(eager[2])
+        short_e, short_s = _wall(torch, lambda: short(False))
+        same = same and all(torch.equal(a, b)
+                            for a, b in zip(traced, short_e))
+        lap(f"19 (b) {path} short episodes")
+        total, ovf = float(first[0].sum()), int(first[2])
         print(f"#   {path}: {steps}-step K = 3 episode at N = {n} through "
               f"its graphs (the capture and its replays under sync debug "
-              f"mode \"error\") and eagerly, and a {BACKEND_TRACE_STEPS}-"
-              f"step one of each traced: bit for bit {same}, reward {total} "
+              f"mode \"error\")"
+              f"{'' if path == 'cells' else ' and eagerly'}, and a "
+              f"{BACKEND_TRACE_STEPS}-step one through its graph, traced, "
+              f"and eagerly: bit for bit {same}, reward {total} "
               f"(pcells at N = {n_agents} {reward}), overflow {ovf}, "
               f"launches {launched.host}, captures {launched.captures}; "
               f"{prog.steps_per_graph} steps per graph, {prog.nodes} nodes "
               f"a graph ({prog.nodes / prog.steps_per_graph:.1f} per step), "
               f"capture {prog.capture_s:.3f} s, instantiate "
               f"{prog.instantiate_s:.3f} s, pool {prog.pool_mb:.1f} MB; the "
-              f"{steps}-step episode's wall: capturing {first_s:.3f} s, "
-              f"eager {e_s:.3f} s ({1e3 * e_s / steps:.4f} ms per step)",
-              flush=True)
-        for what, (busy, idle, ops, ms) in (("graph", g_stats),
-                                            ("eager", e_stats)):
-            print(f"#   {path} {what}, {BACKEND_TRACE_STEPS}-step episode "
-                  f"traced: {ms:.4f} ms per step (under the profiler, reset "
-                  f"included), device busy {fmt(busy, '.4f')} ms per step, "
-                  f"idle {fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops "
-                  f"per step", flush=True)
-            out[f"{path}_{what}_ms_per_step"] = f"{ms:.4f}"
-            out[f"{path}_{what}_idle"] = fmt(idle, ".4f")
+              f"{steps}-step episode's wall: {walls}", flush=True)
+        out.update(_loop_stats(
+            path, 1e3 * short_s / BACKEND_TRACE_STEPS, g_stats,
+            f"step (the {BACKEND_TRACE_STEPS}-step episode, reset included)"))
         if not same or ovf or any(launched.host.values()) \
                 or launched.captures != 1 or not math.isfinite(total):
             raise AssertionError(f"{path}: bit for bit {same}, overflow "
@@ -1929,39 +2035,28 @@ def backend_graphs(torch, ev, ln, cc, ExperimentConfig, section, actor,
         out.update({f"{path}_reward": total, f"{path}_bit_for_bit": same,
                     f"{path}_steps_per_graph": prog.steps_per_graph,
                     f"{path}_nodes": prog.nodes})
-        if path == "cells":
-            # the default cap: its overflow beside cap 16's
-            r12, _, ovf12 = ln.rollout_large(
-                actor, acfg, ev.episode_generator(xcfg.seed, 0, dev), p,
-                centralized_expert=xcfg.centralized, return_overflow=True,
-                device=dev, path="cells", cap=CELLS_DEFAULT_CAP)
-            print(f"#   cells at its default cap {CELLS_DEFAULT_CAP}: "
-                  f"overflow {int(ovf12)} (cap {BACKEND_CELL_CAP}: {ovf}), "
-                  f"reward {float(r12.sum())}", flush=True)
-            out["cells_cap12_overflow"] = int(ovf12)
-        del first, traced, traced_e, eager, prog
+        del first, traced, short_e, prog
     ln.clear_programs()
     cc.reset_launch_counts()
     return out
 
 
 def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
-                reward):
+                reward, captured):
     """Phase 20: the episode program (``parallel/large_n.py``), the default
     of phases 4 and 10-13. (a) The n32k checkpoint's 200-step K = 3
     episode of phase 4 (its section, generator and grid), eagerly
-    (``graph=False``) and through the CUDA graph: a first graph episode
-    captures (its capture and instantiate seconds and the pool's growth
-    printed), the next replays under CUDA's sync debug mode "error" (no
-    host synchronisation from the reset to the generator's hand-back),
-    one more replays, counted; rewards, final state and overflow bit for
-    bit, reward equal to phase 4's, launches as
-    :func:`_check_graph_launches` wants them; ms per step, busy ms, idle
-    share and device ops per step of one more episode of each. (b) One
-    DAGGER collection episode of the ``[n32k]`` learner's setup (S =
-    4,096, beta 0.5) the same way: records, reward and overflow bit for
-    bit, the same launches and numbers. Returns what the phase line
-    prints."""
+    (``graph=False``) and through the CUDA graph: phase 4's episode, whose
+    launches are ``captured``, captured its program (its capture and
+    instantiate seconds and the pool's growth printed), the next replays
+    under CUDA's sync debug mode "error" (no host synchronisation from the
+    reset to the generator's hand-back), one more replays, counted;
+    rewards, final state and overflow bit for bit, reward equal to phase
+    4's, launches as :func:`_check_graph_launches` wants them; ms per
+    step of each loop. (b) One DAGGER collection episode of the
+    ``[n32k]`` learner's setup (S = 4,096, beta 0.5) the same way, its
+    capture its own: records, reward and overflow bit for bit, the same
+    launches and numbers. Returns what the phase line prints."""
     section = load_ini(CONFIG)["n32k"]
     p, xcfg = _section_params(ExperimentConfig, section, n_agents)
     acfg = _section_actor_config(xcfg)
@@ -1980,10 +2075,8 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
             actor, acfg, ev.episode_generator(xcfg.seed, 0, DEVICE), p,
             graph=graph, **kw)
 
-    # (a) the evaluation episode
-    ln.clear_programs()
-    first, first_l = _counted(cc, lambda: episode(True))
-    first_s = first_l.seconds
+    # (a) the evaluation episode: phase 4's captured its program
+    first_l, first_s = captured, captured.seconds
     prog = ln.episode_program(cfg, acfg, steps, DEVICE)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
@@ -1991,10 +2084,13 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
         synced = episode(True)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    lap("20 (a) sync debug replay")
     graphed, g_launch = _counted(cc, lambda: episode(True), traced=True)
+    lap("20 (a) traced replay")
     eager, e_launch = _counted(cc, lambda: episode(False))
+    lap("20 (a) eager episode")
     same = all(all(torch.equal(a, b) for a, b in zip(run, eager))
-               for run in (first, synced, graphed))
+               for run in (synced, graphed))
     total = float(graphed[0].sum())
     print(f"#   graph: {steps}-step K = 3 episode at N = {n_agents}: graph "
           f"reward {total}, eager {float(eager[0].sum())}, phase 4 {reward};"
@@ -2011,7 +2107,10 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
                capture_s=f"{prog.capture_s:.3f}",
                instantiate_s=f"{prog.instantiate_s:.3f}",
                pool_mb=f"{prog.pool_mb:.1f}")
-    out.update(_eager_and_graph_stats(torch, "episode", episode, steps))
+    # each loop's ms per step: the eager episode's wall and the traced
+    # replay's (under the profiler)
+    out.update(_loop_stats("episode", 1e3 * e_launch.seconds / steps, (
+        None, None, None, 1e3 * g_launch.seconds / steps)))
 
     # (b) one collection episode of the large learner's setup
     lcfg = il.LargeNImitationConfig.from_experiment(
@@ -2033,6 +2132,7 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
         res, launches = _counted(cc, lambda: collect(graph),
                                  traced=name == "graph")
         runs[name] = (res, launches, launches.seconds)
+        lap(f"20 (b) {name}")
     prog = il.collection_program(ccfg, acfg, "dagger", lcfg.store_agents,
                                  DEVICE)
     same = all(all(torch.equal(a, b) for a, b in zip(runs[n][0],
@@ -2056,7 +2156,8 @@ def graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, n_agents,
                collection_capture_s=f"{prog.capture_s:.3f}",
                collection_instantiate_s=f"{prog.instantiate_s:.3f}",
                collection_pool_mb=f"{prog.pool_mb:.1f}")
-    out.update(_eager_and_graph_stats(torch, "collection", collect, steps))
+    out.update(_loop_stats("collection", 1e3 * runs["eager"][2] / steps, (
+        None, None, None, 1e3 * runs["graph"][2] / steps)))
     return out
 
 
@@ -2068,15 +2169,17 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
     prints."""
     import numpy as np
 
+    cut = dict(episode_steps=ROUND_STEPS, updates_per_step=ROUND_UPDATES)
     canon = ExperimentConfig.from_section(load_ini(CONFIG)["n32k"])
     learners = {
         "dense": lambda graph: im.ImitationLearner(
-            im.ImitationConfig.from_experiment(dcfg, mode="dagger"),
+            im.ImitationConfig.from_experiment(dataclasses.replace(
+                dcfg, **cut), mode="dagger"),
             device=DEVICE, graph=graph),
         "n32k": lambda graph: il.LargeNImitationLearner(
             il.LargeNImitationConfig.from_experiment(dataclasses.replace(
                 canon, n_agents=n_agents, buffer_size=LARGE_BUFFER,
-                n_test_episodes=1), mode="dagger"),
+                n_test_episodes=1, **cut), mode="dagger"),
             device=DEVICE, graph=graph)}
     out = {}
     for name, make in learners.items():
@@ -2084,9 +2187,13 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
         with tempfile.TemporaryDirectory() as tmp:
             state = os.path.join(tmp, "state.npz")
             eager.train(stop_after=1)
+            lap(f"21 [{name}] eager round 1")
             eager.save_training_state(state)
+            lap(f"21 [{name}] state save")
             eager.train(stop_after=2)
+            lap(f"21 [{name}] eager round 2")
             _, launched = _counted(cc, lambda: graphed.train(stop_after=2))
+            lap(f"21 [{name}] graph rounds 1-2")
             same = _same_training_state(torch, graphed, eager)
             graphed.load_training_state(state)
             captures = (im.UpdateProgram.captures,
@@ -2095,6 +2202,7 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
             resumed = (_same_training_state(torch, graphed, eager)
                        and captures == (im.UpdateProgram.captures,
                                         im.DenseEpisodeProgram.captures))
+            lap(f"21 [{name}] resume")
         losses = [float(lrn.last_loss_sum) for lrn in (graphed, eager)]
         g = graphed._updates
         print(f"#   round [{name}]: 2 DAGGER rounds and the eval at episode "
@@ -2117,19 +2225,13 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
                   f"{tm['rollout_ms_per_step']:.4f} ms per env step, "
                   f"{tm['update_ms_per_update']:.4f} ms per Adam update",
                   flush=True)
-        # per Adam update, and per dense env step, each loop alone
-        n_up = graphed.cfg.updates_per_episode
-        b = graphed.cfg.batch_size
-
-        def updates(graph):
-            if graph:
-                return graphed._updates.run(n_up, graphed.gen)
-            for _ in range(n_up):
-                im.adam_update(eager.actor, eager.opt,
-                               eager.buffer.sample(eager.gen, b))
-
-        out.update(_eager_and_graph_stats(torch, f"{name}_adam", updates,
-                                          n_up, "update", top=5))
+        # per Adam update of each loop: the eager learner's rounds', and
+        # TRACE_UPDATES more replays traced
+        _, *g_stats = _traced(torch, lambda: graphed._updates.run(
+            TRACE_UPDATES, graphed.gen), TRACE_UPDATES, top=5)
+        out.update(_loop_stats(f"{name}_adam", eager.timing_summary()[
+            "update_ms_per_update"], g_stats, "update"))
+        lap(f"21 [{name}] more updates, traced")
         if name == "dense":
             icfg = graphed.cfg
             steps = icfg.env.episode_steps
@@ -2140,8 +2242,21 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
                     graphed.actor, gen, 0.5, graphed.env, icfg.actor,
                     mode="dagger", graph=graph)
 
-            out.update(_eager_and_graph_stats(torch, "dense_episode",
-                                              episode, steps, top=5))
+            # per dense DAGGER episode step of each loop: one episode
+            # eagerly, timed, and one through the graph, traced; the two
+            # bit for bit
+            runs = {}
+            runs["eager"], e_s = _wall(torch, lambda: episode(False))
+            runs["graph"], *g_stats = _traced(torch, lambda: episode(True),
+                                              steps, top=5)
+            out.update(_loop_stats("dense_episode", 1e3 * e_s / steps,
+                                   g_stats))
+            if not (torch.equal(runs["eager"][1], runs["graph"][1]) and all(
+                    torch.equal(runs["eager"][0][k], runs["graph"][0][k])
+                    for k in runs["eager"][0])):
+                raise AssertionError("dense episode differs from the eager "
+                                     "loop")
+            lap("21 [dense] episode of each loop")
             prog = im.dense_program(graphed.env, icfg.actor, "dagger",
                                     icfg.n_rollout_envs, True, True,
                                     graphed._updates.device)
@@ -2166,12 +2281,7 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
                     walls.append(1e3 * (time.perf_counter() - t))
                 print(f"#   round [dense] {what}: {walls} ms (3 calls)",
                       flush=True)
-            runs = [episode(g) for g in (False, True)]
-            if not (torch.equal(runs[0][1], runs[1][1]) and all(
-                    torch.equal(runs[0][0][k], runs[1][0][k])
-                    for k in runs[0][0])):
-                raise AssertionError("dense episode differs from the eager "
-                                     "loop")
+            lap("21 [dense] reset and eval walls")
         out[f"{name}_bit_for_bit"] = same and resumed
         del graphed, eager
     # the baseline's expert episode, each cfg/baseline.cfg section
@@ -2203,6 +2313,7 @@ def round_phase(torch, im, il, cc, ExperimentConfig, load_ini, dcfg,
             raise AssertionError(f"baseline [{section}] differs from the "
                                  f"eager loop")
         kind = "centralized" if bcfg.centralized else "decentralized"
+        lap("21 baseline " + kind)
         out[f"baseline_{kind}_bit_for_bit"] = same
     return out
 
@@ -2225,30 +2336,27 @@ def _check_graph_launches(capture, replay, eager):
                                  f"host {host}, {captures} captures")
 
 
-def _eager_and_graph_stats(torch, what, run, steps,
-                           unit="step (reset included)", top=0):
-    """ms per step (or ``unit``) of one more ``run(graph)`` eagerly,
-    timed, and one through the graph, under the profiler (its ms under
-    it), with the graph's device busy ms, idle share and device ops per
-    step (:func:`_traced`; its ``top`` device operations printed),
-    printed; returns the phase line's fields. Cut in depth: the eager
-    loop is timed, not traced (a trace of an eager loop of ~10^5 launches
-    took up to 14 s of the run; PERF.md section 5 has the eager loops'
-    traces), and the graph runs once, traced."""
+def _loop_stats(what, eager_ms, graph, unit="step (reset included)"):
+    """Prints and returns the phase line's fields of each loop: the eager
+    loop's ms per ``unit``, ``eager_ms``, from a run the phase made
+    anyway (its device busy ms, idle share and device ops "not measured":
+    a trace of an eager loop of ~10^5 launches took up to 14 s of the
+    run; PERF.md section 5 has the eager loops' traces), and the graph's:
+    ``(busy ms, idle, ops, ms)`` per ``unit`` from one run under the
+    profiler (:func:`_traced`; its ms under it); from a replay the phase
+    traced for its launches, ``(None, None, None, ms)`` (that trace is
+    read for the launches alone)."""
     fmt = lambda v, f: "not measured" if v is None else format(v, f)
+    per = unit.split()[0]
     out = {}
-    for name, graph in (("eager", False), ("graph", True)):
-        if graph:
-            _, busy, idle, ops, ms = _traced(torch, lambda: run(graph),
-                                             steps, top=top)
-        else:
-            _, s = _wall(torch, lambda: run(graph))
-            ms, busy, idle, ops = 1e3 * s / steps, None, None, None
+    for name, (busy, idle, ops, ms) in (("eager", (None, None, None,
+                                                   eager_ms)),
+                                        ("graph", graph)):
         print(f"#   graph: {what}, {name}: {ms:.4f} ms per {unit}, device "
-              f"busy {fmt(busy, '.4f')} ms per {unit.split()[0]}, idle "
-              f"{fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops per "
-              f"{unit.split()[0]}", flush=True)
-        out[f"{what}_{name}_ms_per_{unit.split()[0]}"] = f"{ms:.4f}"
+              f"busy {fmt(busy, '.4f')} ms per {per}, idle "
+              f"{fmt(idle, '.4f')}, {fmt(ops, '.2f')} device ops per {per}",
+              flush=True)
+        out[f"{what}_{name}_ms_per_{per}"] = f"{ms:.4f}"
         out[f"{what}_{name}_idle"] = fmt(idle, ".4f")
     return out
 
@@ -2502,6 +2610,7 @@ def transfer_dense(torch, ev, cc, load_ini):
               f"{stats['std']} ({wall:.3f} s)", flush=True)
         _in_band(f"dense transfer K = {k}", stats["mean"],
                  TRANSFER_DENSE_BANDS[k])
+    lap("13 (d) dense route")
     # the --save-trajectory dump through its program, then eagerly
     import numpy as np
     import torch
@@ -2540,6 +2649,7 @@ def transfer_dense(torch, ev, cc, load_ini):
             with np.load(paths[name]) as a, np.load(paths["eager"]) as b:
                 same &= all(np.array_equal(a[key], b[key])
                             for key in a.files)
+    lap("13 (d) trajectory dumps")
     captured = im.TrajectoryProgram.captures - captures
     prog = im.trajectory_program(seen["env"], seen["acfg"],
                                  torch.device("cuda",
@@ -2580,8 +2690,10 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
         timing, err = transfer_kernels(torch, ev, ln, cc, bl,
                                        ExperimentConfig, load_ini, gen,
                                        floor_ms)
+    lap("13 (a) widths")
     # (b) the main path: every K at N, one episode per section
     per = transfer_eval(torch, ev, cc, ExperimentConfig, N, 1, traced=True)
+    lap("13 (b) every K at N = 32,768, traced")
     total = {}
     for k, (stats, launches, ms) in sorted(per.items(), reverse=True):
         want = _launches(1, captures=launches.captures, per_step=dict(zip(
@@ -2599,13 +2711,26 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
             for c, count in cols.items():
                 total[fn, c] = total.get((fn, c), 0) + count
     # the same evaluation at N_ORACLE against the JAX package's means
+    small = transfer_eval(torch, ev, cc, ExperimentConfig, N_ORACLE,
+                          TRANSFER_EPISODES)
+    # and its --save-trajectory file, from section [4] alone, one episode
+    # (cut in depth: every section's first episode recorded it, each
+    # through a program of its own)
     with tempfile.TemporaryDirectory() as tmp:
-        traj = os.path.join(tmp, "large.npz")
-        small = transfer_eval(torch, ev, cc, ExperimentConfig, N_ORACLE,
-                              TRANSFER_EPISODES, ("--save-trajectory", traj))
+        ini = load_ini(TRANSFER_CONFIG)
+        for name in ini.sections():
+            if name != "4":
+                ini.remove_section(name)
+        one, traj = os.path.join(tmp, "k4.cfg"), os.path.join(tmp, "k4.npz")
+        with open(one, "w") as f:
+            ini.write(f)
+        ev.main([one, "--actor-base", TRANSFER_BASE, "--n-agents",
+                 str(N_ORACLE), "--episodes", "1", "--save-trajectory", traj,
+                 "--device", DEVICE])
         _check_trajectory(traj, {"x": (200, 2000, 4), "reward": (200,),
                                  "final_x": (N_ORACLE, 4),
                                  "subset_indices": (2000,)})
+    lap("13 (b) every K at N = 4,096")
     for k, (stats, _, ms) in sorted(small.items(), reverse=True):
         print(f"#   transfer: K = {k}, N = {N_ORACLE}, {TRANSFER_EPISODES} "
               f"episodes: {stats['mean']} +- {stats['std']}, overflow "
@@ -2617,6 +2742,7 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
     with torch.no_grad():
         parity_err = transfer_parity(torch, ev, ln, cc, ExperimentConfig,
                                      load_ini, gen)
+    lap("13 (c) card against CPU")
     dense = transfer_dense(torch, ev, cc, load_ini)
     means = {k: per[k][0]["mean"] for k in per}
     ms = {k: per[k][2] for k in per}
@@ -2649,6 +2775,7 @@ def ddpg_eval_phase(torch, ev, load_ini):
               flush=True)
         _in_band(f"{ckpt} eval mean", stats["mean"], band)
         out[ckpt] = stats["mean"]
+        lap("14 (a) " + ckpt)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         ev.main([DDPG_CONFIGS["ddpg"], "--actor-path",
@@ -2660,6 +2787,7 @@ def ddpg_eval_phase(torch, ev, load_ini):
             "test", "test_unbounded"] or not all(
             math.isfinite(float(v)) for r in rows[1:] for v in r[1:]):
         raise AssertionError(f"evaluate CLI rows {rows}")
+    lap("14 (a) the CLI's main")
     return out
 
 
@@ -2812,6 +2940,7 @@ def ddpg_step_parity(torch, dd, dl, tfl, tti, load_actor_npz,
               flush=True)
     finally:
         tfl.strict_fp32()
+    lap(f"14 (b) {config}, card and CPU")
     return rel
 
 
@@ -2847,7 +2976,10 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
     uninterrupted run's bit for bit, and the second captures nothing
     new; then one more episode under torch.profiler, the program's
     replay and the reset annotated. (d) :func:`ddpg_graph_check` against
-    the eager twin. Returns (ms per step, resumed, (d)'s fields)."""
+    the eager twin; the graph's ms, busy ms, idle share and device ops
+    per step are the profiled episode's, the eager loop's ms per step its
+    last episode's (cut in depth: no more episodes of each loop to time
+    them). Returns (ms per step, resumed, (d)'s fields)."""
     from multiagent_gnn_policies_tpu_torch.utils import graphs
 
     xcfg = ExperimentConfig.from_section(load_ini(DDPG_CONFIGS[config])[
@@ -2869,26 +3001,34 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
         ep["ms_per_step"] = 1e3 * (full.timing["s"] - s0) / (
             full.timing["steps"] - n0)
         per.append(ep)
-    eager.train(stop_after=episodes)
+        lap(f"14 (c) {config} graph episode {e}")
     same = None
-    if resume:
-        with tempfile.TemporaryDirectory() as tmp:
-            state = os.path.join(tmp, "state.npz")
-            part = cls(dcfg, device=DEVICE, graph=False)
-            if not part.train(state_path=state,
-                              stop_after=episodes - 1)["interrupted"]:
-                raise AssertionError("the stopped run did not stop")
+    with tempfile.TemporaryDirectory() as tmp:
+        # the eager twin: with ``resume``, stopped one episode early with
+        # its state saved (cut in depth: no third learner reruns those
+        # episodes to save it), then on through its last episode, timed
+        state = os.path.join(tmp, "state.npz")
+        if not eager.train(state_path=state if resume else None,
+                           stop_after=episodes - 1)["interrupted"]:
+            raise AssertionError("the stopped run did not stop")
+        s0, n0 = eager.timing["s"], eager.timing["steps"]
+        eager.train(stop_after=episodes)
+        eager_ms = 1e3 * (eager.timing["s"] - s0) / (
+            eager.timing["steps"] - n0)
+        lap(f"14 (d) {config} eager twin")
+        if resume:
             state_mb = os.path.getsize(state) / 2**20
-            del part
-            rest = cls(dcfg, device=DEVICE)
-            rest.train(state_path=state, stop_after=episodes)
-            fresh = _same_training_state(torch, rest, eager)
-            del rest
+            # the learner that captured first: the fresh learner's
+            # train writes its own state over the file when it stops
             captures = graphs.Program.captures
             full.load_training_state(state)
             full.train(stop_after=episodes)
             captured = (_same_training_state(torch, full, eager)
                         and graphs.Program.captures == captures)
+            rest = cls(dcfg, device=DEVICE)
+            rest.train(state_path=state, stop_after=episodes)
+            fresh = _same_training_state(torch, rest, eager)
+            del rest
             same = fresh and captured
             print(f"#   ddpg train: {config}: episode {episodes} resumed "
                   f"from the state of an eager run stopped before it, "
@@ -2898,9 +3038,11 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
                   f"{state_mb:.1f} MiB)", flush=True)
             if not same:
                 raise AssertionError(f"{config}: the resumed run differs")
-    graph = ddpg_graph_check(torch, config, full, eager, per)
-    # an eval draws from the generator: after the resume check
-    mean, std = full.evaluate()
+            lap(f"14 (c) {config} resume")
+    # (d), whose eval through the program (after the resume check: an
+    # eval draws from the generator) is (c)'s eval after training
+    graph, rewards = ddpg_graph_check(torch, config, full, eager, per)
+    mean, std = float(rewards.mean()), float(rewards.std())
     evals = [f for ev_, f in log.events if ev_ == "eval"]
     steps = dcfg.env.episode_steps
     print(f"#   ddpg train: {config}.cfg [{section}] ({cls.__name__}, "
@@ -2935,8 +3077,13 @@ def ddpg_train_phase(torch, dd, dl, tfl, ExperimentConfig, load_ini, config,
         prof_wall_ms = 1e3 * (time.perf_counter() - t) / steps
     print(f"#   ddpg trace: {config}.cfg, one episode, per env step with its "
           f"gradient step", flush=True)
-    summarize_trace(trace_events(prof), steps,
-                    float(graph[f"{config}_graph_ms_per_step"]), prof_wall_ms)
+    s = summarize_trace(trace_events(prof), steps, prof_wall_ms,
+                        prof_wall_ms)
+    lap(f"14 (c) {config} profiled episode")
+    graph.update(_loop_stats(config, eager_ms, (None, None, None,
+                                                prof_wall_ms) if s is None
+                             else (s["busy_ms"], s["idle"],
+                                   s["ops_per_step"], prof_wall_ms)))
     return per[-1]["ms_per_step"], same, graph
 
 
@@ -2945,14 +3092,12 @@ def ddpg_graph_check(torch, config, full, eager, per):
     episodes: one program per gate step the run met) against its eager
     twin (``graph=False``) that ran the same episodes: the last episode's
     summed reward and losses and the training state bit for bit; each
-    program's capture and instantiate seconds and pool MB; ms per env
-    step with its gradient steps, busy ms, idle share and device ops per
-    step of one more episode of each loop (:func:`_eager_and_graph_stats`),
-    bit for bit after; the eval (``n_test_episodes`` episodes) through its
+    program's capture and instantiate seconds and pool MB; the eval
+    (``n_test_episodes`` episodes) through its
     program and eagerly, its wall and rewards bit for bit; then one more
     episode's replay behind its eager reset under CUDA's sync debug mode
     "error": finite sums, no new capture. Returns the phase line's
-    fields."""
+    fields and the eval's rewards through the program."""
     from multiagent_gnn_policies_tpu_torch.utils import graphs
 
     steps = full.cfg.env.episode_steps
@@ -2971,12 +3116,6 @@ def ddpg_graph_check(torch, config, full, eager, per):
     if not same:
         raise AssertionError(f"{config}: the graphs differ from the eager "
                              f"loop")
-    out = _eager_and_graph_stats(
-        torch, config, lambda graph: (full if graph else eager).episode(),
-        steps,
-        "step (reset included)", top=5)
-    if not _same_training_state(torch, full, eager):
-        raise AssertionError(f"{config}: the timed episodes differ")
     import numpy as np
 
     walls, rewards = {}, {}
@@ -2992,6 +3131,7 @@ def ddpg_graph_check(torch, config, full, eager, per):
           f"for bit {same_eval}", flush=True)
     if not same_eval:
         raise AssertionError(f"{config}: the eval graph differs")
+    lap(f"14 (d) {config} evals")
     # last: the eager twin runs no more episodes
     captures = graphs.Program.captures
     start = full._start()
@@ -3008,10 +3148,11 @@ def ddpg_graph_check(torch, config, full, eager, per):
           f"no new capture {synced}", flush=True)
     if not synced:
         raise AssertionError(f"{config}: the replay under sync debug mode")
-    out.update({f"{config}_graph_bit_for_bit": same and same_eval,
-                f"{config}_eval_graph_ms": f"{walls['graph']:.3f}",
-                f"{config}_eval_eager_ms": f"{walls['eager']:.3f}"})
-    return out
+    lap(f"14 (d) {config} sync debug replay")
+    return {f"{config}_graph_bit_for_bit": same and same_eval,
+            f"{config}_eval_graph_ms": f"{walls['graph']:.3f}",
+            f"{config}_eval_eager_ms": f"{walls['eager']:.3f}"}, rewards[
+                "graph"]
 
 
 def ddpg_phase(torch, ev, cc, ExperimentConfig, load_ini):
@@ -3075,17 +3216,22 @@ def main():
     dev = torch.device(DEVICE)
     smi = nvidia_smi_line()
     print(smi, flush=True)
-    phase("device", t, torch_name=repr(torch.cuda.get_device_name(0)),
+    phase("device", t, imports_s=f"{T0 - T_START:.2f}",
+          torch_name=repr(torch.cuda.get_device_name(0)),
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda)
 
-    # 2. build
+    # 2. build, and beside it the profiler's start-up
     t = time.perf_counter()
-    built = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        building = pool.submit(_build.build)
+        profiler_s = profiler_start_up(torch, dev)
+        built = building.result()
     _build.library()
     for line in ptxas_summary(built.ptxas):
         print(f"#   {line}", flush=True)
     phase("build", t, nvcc_seconds=f"{built.seconds:.2f}",
+          profiler_start_up_s=f"{profiler_s:.2f}",
           library=os.path.relpath(built.path, ROOT))
 
     # 3. kernels at this slice's shapes, after 3 policy steps
@@ -3238,6 +3384,15 @@ def main():
     phase("trace", t, steps=TRACE_STEPS, ms_per_step=f"{step_ms:.4f}",
           graph_ms_per_step=f"{graph_ms:.4f}")
 
+    # 20. the episode program against the eager loop, run here: phase 4's
+    # capture is its first episode, its program still cached
+    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as il
+
+    t = time.perf_counter()
+    graph = graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, N,
+                        reward, launched)
+    phase("graph", t, **graph)
+
     # 6-8. the dense N = 100 path; it launches none of the cell kernels
     from multiagent_gnn_policies_tpu_torch.algos import imitation as im
     from multiagent_gnn_policies_tpu_torch.algos.baseline import (
@@ -3273,8 +3428,6 @@ def main():
                              f"{dense_launches}")
 
     # 10-12. the large-N expert, large-N DAGGER, the variant checkpoints
-    from multiagent_gnn_policies_tpu_torch.algos import imitation_large as il
-
     t = time.perf_counter()
     experts = expert_phase(ev, cc, load_ini, N)
     phase("expert", t, centralized=experts[True],
@@ -3337,12 +3490,6 @@ def main():
     backends = backends_phase(torch, ev, ln, cc, il, ExperimentConfig,
                               load_ini, N, reward)
     phase("backends", t, **backends)
-
-    # 20. the episode program: graph against the eager loop
-    t = time.perf_counter()
-    graph = graph_phase(torch, ev, ln, il, cc, ExperimentConfig, load_ini, N,
-                        reward)
-    phase("graph", t, **graph)
 
     # 21. the compiled imitation round: graph against the eager loops
     t = time.perf_counter()

@@ -25,6 +25,18 @@ from multiagent_gnn_policies_tpu_torch.models.torch_import import (
 )
 from multiagent_gnn_policies_tpu_torch.utils import checkpoint as tck
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N32K = ROOT / "models" / "actor_FlockingRelative-v0_dagger_n32k.npz"
 

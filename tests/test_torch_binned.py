@@ -26,6 +26,18 @@ from multiagent_gnn_policies_tpu_torch.ops import binned as tbn
 from multiagent_gnn_policies_tpu_torch.ops import blocked as tbl
 from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REL = 1e-5
 N = 48
 

@@ -32,6 +32,18 @@ from multiagent_gnn_policies_tpu_torch.envs.flocking import (
 from multiagent_gnn_policies_tpu_torch.ops import blocked as tbl
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as tcc
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REL = 1e-5
 
 

@@ -26,6 +26,18 @@ from multiagent_gnn_policies_tpu_torch.ops import cells as tcl
 
 from test_torch_binned import _both, _close, _state
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 48
 
 

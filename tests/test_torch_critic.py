@@ -28,6 +28,18 @@ from multiagent_gnn_policies_tpu_torch.models import critic as tcr
 from multiagent_gnn_policies_tpu_torch.models import torch_import as tti
 from multiagent_gnn_policies_tpu_torch.utils import checkpoint as tck
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MODELS = ROOT / "models"
 REL = 1e-5

@@ -49,6 +49,18 @@ from test_torch_ddpg import (
     _np_layers,
 )
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 48
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 

@@ -25,6 +25,18 @@ from multiagent_gnn_policies_tpu_torch.algos.replay import ReplayBuffer
 from multiagent_gnn_policies_tpu_torch.envs import flocking as tfl
 from multiagent_gnn_policies_tpu_torch.ops import graph as tgr
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 REL = 1e-5
 
 

@@ -37,6 +37,18 @@ from multiagent_gnn_policies_tpu_torch.utils import checkpoint as tck
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
 from multiagent_gnn_policies_tpu_torch.utils.metrics import MetricsLogger
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DAGGER_K3 = ROOT / "models" / "actor_FlockingRelative-v0_dagger_k3"
 

@@ -19,6 +19,7 @@ resumes and shapes exactly.
 """
 
 import dataclasses
+import functools
 import pathlib
 
 import numpy as np
@@ -42,6 +43,18 @@ from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as tcc
 from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
 from multiagent_gnn_policies_tpu_torch.utils import checkpoint as tck
 from multiagent_gnn_policies_tpu_torch.utils.config import ExperimentConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REL = 1e-4
 N, T, S = 48, 12, 16
@@ -84,7 +97,8 @@ def test_expert_episode_matches_jax(centralized):
                                      centralized_expert=centralized,
                                      path="pcells", return_overflow=True)
     reset_key, _ = jax.random.split(key)
-    x0, _, _ = jln._reset(_jax_cfg(jp), reset_key, centralized=centralized)
+    x0 = jax.jit(lambda k: jln._reset(_jax_cfg(jp), k,
+                                      centralized=centralized)[0])(reset_key)
     tr, tx, tovf = tln.rollout_large(
         None, None, None, tp, centralized_expert=centralized,
         return_overflow=True, x0=torch.from_numpy(np.array(x0)),
@@ -95,18 +109,27 @@ def test_expert_episode_matches_jax(centralized):
     _close(tx, jx, "final state")
 
 
-def _jax_draws(jp, key, beta, path="pcells"):
+def _jax_draws(path="pcells"):
     """The reset, coins and subsample indices that the JAX
-    ``_collect_episode`` draws for ``key`` (its key schedule,
-    ``imitation_large.py:151, 206-207``) on ``path``."""
+    ``_collect_episode`` draws for the collection tests' key 11 and beta
+    0.5 (its key schedule, ``imitation_large.py:151, 206-207``) on
+    ``path``; each path's drawn once per module (both modes draw alike),
+    each caller given its own copies."""
+    return tuple(torch.from_numpy(a.copy()) for a in _jax_draws_np(path))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_draws_np(path):
+    jp = jfl.FlockingParams(n_agents=N, episode_steps=T)
+    key, beta = jax.random.key(11), jnp.float32(0.5)
     reset_key, scan_key = jax.random.split(key)
-    x0, _, _ = jln._reset(_jax_cfg(jp, path), reset_key, centralized=True)
+    x0 = jax.jit(lambda k: jln._reset(_jax_cfg(jp, path), k,
+                                      centralized=True)[0])(reset_key)
     _, coin_keys, idx_keys = (jax.random.split(k, T)
                               for k in jax.random.split(scan_key, 3))
     coins = jax.vmap(lambda k: jax.random.bernoulli(k, beta))(coin_keys)
     idx = jax.vmap(lambda k: jax.random.randint(k, (S,), 0, N))(idx_keys)
-    return (torch.from_numpy(np.array(x0)), torch.from_numpy(np.array(coins)),
-            torch.from_numpy(np.array(idx)).long())
+    return np.array(x0), np.array(coins), np.array(idx).astype(np.int64)
 
 
 @pytest.mark.parametrize("mode", ["dagger", "cloning"])
@@ -125,7 +148,7 @@ def test_collection_episode_matches_jax(mode):
         lambda pp, kk, bb: jil._collect_episode(_jax_cfg(jp), jcfg, mode, S,
                                                 T, pp, kk, bb)
     )(params, key, beta)
-    x0, coins, idx = _jax_draws(jp, key, beta)
+    x0, coins, idx = _jax_draws()
     if mode == "dagger":
         assert 0 < int(coins.sum()) < T        # both branches taken
     actor = tac.Actor(tcfg)
@@ -159,7 +182,7 @@ def test_cells_and_binned_collection_matches_jax(path, mode):
         lambda pp, kk, bb: jil._collect_episode(
             _jax_cfg(jp, path), jcfg, mode, S, T, pp, kk, bb)
     )(params, key, beta)
-    x0, coins, idx = _jax_draws(jp, key, beta, path)
+    x0, coins, idx = _jax_draws(path)
     actor = tac.Actor(tcfg)
     actor.load_state_dict(tti.actor_params_from_numpy(
         [{k: np.array(v) for k, v in layer.items()} for layer in params]))

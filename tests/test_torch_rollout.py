@@ -33,6 +33,18 @@ from multiagent_gnn_policies_tpu_torch.models import torch_import as tim
 from multiagent_gnn_policies_tpu_torch.ops import cells_cuda as tcc
 from multiagent_gnn_policies_tpu_torch.parallel import large_n as tln
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 N32K = str(ROOT / "models" / "actor_FlockingRelative-v0_dagger_n32k.npz")
 ACFG = dict(n_s=6, n_a=2, hidden=(32, 32), k=3)
@@ -45,15 +57,24 @@ def _close(got, want, rel=1e-4):
     assert err <= rel * np.abs(want).max(), (err, np.abs(want).max())
 
 
+_RESETS = {}
+
+
 def _jax_reset(p, key):
-    """The initial state ``jln.rollout_large`` draws for ``key``."""
-    cfg = jln.LargeNConfig(params=p, block=p.n_agents, rows=p.n_agents,
-                           axis=None, path="pcells",
-                           cell_spec=jpc.make_pcell_spec(p),
-                           need_expert=False)
-    reset_key, _ = jax.random.split(key)
-    x, _, _ = jln._reset(cfg, reset_key, centralized=True)
-    return np.array(x)
+    """The initial state ``jln.rollout_large`` draws for ``key``, its
+    reset jitted as the rollout runs it; drawn once per process for each
+    env and key (the K cases of an env share it), each caller given its
+    own copy."""
+    tag = (p, jax.random.key_data(key).tobytes())
+    if tag not in _RESETS:
+        cfg = jln.LargeNConfig(params=p, block=p.n_agents, rows=p.n_agents,
+                               axis=None, path="pcells",
+                               cell_spec=jpc.make_pcell_spec(p),
+                               need_expert=False)
+        reset_key, _ = jax.random.split(key)
+        _RESETS[tag] = np.array(jax.jit(
+            lambda k: jln._reset(cfg, k, centralized=True)[0])(reset_key))
+    return _RESETS[tag].copy()
 
 
 def _port_actor(params, tcfg):

@@ -17,6 +17,18 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """The torch side on one thread: under the suite's xdist workers its
+    intra-op threads oversubscribe the cores (the port's small ops ran
+    ~20x slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 TINY = """
@@ -57,7 +69,7 @@ def run_cli(cfg_text, tmp_path, *extra, device="cpu"):
         capture_output=True, text=True, cwd=tmp_path, timeout=300,
         env={"PATH": os.environ.get("PATH", "/usr/bin:/bin"),
              "HOME": str(tmp_path), "PYTHONPATH": str(ROOT),
-             "PYTHONDONTWRITEBYTECODE": "1"})
+             "PYTHONDONTWRITEBYTECODE": "1", "OMP_NUM_THREADS": "1"})
 
 
 def _rows(stdout):
