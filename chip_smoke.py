@@ -53,7 +53,9 @@ loop, run only to time it (13 of them, ~25 s of the run).
    (tolerance 1e-5 of each channel's largest magnitude: same arithmetic,
    other summation order; degrees and min r^2 exact), and against the
    O(N²) blocked oracle at N = 4,096 and on a dense swarm whose tiles need
-   several shared-memory chunks and block passes (tolerance 1e-4: the
+   several shared-memory chunks and block passes, there also K2 at 18
+   columns and K3 at 12 on a row-strided view, K = 4's widths, which
+   ``csrc/cells.cu`` sweeps with ops of their own (tolerance 1e-4: the
    oracle sums through float32 matrix products); the grid build under
    CUDA's sync debug mode, which raises on any host synchronisation; then
    each kernel timed with CUDA events over 50 launches beside its plain
@@ -149,19 +151,26 @@ loop, run only to time it (13 of them, ~25 s of the run).
     ``models/actor_FlockingStochastic-v0_transfer2_stoch{1..4}`` policies
     of ``cfg/transfer_stoch.cfg`` (hidden 32x2, K = 4, 3, 2, 1).
     (a) A K = 4 lattice reset at N = 32,768 under the section made
-    noiseless (FlockingRelative), 4 policy steps, then on that step's own
+    noiseless (FlockingRelative), 4 policy steps, then the build's
+    ``-Xptxas -v`` lines of every instantiation, and on that step's own
     inputs K2 at 18 columns (and at 6, K = 2's width) and K3 at 12 on the
     row-strided view the delayed stack passes, each against its plain
     version (1e-5) and timed beside it with its bound and the launch
-    floor; 24 columns in two counted chunks (18 + 6) of K2 and of K3
-    against the plain versions (1e-5); and at N = 4,096 the whole K = 4
-    stack of ystack_pre against the O(N²) delayed_ystack (1e-4).
+    floor; K2 at 18 and K3 at 12 (``RowApplyDegOp``, ``RowApplyOp``)
+    each equal bit for bit to its 6-column slices launched alone through
+    the 6-column kernels; 24 columns in two counted chunks (18 + 6) of K2
+    and of K3 against the plain versions (1e-5); and at N = 4,096 the
+    whole K = 4 stack of ystack_pre against the O(N²) delayed_ystack
+    (1e-4).
     (b) ``evaluate cfg/transfer_stoch.cfg --actor-base ... --n-agents
     32768 --episodes 1`` through the CLI's main, each section traced:
     overflow 0, finite rewards, K1/K2/K3 launches on the device
     201/200/400, 201/200/200, 201/200/0 and 201/0/0 for K = 4, 3, 2, 1
     (and each capture's warm-up); rewards and ms per step (under the
-    profiler) printed. No JAX number exists at this N, so the same
+    profiler) printed, and K = 4's rewards at N = 32,768 and 4,096 to
+    every digit (K2 at 18 and K3 at 12 carry every K = 4 step, so a
+    change in any of their sums shows there). No JAX number exists at
+    this N, so the same
     evaluation at N = 4,096 with 3 episodes per section must land within
     +-1.5 of the JAX package's means there (-25.05, -25.71, -26.55,
     -28.62), overflow 0; then the CLI on section [4] alone, 1 episode at
@@ -669,9 +678,10 @@ def ptxas_summary(lines):
 def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
     """A swarm of ~32 agents per 2 x 2 cell (cap 64, no overflow) swept in
     tiles a whole grid row wide (8 columns): each tile holds several
-    blocks' worth of agents (several passes) and a halo of several staging
-    chunks. K1, K2 and K3 against their plain versions and the blocked
-    oracle; K3 on a row-strided view of the columns."""
+    blocks' worth of agents (several passes) and a halo of several
+    staging chunks. K1, K2 at 12 and 18 columns and K3 at 6 and 12
+    against their plain versions and the blocked oracle; K3 on row-strided
+    views of the columns, as the delayed stack passes them."""
     n, tile = 2048, 8
     p = FlockingParams(n_agents=n)
     spec = cc.PCellSpec(cx=8, cy=8, cap=64, cell=2.0)
@@ -684,22 +694,13 @@ def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
             int(row_n.max()) <= cc.BLOCK_THREADS):
         raise AssertionError(f"dense case: overflow {int(grid.overflow)}, "
                              f"halo {halo}, row {int(row_n.max())}")
-    cols = torch.randn((n, 12), generator=gen, device=dev)
+    cols = torch.randn((n, 18), generator=gen, device=dev)
     per = cc.frame_sweep(x, grid, spec, 1.0, True, tile=tile)
     deg = per[:, 6].contiguous()
-    applied = cc.apply_deg_sweep(x, cols, deg, grid, spec, 1.0, tile=tile)
     pos = x[:, :2].contiguous()
-    applied3 = cc.apply_sweep(pos, cols[:, 6:], deg, grid, spec, 1.0,
-                              tile=tile)
     check_close("K1 vs plain, dense tiles", per,
                 cc.frame_sweep_plain(x, grid, spec, 1.0, True), REL_PLAIN,
                 exact_channels=(6, 9))
-    check_close("K2 vs plain, dense tiles", applied,
-                cc.apply_deg_sweep_plain(x, cols, deg, grid, spec, 1.0),
-                REL_PLAIN)
-    check_close("K3 vs plain, dense tiles", applied3,
-                cc.apply_sweep_plain(pos, cols[:, 6:], deg, grid, spec, 1.0),
-                REL_PLAIN)
     ref = bl.blocked_frame(x, p, True, block=512)
     check_close("K1 vs blocked oracle, dense tiles", per[:, :6], ref.values,
                 REL_ORACLE)
@@ -707,11 +708,28 @@ def dense_tile_case(torch, cc, bl, FlockingParams, gen, dev):
                 ref.degree[:, None], 0.0, exact_channels=(0,))
     if float(per[:, 9].min()) != float(ref.min_r2):
         raise AssertionError("dense tiles: min r^2 differs from the oracle")
-    check_close("K2 vs blocked oracle, dense tiles", applied,
-                bl.blocked_apply_adjT(pos, cols, p, 512, deg=deg), REL_ORACLE)
-    check_close("K3 vs blocked oracle, dense tiles", applied3,
-                bl.blocked_apply_adjT(pos, cols[:, 6:], p, 512, deg=deg),
-                REL_ORACLE)
+    # K2 on contiguous columns, K3 on the views (row stride 18) that the
+    # delayed stack passes at K = 3 (6 columns) and K = 4 (12)
+    for c in (12, 18):
+        k2_cols = cols[:, :c].contiguous()
+        applied = cc.apply_deg_sweep(x, k2_cols, deg, grid, spec, 1.0,
+                                     tile=tile)
+        check_close(f"K2 C={c} vs plain, dense tiles", applied,
+                    cc.apply_deg_sweep_plain(x, k2_cols, deg, grid, spec,
+                                             1.0), REL_PLAIN)
+        check_close(f"K2 C={c} vs blocked oracle, dense tiles", applied,
+                    bl.blocked_apply_adjT(pos, k2_cols, p, 512, deg=deg),
+                    REL_ORACLE)
+    for c in (6, 12):
+        view = cols[:, 18 - c:]
+        applied3 = cc.apply_sweep(pos, view, deg, grid, spec, 1.0,
+                                  tile=tile)
+        check_close(f"K3 C={c} vs plain, dense tiles", applied3,
+                    cc.apply_sweep_plain(pos, view, deg, grid, spec, 1.0),
+                    REL_PLAIN)
+        check_close(f"K3 C={c} vs blocked oracle, dense tiles", applied3,
+                    bl.blocked_apply_adjT(pos, view, p, 512, deg=deg),
+                    REL_ORACLE)
     return halo
 
 
@@ -2406,16 +2424,19 @@ def _large_setup(ev, ln, cc, ExperimentConfig, section, n, steps=None):
 
 
 def transfer_kernels(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
-                     gen, floor_ms):
+                     gen, floor_ms, ptxas):
     """Phase 13 (a): the widths K = 4 adds, on a K = 4 step's own inputs
     at N (the transfer2_stoch4 policy, TRANSFER_STEPS steps from a lattice
     reset, the noiseless section): K2 at 18 columns (and at 6, K = 2's
     width) and K3 at 12 on the row-strided view the delayed stack passes,
     each against its plain version (REL_PLAIN) and timed beside it with
-    its bound; 24 columns in two counted chunks of each; and at N_ORACLE
-    the whole K = 4 stack of ystack_pre against the O(N²) delayed_ystack
-    (REL_ORACLE). Returns ``({name: (ms, plain_ms, bound_ms, bound_by)},
-    {name: max abs err})``."""
+    its bound; those two equal to their 6-column slices launched alone,
+    bit for bit; 24 columns in two counted chunks of each; and at N_ORACLE the whole K = 4
+    stack of ystack_pre against the O(N²) delayed_ystack (REL_ORACLE).
+    Prints the build's ``ptxas`` lines first. Returns ``({name: (ms,
+    plain_ms, bound_ms, bound_by)}, {name: max abs err})``."""
+    for line in ptxas_summary(ptxas):
+        print(f"#   {line}", flush=True)
     section = _transfer_section(load_ini, 4, noiseless=True)
     p, cfg, acfg, actor = _large_setup(ev, ln, cc, ExperimentConfig,
                                        section, N)
@@ -2463,6 +2484,23 @@ def transfer_kernels(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
     err = {name: check_close(f"{name} vs plain, K = 4 step, N={N}",
                              fn(), plain(), REL_PLAIN)
            for name, (fn, plain) in cases.items()}
+    # K = 4's widths against their 6-column slices, each launched alone
+    # through sweep_tile's 6-column kernels: each column's sum is the
+    # same, bit for bit
+    for name, c in (("K2 C=18", 18), ("K3 C=12", 12)):
+        whole, slices = cases[name][0](), []
+        for s in range(0, c, 6):
+            if name.startswith("K2"):
+                slices.append(cc.apply_deg_sweep(x, cols18[:, s:s + 6], deg,
+                                                 grid, spec, r2cut))
+            else:
+                slices.append(cc.apply_sweep(pos_h, cols_h[:, s:s + 6],
+                                             deg_h, grid_h, spec, r2cut))
+        same = torch.equal(whole, torch.cat(slices, 1))
+        print(f"#   {name} equals its {len(slices)} 6-column slices launched "
+              f"alone, bit for bit: {same}", flush=True)
+        if not same:
+            raise AssertionError(f"{name} differs from its 6-column slices")
     # 24 columns: two launches each (18 + 6), each chunk read in place
     cols24 = torch.cat([cols18, cols6], 1)
     chunked = {"K2": (lambda: cc.apply_deg_sweep(x, cols24, deg, grid, spec,
@@ -2678,7 +2716,8 @@ def _check_trajectory(path, shapes):
                                  f"finite")
 
 
-def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
+def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini,
+                   ptxas):
     """Phase 13, this slice's main path: (a) the new widths, (b) the
     full-width cross-K evaluation at N and the N_ORACLE check against the
     JAX package's means, (c) card against CPU at K = 4 and K = 1, (d) the
@@ -2689,7 +2728,7 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
     with torch.no_grad():
         timing, err = transfer_kernels(torch, ev, ln, cc, bl,
                                        ExperimentConfig, load_ini, gen,
-                                       floor_ms)
+                                       floor_ms, ptxas)
     lap("13 (a) widths")
     # (b) the main path: every K at N, one episode per section
     per = transfer_eval(torch, ev, cc, ExperimentConfig, N, 1, traced=True)
@@ -2739,6 +2778,12 @@ def transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig, load_ini):
             raise AssertionError(f"K = {k} at N={N_ORACLE} overflowed")
         _in_band(f"transfer K = {k} at N={N_ORACLE}", stats["mean"],
                  TRANSFER_LARGE_BANDS[k])
+    # the K = 4 rewards to every digit: K2 at 18 columns and K3 at 12 carry
+    # every K = 4 step, so a change of their sums shows here
+    for n_agents, res in ((N, per), (N_ORACLE, small)):
+        print(f"#   transfer K = 4 rewards, N = {n_agents}: "
+              f"{[repr(float(r)) for r in res[4][0]['rewards']]}",
+              flush=True)
     with torch.no_grad():
         parity_err = transfer_parity(torch, ev, ln, cc, ExperimentConfig,
                                      load_ini, gen)
@@ -3451,7 +3496,7 @@ def main():
     t = time.perf_counter()
     (t_timing, t_err, t_launches, t_means, t_ms, t_parity,
      t_dense) = transfer_phase(torch, ev, ln, cc, bl, ExperimentConfig,
-                               load_ini)
+                               load_ini, built.ptxas)
     phase("transfer", t, **{f"K{k}_reward": t_means[k] for k in t_means},
           **{f"K{k}_ms_per_step": f"{t_ms[k]:.4f}" for k in t_ms},
           card_vs_cpu_max_abs_err=t_parity,

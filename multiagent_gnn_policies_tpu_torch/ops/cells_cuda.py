@@ -377,6 +377,17 @@ def _pair_geometry(pos: torch.Tensor, cand: torch.Tensor,
     return valid, pj, dx, dy, dx * dx + dy * dy
 
 
+def _neighbour_sum(cols: torch.Tensor, jj: torch.Tensor,
+                   w: torch.Tensor) -> torch.Tensor:
+    """sum_m w[r, m]·cols[jj[r, m]] -> (R, C). The terms are laid out
+    (C, R, M), so each column is summed over the candidates along a
+    contiguous innermost axis: on the CPU a column's sum then depends on
+    its own terms alone, as each column's sum does in the kernels, and C
+    columns give any split of them, concatenated, bit for bit."""
+    g = cols.t().contiguous().index_select(1, jj.reshape(-1))
+    return (g.view(cols.shape[1], *jj.shape) * w).sum(-1).t().contiguous()
+
+
 def frame_sweep_plain(x: torch.Tensor, grid: PCellGrid, spec: PCellSpec,
                       r2cut: float, centralized: bool,
                       rows: slice = slice(None),
@@ -414,7 +425,7 @@ def apply_deg_sweep_plain(x: torch.Tensor, cols: torch.Tensor,
     valid, _, _, _, r2 = _pair_geometry(x[:, :2], cand, rows)
     jj = cand.clamp_min(0)
     w = (valid & (r2 < r2cut)).to(cols.dtype) / deg[jj].clamp_min(1.0)
-    return _banded((w[..., None] * cols[jj]).sum(1), grid, spec,
+    return _banded(_neighbour_sum(cols, jj, w), grid, spec,
                    _band(spec, band), rows)
 
 
@@ -430,8 +441,8 @@ def apply_sweep_plain(pos: torch.Tensor, cols: torch.Tensor,
     valid, _, _, _, r2 = _pair_geometry(pos, cand, rows)
     m = (valid & (r2 < r2cut)).to(cols.dtype)
     wcols = cols / torch.clamp_min(deg, 1.0)[:, None]
-    return _banded((m[..., None] * wcols[cand.clamp_min(0)]).sum(1), grid,
-                   spec, _band(spec, band), rows)
+    return _banded(_neighbour_sum(wcols, cand.clamp_min(0), m), grid, spec,
+                   _band(spec, band), rows)
 
 
 # --- kernel wrappers ------------------------------------------------------

@@ -122,15 +122,23 @@ def _swarm_on(dev, case):
     return x, tcc.make_pcell_spec(tp), None
 
 
+# the K2 and K3 widths of a K: K2's columns, and the columns of the (N, C2)
+# array that K3 reads as a row-strided view
+K_WIDTHS = {3: (12, slice(0, 6)), 4: (18, slice(6, 18))}
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", sorted(K_WIDTHS))
 @pytest.mark.parametrize("case", ["overflow", "cap32_edge2", "dense_chunks",
                                   "ragged_n", "one_agent"])
-def test_kernels_match_plain_versions_on_hard_grids(case):
+def test_kernels_match_plain_versions_on_hard_grids(case, k):
     """K1/K2/K3 against their plain versions where the tile sweep must
     loop or fill: dropped agents (overflow), cap 32 with edge_mult 2, a
     tile whose halo needs several staging chunks and whose agents several
-    passes of the block, N not a multiple of the block, and N = 1. Two
-    launches on one input are bit-identical."""
+    passes of the block, N not a multiple of the block, and N = 1; K2 and
+    K3 at K = 3's widths (12 and 6 columns) and K = 4's (18 and 12). Two
+    launches on one input are bit-identical, and at K = 4 each of K2 and
+    K3 equals its 6-column slices launched alone."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU "
                     "mode; the CPU tests cover their plain versions)")
@@ -145,16 +153,19 @@ def test_kernels_match_plain_versions_on_hard_grids(case):
         assert int(row_n.max()) > tcc.BLOCK_THREADS
         assert int((row_n[:-2] + row_n[1:-1] + row_n[2:]).max()) > (
             max(tcc.FRAME_CHUNK, tcc.APPLY_DEG_CHUNK))
+    c2, k3_cols = K_WIDTHS[k]
     gen = torch.Generator(device=dev).manual_seed(3)
-    cols = torch.randn((n, 12), generator=gen, device=dev)
+    cols = torch.randn((n, c2), generator=gen, device=dev)
+    view = cols[:, k3_cols]
+    pos = x[:, :2].contiguous()
     runs = []
     for _ in range(2):
         per = tcc.frame_sweep(x, grid, ts, 1.0, True, tile=tile)
         deg = per[:, 6].contiguous()
         runs.append((per, tcc.apply_deg_sweep(x, cols, deg, grid, ts, 1.0,
                                               tile=tile),
-                     tcc.apply_sweep(x[:, :2].contiguous(), cols[:, :6],
-                                     deg, grid, ts, 1.0, tile=tile)))
+                     tcc.apply_sweep(pos, view, deg, grid, ts, 1.0,
+                                     tile=tile)))
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
@@ -163,11 +174,48 @@ def test_kernels_match_plain_versions_on_hard_grids(case):
            exact=(6, 9))
     _close(applied, tcc.apply_deg_sweep_plain(x, cols, per[:, 6], grid, ts,
                                               1.0), "K2")
-    _close(applied3, tcc.apply_sweep_plain(x[:, :2], cols[:, :6], per[:, 6],
+    _close(applied3, tcc.apply_sweep_plain(x[:, :2], view, per[:, 6],
                                            grid, ts, 1.0), "K3")
     dropped = grid.slot < 0
     assert (per[dropped, :9] == 0).all() and (per[dropped, 9] == 1e12).all()
     assert (applied[dropped] == 0).all() and (applied3[dropped] == 0).all()
+    if k == 4:
+        assert torch.equal(applied, torch.cat(
+            [tcc.apply_deg_sweep(x, cols[:, s:s + 6], deg, grid, ts, 1.0,
+                                 tile=tile) for s in (0, 6, 12)], 1))
+        assert torch.equal(applied3, torch.cat(
+            [tcc.apply_sweep(pos, view[:, s:s + 6], deg, grid, ts, 1.0,
+                             tile=tile) for s in (0, 6)], 1))
+
+
+@pytest.mark.gpu
+def test_k4_widths_are_bit_identical_across_launches_and_tiles():
+    """On a lattice swarm at the cross-K transfer's radius of 1.5 (its
+    cells hold ~2 agents): K2 at 18 columns and K3 at 12 on the delayed
+    stack's row-strided view give the same bits in two launches at the
+    default tile and at tiles of 1 and 3 columns."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU "
+                    "mode; the CPU tests cover their plain versions)")
+    dev = torch.device("cuda")
+    n = 4096
+    tp = FlockingParams(n_agents=n, comm_radius=1.5)
+    ts = tcc.make_pcell_spec(tp)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = _init_candidate(gen, tp, dev)
+    grid = tcc.build_pcell_grid(x[:, :2], ts)
+    assert int(grid.overflow) == 0
+    deg = tcc.frame_sweep(x, grid, ts, 2.25, True)[:, 6].contiguous()
+    cols = torch.randn((n, 18), generator=gen, device=dev)
+    pos = x[:, :2].contiguous()
+    for run in (lambda t: tcc.apply_deg_sweep(x, cols, deg, grid, ts, 2.25,
+                                              tile=t),
+                lambda t: tcc.apply_sweep(pos, cols[:, 6:], deg, grid, ts,
+                                          2.25, tile=t)):
+        outs = [run(t) for t in (None, None, 1, 3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(outs[0], o) for o in outs[1:])
+        assert outs[0].abs().sum() > 0
 
 
 def _delayed_stack_case(dev, c):
@@ -275,15 +323,22 @@ def test_grid_on_the_card_equals_the_grid_on_the_cpu():
 @pytest.mark.gpu
 def test_tile_timeline_reads_every_phase(capsys):
     """ops/tile_timeline.py builds the stamped library and reports each
-    phase of K1's, K2's and K3's tile sweep."""
+    phase of K1's tile sweep and of K2's and K3's at every width it builds
+    (its default ``--cols``), each kernel once."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
     from multiagent_gnn_policies_tpu_torch.ops import tile_timeline
 
     tile_timeline.main(["--n", "4096"])
     out = capsys.readouterr().out
+    kernels = ["K1 frame_kernel: "]
+    for c in tcc.APPLY_COLS:
+        kernels += [f"K2 apply_deg_kernel C={c}: ",
+                    f"K3 apply_kernel C={c}, row stride {c + 6}: "]
+    for name in kernels:
+        assert out.count(name) == 1, name
     for label, _, _ in tile_timeline.PHASES:
-        assert out.count(label) == 3, label
+        assert out.count(label) == len(kernels), label
 
 
 def _transfer_case(dev):
